@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port: ``python3 chip_smoke.py``.
+
+Needs one NVIDIA card (Hopper: the kernels build for sm_90a) and nvcc; exits
+non-zero without one. Phases, each of which fails the run if it fails:
+
+1. device: the card's name and power limit, torch and CUDA versions;
+2. build: every CUDA source of the port compiled from the checkout;
+3. kernel vs plain version: ``kmer_hist`` on the card against
+   ``kmer_hist_reference`` on the card (exact), and against the numpy
+   ground truth at k=7, on edge-case genomes (N, lowercase, multi-record,
+   a 2 Mb repeat, empty, shorter than k, tile seams, a 9 Mb genome);
+4. main path at full width: ``process_query_data`` (k=7, a classifier
+   8192->2048->12 and 12 subtree models 8192->2048->1024 with 850 anchors
+   each, random weights from a seeded torch.Generator) on 32 query genomes
+   on the card, then 4 of them again with ``-device cpu``;
+5. timings: stage wall times of the main path, and the kernel against its
+   plain version, a one-library-call yardstick and its bound at the main
+   path's shape (16 genomes of 5 Mb, k=7), with CUDA events.
+
+The last three lines of standard output are the kernel report (JSON), the
+card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+...}``; they are printed only when every phase passed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from kf2vecfsw_tpu_torch.cli import main as cli_main
+from kf2vecfsw_tpu_torch.defaults import EMBEDDING_SIZE, HIDDEN_SIZE_FC1
+from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
+from kf2vecfsw_tpu_torch.kernels import build
+from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
+from kf2vecfsw_tpu_torch.kmer.counter import concat_with_separators, count_canonical_numpy
+from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_size
+from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
+from kf2vecfsw_tpu_torch.train.checkpoint import save_checkpoint
+
+SEED = 20261016
+K_MAIN = 7
+N_CLASSES = 12
+N_ANCHORS = 850  # defaults.DEFAULT_SUBTREE_SZ
+N_QUERIES = 32
+BIG_GENOME = 9_000_000  # > 2^23 bases: the JAX package's chunked B2 route
+PHASE5_G, PHASE5_LEN = 16, 5_000_000  # one kernel batch of typical bacterial genomes
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_SCALAR_OPS_PER_S = 67e12  # fp32 outside the tensor cores; no faster scalar rate
+KERNEL_SOURCE = "kf2vecfsw_tpu_torch/kernels/csrc/kmer_hist.cu"
+REPLACES = (
+    "kf2vecfsw_tpu/kernels/histogram.py:511 (_hist_kernel_batch, B1); "
+    "kf2vecfsw_tpu/kernels/histogram.py:54 (_hist_kernel, B2)"
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def random_codes(rng, n: int, n_rate: float = 0.01, gc: float = 0.5) -> np.ndarray:
+    p = [(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2]
+    codes = rng.choice(4, size=n, p=p).astype(np.uint8)
+    codes[rng.random(n) < n_rate] = INVALID
+    return codes
+
+
+def to_batch(genomes: list[np.ndarray], device) -> tuple[torch.Tensor, torch.Tensor]:
+    offsets = np.zeros(len(genomes) + 1, dtype=np.int64)
+    np.cumsum([g.size for g in genomes], out=offsets[1:])
+    bases = np.concatenate(genomes) if genomes else np.zeros(0, np.uint8)
+    return torch.from_numpy(bases).to(device), torch.from_numpy(offsets).to(device)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# -- phase 1 and 2 -------------------------------------------------------------
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build() -> float:
+    t0 = time.perf_counter()
+    build.build_all(["kmer_hist"])
+    seconds = time.perf_counter() - t0
+    for line in build.build_logs.get("kmer_hist", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"  ptxas: {line.strip()}")
+    log(f"phase build: kmer_hist.cu with nvcc for sm_90a in {seconds:.2f} s")
+    return seconds
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+
+def edge_genomes(rng, k: int, tile: int) -> list[tuple[str, np.ndarray]]:
+    lower = rng.choice(np.frombuffer(b"acgtnACGT", np.uint8), 300_000)
+    repeat = np.concatenate([np.zeros(1_000_000, np.uint8), np.tile(np.array([0, 3], np.uint8), 500_000)])
+    out = [
+        ("random_1pctN", random_codes(rng, 1_500_000)),
+        ("lowercase", encode_bases(lower)),
+        ("multi_record", concat_with_separators(
+            [random_codes(rng, 700_000), random_codes(rng, 5), random_codes(rng, 400_001)], k)),
+        ("repeat_2Mb", repeat),
+        ("empty", np.zeros(0, np.uint8)),
+        ("shorter_than_k", random_codes(rng, k - 1, n_rate=0.0)),
+    ]
+    for m in (1, 3):  # windows = m tiles +- k, +-1, 0: the kernel's seam
+        for d in (-k, -1, 0, 1, k):
+            out.append((f"tile{m}{d:+d}", random_codes(rng, m * tile + d + k - 1, n_rate=0.001)))
+    out.append(("big_9Mb", random_codes(rng, BIG_GENOME)))
+    return out
+
+
+def phase_kernel_vs_plain(dev) -> float:
+    rng = np.random.default_rng(SEED)
+    tile = tile_windows()
+    max_err = 0.0
+    for k in (3, 5, 7, 9, 12):
+        genomes = edge_genomes(rng, k, tile)
+        bases, offsets = to_batch([g for _, g in genomes], dev)
+        got = kmer_hist(bases, offsets, k)
+        torch.cuda.synchronize()
+        ref = kmer_hist_reference(bases, offsets, k)
+        max_err = max(max_err, float((got.long() - ref.long()).abs().max()))
+        check(torch.equal(got, ref), f"k={k}: kernel != plain version")
+        n_windows = sum(max(g.size - k + 1, 0) for _, g in genomes)
+        if k == K_MAIN:
+            host = got.cpu().numpy()
+            for (name, g), row in zip(genomes, host):
+                check(np.array_equal(row.astype(np.int64), count_canonical_numpy(g, k)),
+                      f"k={k} {name}: kernel != count_canonical_numpy")
+            # the 9 Mb genome alone: one genome per launch (the B2 route)
+            big = genomes[-1][1]
+            b1, o1 = to_batch([big], dev)
+            alone = kmer_hist(b1, o1, k)
+            check(torch.equal(alone[0], got[-1]), "9 Mb genome alone != in the batch")
+        del got, ref, bases, offsets
+        torch.cuda.empty_cache()
+        log(f"phase kernel_vs_plain: k={k} G={len(genomes)} windows={n_windows} exact")
+    return max_err
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+
+def write_library(lib_dir: str, dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    v = canonical_vocab_size(K_MAIN)
+    with torch.device(dev):
+        classifier = init_params_(Classifier(v, HIDDEN_SIZE_FC1, N_CLASSES), gen)
+    save_checkpoint(
+        os.path.join(lib_dir, "classifier_model.ckpt"), "NeuralNetClassifierOnly",
+        {"model_input_size": v, "model_hidden_size_fc1": HIDDEN_SIZE_FC1,
+         "model_class_count": N_CLASSES},
+        params_to_jax(classifier),
+    )
+    for c in range(N_CLASSES):
+        with torch.device(dev):
+            model = init_params_(DistEmbed(v, HIDDEN_SIZE_FC1, EMBEDDING_SIZE), gen)
+        save_checkpoint(
+            os.path.join(lib_dir, f"model_subtree_{c}.ckpt"), "NeuralNet",
+            {"model_input_size": v, "model_hidden_size_fc1": HIDDEN_SIZE_FC1,
+             "model_embedding_size": EMBEDDING_SIZE},
+            params_to_jax(model),
+        )
+        anchors = torch.randn(N_ANCHORS, EMBEDDING_SIZE, generator=gen, device=dev)
+        with open(os.path.join(lib_dir, f"embeddings_subtree_{c}.csv"), "w") as f:
+            for i, row in enumerate(anchors.cpu().numpy().tolist()):
+                f.write(f"c{c}_g{i}\t" + "\t".join(map(str, row)) + "\n")
+
+
+def write_queries(q_dir: str) -> tuple[list[str], int]:
+    """32 genomes of 1-6 Mb (one of 9 Mb), 1-3 records each, FASTA and
+    FASTQ, GC content spread so the classes spread."""
+    rng = np.random.default_rng(SEED + 1)
+    names, total_bases = [], 0
+    for i in range(N_QUERIES):
+        total = BIG_GENOME if i == N_QUERIES - 1 else int(rng.integers(1_000_000, 6_000_001))
+        n_rec = int(rng.integers(1, 4))
+        cuts = np.sort(rng.integers(1, total, size=n_rec - 1)) if n_rec > 1 else np.zeros(0, int)
+        seq = random_codes(rng, total, gc=0.3 + 0.4 * i / N_QUERIES)
+        letters = np.frombuffer(b"ACGTN", np.uint8)[seq]
+        records = np.split(letters, cuts)
+        fastq = i % 2 == 1
+        name = f"q{i:02d}"
+        with open(os.path.join(q_dir, f"{name}.{'fastq' if fastq else 'fna'}"), "wb") as f:
+            for j, rec in enumerate(records):
+                body = rec.tobytes()
+                if fastq:
+                    f.write(b"@%s_%d\n%s\n+\n%s\n" % (name.encode(), j, body, b"I" * len(body)))
+                else:
+                    f.write(b">%s_%d\n%s\n" % (name.encode(), j, body))
+        names.append(name)
+        total_bases += total
+    return names, total_bases
+
+
+def read_table(path: str, header: bool = True) -> tuple[list[str], dict[str, np.ndarray]]:
+    """(header cells, {label: values}) of a tab-separated table; `.emb`
+    files have no header row."""
+    with open(path) as f:
+        header = f.readline().rstrip("\n").split("\t") if header else []
+        rows = {}
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            rows[parts[0]] = np.array(parts[1:], dtype=np.float64)
+    return header, rows
+
+
+def check_outputs(out_dir: str, names: list[str], lib_dir: str) -> dict[str, int]:
+    kf = sorted(f for f in os.listdir(out_dir) if f.endswith(".kf"))
+    check(kf == sorted(f"{n}.kf" for n in names), f"expected {len(names)} .kf files, got {len(kf)}")
+    header, classes = read_table(os.path.join(out_dir, "classes.out"))
+    check(header[:3] == ["genome", "top_class", "top_p"] and len(header) == 3 + N_CLASSES,
+          "classes.out header")
+    check(sorted(classes) == sorted(names), f"classes.out rows {len(classes)} != {len(names)}")
+    top = {g: int(r[0]) for g, r in classes.items()}
+    for g, r in classes.items():
+        check(np.all(np.isfinite(r)) and abs(r[2:].sum() - 1) < 1e-4, f"{g}: class probabilities")
+    for c in sorted(set(top.values())):
+        h, dist = read_table(os.path.join(out_dir, f"apples_input_di_mtrx_subtree_{c}.csv"))
+        with open(os.path.join(lib_dir, f"embeddings_subtree_{c}.csv")) as f:
+            anchors = [line.split("\t", 1)[0] for line in f]
+        check(h == [""] + anchors, f"subtree {c}: APPLES header != anchor names")
+        members = sorted(g for g, cl in top.items() if cl == c)
+        check(sorted(dist) == members, f"subtree {c}: APPLES rows")
+        for g in members:
+            check(dist[g].shape == (N_ANCHORS,) and np.all(np.isfinite(dist[g])) and np.all(dist[g] >= 0),
+                  f"subtree {c} {g}: APPLES values")
+        _, emb = read_table(os.path.join(out_dir, f"embedding_subtree_{c}.emb"), header=False)
+        check(sorted(emb) == members and all(
+            e.shape == (EMBEDDING_SIZE,) and np.all(np.isfinite(e)) for e in emb.values()),
+            f"subtree {c}: embeddings")
+    return top
+
+
+def phase_main_path(work: str, dev) -> tuple[int, dict[str, float]]:
+    lib_dir, q_dir, out_dir = (os.path.join(work, d) for d in ("library", "queries", "out_cuda"))
+    for d in (lib_dir, q_dir, out_dir):
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    write_library(lib_dir, dev)
+    names, total_bases = write_queries(q_dir)
+    log(f"phase main_path: library + {len(names)} queries ({total_bases} bases) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    argv = ["process_query_data", "-input_dir", q_dir, "-output_dir", out_dir,
+            "-k", str(K_MAIN), "-classifier_model", lib_dir, "-distance_model", lib_dir]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmer_hist.launches = 0
+    stage_s = cli_main(argv)  # default device: the card
+    launches = kmer_hist.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches >= 1, "kmer_hist was not launched on the main path")
+    model_bytes = 4 * (canonical_vocab_size(K_MAIN) * HIDDEN_SIZE_FC1 + HIDDEN_SIZE_FC1 * EMBEDDING_SIZE)
+    check(peak >= model_bytes, f"peak device memory {peak} B: the models did not run on the card")
+    top = check_outputs(out_dir, names, lib_dir)
+    log(f"phase main_path: cuda run ok, kmer_hist launches={launches}, peak device memory "
+        f"{peak / 2**20:.0f} MiB, classes used={sorted(set(top.values()))}, stage seconds {stage_s}")
+
+    # four genomes again on the CPU (one FASTQ, multi-record, the 9 Mb one)
+    cpu_names = [names[0], names[1], names[2], names[-1]]
+    q_cpu, out_cpu = os.path.join(work, "queries_cpu"), os.path.join(work, "out_cpu")
+    os.makedirs(q_cpu)
+    os.makedirs(out_cpu)
+    for f in os.listdir(q_dir):
+        if f.rsplit(".f", 1)[0] in cpu_names:
+            os.symlink(os.path.join(q_dir, f), os.path.join(q_cpu, f))
+    cli_main(["process_query_data", "-input_dir", q_cpu, "-output_dir", out_cpu,
+              "-k", str(K_MAIN), "-classifier_model", lib_dir, "-distance_model", lib_dir,
+              "-device", "cpu"])
+    check(kmer_hist.launches == launches, "the CPU run launched the CUDA kernel")
+    for n in cpu_names:
+        with open(os.path.join(out_dir, f"{n}.kf"), "rb") as a, open(os.path.join(out_cpu, f"{n}.kf"), "rb") as b:
+            check(a.read() == b.read(), f"{n}.kf differs between cuda and cpu")
+    _, cls_gpu = read_table(os.path.join(out_dir, "classes.out"))
+    _, cls_cpu = read_table(os.path.join(out_cpu, "classes.out"))
+    compared = 0
+    for n in cpu_names:
+        np.testing.assert_allclose(cls_cpu[n][2:], cls_gpu[n][2:], rtol=1e-4, atol=1e-7)
+        logp = np.sort(np.log(cls_gpu[n][2:]))
+        if logp[-1] - logp[-2] <= 1e-3:
+            log(f"  {n}: top two classes within 1e-3 in log-probability; top_class not compared")
+            continue
+        check(cls_cpu[n][0] == cls_gpu[n][0], f"{n}: top_class differs between cuda and cpu")
+        c = int(cls_gpu[n][0])
+        for kind, has_header in (("apples_input_di_mtrx_subtree_{}.csv", True),
+                                 ("embedding_subtree_{}.emb", False)):
+            _, a = read_table(os.path.join(out_dir, kind.format(c)), has_header)
+            _, b = read_table(os.path.join(out_cpu, kind.format(c)), has_header)
+            np.testing.assert_allclose(b[n], a[n], rtol=1e-4, atol=1e-5)
+        compared += 1
+    check(compared >= 1, "no genome had a clear top class to compare cuda and cpu outputs")
+    log(f"phase main_path: cpu rerun of {len(cpu_names)} genomes: .kf identical, classes within "
+        f"rtol 1e-4, APPLES/.emb of {compared} genomes within rtol 1e-4 / atol 1e-5")
+    return launches, stage_s
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+
+def library_hist(bases: torch.Tensor, offsets: torch.Tensor, k: int) -> torch.Tensor:
+    """Yardstick: torch window codes + one torch.bincount (invalid windows
+    to a trash bin). Timed here only; the port never calls it."""
+    g, n_bins, n = offsets.numel() - 1, 4**k, bases.numel() - k + 1
+    b = bases.long()
+    fwd = torch.zeros(n, dtype=torch.int64, device=bases.device)
+    rc = torch.zeros_like(fwd)
+    valid = torch.ones(n, dtype=torch.bool, device=bases.device)
+    for i in range(k):
+        d = b[i : i + n]
+        fwd += d << (2 * (k - 1 - i))
+        rc += (3 - d) << (2 * i)
+        valid &= d < INVALID
+    pos = torch.arange(n, device=bases.device)
+    genome = torch.searchsorted(offsets, pos, right=True) - 1
+    valid &= pos + k <= offsets[genome + 1]
+    idx = torch.where(valid, genome * n_bins + torch.minimum(fwd, rc), g * n_bins)
+    return torch.bincount(idx, minlength=g * n_bins + 1)[:-1].view(g, n_bins)
+
+
+def phase_timings(dev) -> dict:
+    rng = np.random.default_rng(SEED + 2)
+    g, length, k = PHASE5_G, PHASE5_LEN, K_MAIN
+    bases, offsets = to_batch([random_codes(rng, length) for _ in range(g)], dev)
+    kernel_ms = cuda_ms(lambda: kmer_hist(bases, offsets, k), reps=20)
+    plain_ms = cuda_ms(lambda: kmer_hist_reference(bases, offsets, k), reps=3, warmup=1)
+    library_ms = cuda_ms(lambda: library_hist(bases, offsets, k), reps=3, warmup=1)
+    got, ref = kmer_hist(bases, offsets, k), kmer_hist_reference(bases, offsets, k)
+    check(torch.equal(got, ref), "main-path shape: kernel != plain version")
+    check(torch.equal(got.long(), library_hist(bases, offsets, k)), "yardstick disagrees")
+    n_bytes = bases.numel() + offsets.numel() * 8 + g * 4**k * 4
+    windows = g * (length - k + 1)
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    # per window: rolling fwd (shift, or, and) and revcomp (shift, sub,
+    # shift, or), the min, the validity test and the bin add
+    ops_ms = windows * 10 / H100_SCALAR_OPS_PER_S * 1e3
+    out = {
+        "shape": f"G={g} x {length} bases, k={k}",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+    }
+    log(f"phase timings: kmer_hist {json.dumps(out)}")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    max_err = phase_kernel_vs_plain(dev)
+    work = tempfile.mkdtemp(prefix="kf2vec_chip_smoke_")
+    try:
+        launches, stage_s = phase_main_path(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    timing = phase_timings(dev)
+    log(f"phase timings: process_query_data stages (s) {json.dumps(stage_s)}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    report = {"kernels": [{
+        "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "tpu_kernels": ["B1", "B2"], "launches": launches, "matches_plain": max_err == 0.0,
+        "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
+    }]}
+    print(json.dumps(report))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

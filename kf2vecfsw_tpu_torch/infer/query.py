@@ -1,0 +1,156 @@
+"""Query -> backbone placement distance matrices (reference: query.py:53-200).
+
+For each predicted subtree: load that subtree's dense distance model and
+backbone embeddings onto the device, embed the queries in blocks, and write
+the squared+clamped query-to-backbone distances to
+apples_input_di_mtrx_subtree_{c}.csv and the raw embeddings to
+embedding_subtree_{c}.emb, in the JAX package's formats.
+
+Two faults of the JAX version are not carried over: the embedding width is
+taken from the ``fc2`` weights, not from checkpoint meta, and every block is
+written before the next one is computed, so an error in a later subtree
+never truncates the files of an earlier one.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import defaults
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..models.mlp import params_from_jax
+from ..ops.pairwise import cdist_exact_blocked, squared_clamped
+from ..train.checkpoint import load_checkpoint
+from ..utils.logging import close_logger, make_run_logger
+from ..utils.timing import hms
+from .classify import load_features, read_classes_out
+
+FSW_NOT_PORTED = (
+    "FSW subtree models (NeuralNetFSW) are not served by the PyTorch port yet: "
+    "they arrive with the exact-FSW slice (the Hopper row sort); use the JAX "
+    "package (python -m kf2vecfsw_tpu) for FSW libraries"
+)
+
+
+def f32_row(vals, sep: str = "\t") -> str:
+    """One str(np.float32)-formatted row ending in '\\n' (the JAX package's
+    ``train/distance.py:f32_row``)."""
+    return sep.join(str(np.float32(v)) for v in vals) + "\n"
+
+
+def read_remap(path: str | None, log) -> dict[str, str] | None:
+    if not path:
+        return None
+    try:
+        remap: dict[str, str] = {}
+        with open(path) as f:
+            header = f.readline().rstrip("\n").split("\t")
+            i_l = header.index("label")
+            i_n = header.index("new_label")
+            for line in f:
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) > max(i_l, i_n):
+                    remap[parts[i_l]] = parts[i_n]
+        log.info(f"Remap loaded: {len(remap)} entries")
+        return remap
+    except (OSError, ValueError) as e:  # reference warns and proceeds (query.py:102-104)
+        log.warning(f"Could not read remap file {path}: {e}")
+        return None
+
+
+def read_embeddings_csv(path: str) -> tuple[list[str], np.ndarray]:
+    names: list[str] = []
+    rows: list[np.ndarray] = []
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 2:
+                continue
+            names.append(parts[0])
+            rows.append(np.array(parts[1:], dtype=np.float32))
+    return names, np.vstack(rows)
+
+
+def query_func(
+    features_folder: str,
+    feature_files: list[str],
+    model_dir: str,
+    classes_dir: str,
+    seed: int,
+    output_dir: str,
+    remap_path: str | None = None,
+    block_size: int = defaults.DEFAULT_BLOCK_SZ,
+    device: str = DEFAULT_DEVICE,
+) -> list[str]:
+    dev = resolve_device(device)
+    since = time.time()
+    log = make_run_logger(output_dir, "query_run.log")
+    try:
+        log.info("\n==> Input arguments...\n")
+        log.info(f"Query directory: {features_folder}")
+        log.info(f"Model directory: {model_dir}")
+        log.info(f"Class information: {classes_dir}")
+        log.info(f"Seed: {seed}")
+        log.info(f"Device: {dev}")
+
+        log.info("\n==> Querying...\n")
+        assignments = read_classes_out(os.path.join(classes_dir, "classes.out"))
+        # removesuffix, NOT split('.kf'): a genome named 'x.kf2' would
+        # otherwise truncate to 'x' and be silently dropped from querying
+        present = {os.path.basename(p).removesuffix(".kf") for p in feature_files}
+        assignments = [(g, c) for g, c in assignments if g in present]
+        clades = sorted({c for _, c in assignments})
+        log.info(f"Total subtrees to query: {len(clades)}")
+
+        remap = read_remap(remap_path, log)
+        written: list[str] = []
+        for c in clades:
+            contig_ids = [g for g, cl in assignments if cl == c]
+            log.info(f"\n==> Working on subtree {c} ({len(contig_ids)} contigs)...\n")
+            model_name, _, params = load_checkpoint(
+                os.path.join(model_dir, f"model_subtree_{c}.ckpt")
+            )
+            if model_name == "NeuralNetFSW":
+                raise NotImplementedError(FSW_NOT_PORTED)
+            model = params_from_jax(params).to(dev).eval()
+            input_size = params["fc1"]["w"].shape[0]
+            emb_names, anchors = read_embeddings_csv(
+                os.path.join(model_dir, f"embeddings_subtree_{c}.csv")
+            )
+            anchors_dev = torch.from_numpy(anchors).to(dev)
+
+            dist_path = os.path.join(output_dir, f"apples_input_di_mtrx_subtree_{c}.csv")
+            emb_path = os.path.join(output_dir, f"embedding_subtree_{c}.emb")
+            written += [dist_path, emb_path]
+            with open(dist_path, "w") as f_dist, open(emb_path, "w") as f_emb, torch.no_grad():
+                f_dist.write("\t" + "\t".join(emb_names) + "\n")
+                for z in range(0, len(contig_ids), block_size):
+                    paths = [
+                        os.path.join(features_folder, f"{g}.kf")
+                        for g in contig_ids[z : z + block_size]
+                    ]
+                    names, x = load_features(paths, None, input_size, dev)
+                    emb = model(x)
+                    dist = squared_clamped(cdist_exact_blocked(emb, anchors_dev))
+                    emb, dist = emb.cpu().numpy(), dist.cpu().numpy()
+                    labels = [remap.get(n, n) for n in names] if remap else names
+                    for lbl, drow in zip(labels, dist):
+                        f_dist.write(lbl + "\t" + f32_row(drow))
+                    for lbl, erow in zip(labels, emb):
+                        f_emb.write(lbl + "\t" + f32_row(erow))
+            log.info(f"Wrote distance matrix: {dist_path}")
+            log.info(f"Wrote embeddings: {emb_path}")
+            log.info(f"\n==> Computation is completed for subtree {c}!\n")
+            hrs, m, s = hms(time.time() - since)
+            log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+
+        log.info("\n==> Computation Completed!\n")
+        hrs, m, s = hms(time.time() - since)
+        log.info(f"Total time: {hrs:02d}:{m:02d}:{s:02d}")
+        return written
+    finally:
+        close_logger(log)

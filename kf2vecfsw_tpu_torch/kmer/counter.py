@@ -1,0 +1,117 @@
+"""Canonical k-mer counting (the in-repo replacement for Jellyfish).
+
+Semantics of the reference's ``jellyfish count -m k -C`` + ``dump``
+(main.py:309-319), as in the JAX package's ``kmer/counter.py``:
+
+- every record of a file is scanned; each length-k window of A/C/G/T only
+  (case-insensitive) adds one to its canonical k-mer (the smaller of the
+  k-mer and its reverse complement in A<C<G<T order),
+- windows holding any other character are skipped,
+- counts are reported over the sorted canonical vocabulary, zeros included.
+
+``KmerCounter`` counts a batch of genomes with one ``kmer_hist`` call: the
+CUDA kernel for every genome on the card, its plain version on the CPU.
+The numpy functions below are the host ground truth the tests hold both to.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from ..io.fasta import INVALID
+from ..kernels.histogram import MAX_BASES, MAX_K, MIN_K, kmer_hist
+from .vocab import MAX_DENSE_K, canonical_vocab_codes
+
+
+def window_codes_numpy(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Base-4 canonical window codes + validity mask (vectorized numpy).
+
+    Returns (canon, valid) of length L-k+1 (empty if L < k).
+    """
+    codes = np.asarray(codes)
+    n = codes.size - k + 1
+    if n <= 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=bool)
+    b = codes.astype(np.int64)
+    fwd = np.zeros(n, dtype=np.int64)
+    rc = np.zeros(n, dtype=np.int64)
+    valid = np.ones(n, dtype=bool)
+    for i in range(k):
+        digit = b[i : i + n]
+        fwd += digit << (2 * (k - 1 - i))
+        rc += (3 - digit) << (2 * i)
+        valid &= digit < INVALID
+    # invalid digits (=4) corrupt fwd/rc but those windows are masked out
+    canon = np.minimum(fwd, rc)
+    return canon, valid
+
+
+def count_canonical_numpy(codes: np.ndarray, k: int) -> np.ndarray:
+    """Dense histogram over all 4^k codes; only canonical bins are nonzero."""
+    if k > MAX_DENSE_K:
+        raise ValueError(f"dense counting supports k <= {MAX_DENSE_K}")
+    canon, valid = window_codes_numpy(codes, k)
+    return np.bincount(canon[valid], minlength=4**k).astype(np.int64)
+
+
+def concat_with_separators(seqs: list[np.ndarray], k: int) -> np.ndarray:
+    """Concatenate encoded records with k-1 INVALID separators so windows
+    never straddle record boundaries (matches per-record Jellyfish scans)."""
+    if not seqs:
+        return np.zeros(0, dtype=np.uint8)
+    sep = np.full(k - 1, INVALID, dtype=np.uint8)
+    parts: list[np.ndarray] = []
+    for i, s in enumerate(seqs):
+        if i:
+            parts.append(sep)
+        parts.append(np.asarray(s, dtype=np.uint8))
+    return np.concatenate(parts)
+
+
+class KmerCounter:
+    """Counts canonical k-mers of genome batches on one device and folds
+    them to the `.kf` column order (the canonical vocabulary)."""
+
+    def __init__(self, k: int, device: str | torch.device = DEFAULT_DEVICE):
+        if not MIN_K <= k <= MAX_K:
+            raise ValueError(f"dense k-mer counting supports {MIN_K} <= k <= {MAX_K}, got {k}")
+        self.k = k
+        self.device = resolve_device(device)
+        self.vocab = canonical_vocab_codes(k)
+        self._vocab_dev = torch.from_numpy(self.vocab).to(self.device)
+
+    def count_batch(self, seqs_batch: list[list[np.ndarray]]) -> np.ndarray:
+        """int64 (G, V) vocab-ordered counts of G genomes, each a list of
+        encoded records. One kernel launch and one device->host copy per
+        run of consecutive genomes that together hold fewer than MAX_BASES
+        bases (one run for any realistic batch); a genome of MAX_BASES or
+        more raises."""
+        genomes = [concat_with_separators(seqs, self.k) for seqs in seqs_batch]
+        parts, start = [], 0
+        while start < len(genomes):
+            stop, total = start, 0
+            while stop < len(genomes) and total + genomes[stop].size < MAX_BASES:
+                total += genomes[stop].size
+                stop += 1
+            if stop == start:
+                raise ValueError(
+                    f"genome {start} holds {genomes[start].size} bases; k-mer counting "
+                    f"takes fewer than {MAX_BASES} per genome (int32 bins)"
+                )
+            parts.append(self._count(genomes[start:stop]))
+            start = stop
+        if not parts:
+            return np.zeros((0, self.vocab.size), dtype=np.int64)
+        return np.concatenate(parts)
+
+    def _count(self, genomes: list[np.ndarray]) -> np.ndarray:
+        offsets = np.zeros(len(genomes) + 1, dtype=np.int64)
+        np.cumsum([g.size for g in genomes], out=offsets[1:])
+        counts = kmer_hist(
+            torch.from_numpy(np.concatenate(genomes)).to(self.device),
+            torch.from_numpy(offsets).to(self.device),
+            self.k,
+        )
+        return counts.index_select(1, self._vocab_dev).cpu().numpy().astype(np.int64)

@@ -1,0 +1,90 @@
+"""The port stands alone: importing every module of kf2vecfsw_tpu_torch and
+chip_smoke.py loads neither jax nor any module of the JAX package, and the
+entry points run on the card by default, raising when there is none."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import kf2vecfsw_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(kf2vecfsw_tpu_torch.__path__, "kf2vecfsw_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    ).stdout
+    report = json.loads(out.strip().splitlines()[-1])
+    assert "kf2vecfsw_tpu_torch.cli" in report["modules"]
+    assert "kf2vecfsw_tpu_torch.kernels.histogram" in report["modules"]
+    loaded = report["loaded"]
+    assert "jax" not in loaded and not any(m.startswith("jax.") for m in loaded)
+    assert "kf2vecfsw_tpu" not in loaded
+    assert not [m for m in loaded if m.startswith("kf2vecfsw_tpu.")]
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo."""
+    with open(os.path.join(REPO, "chip_smoke.py"), "rb") as src:
+        (tmp_path / "chip_smoke.py").write_bytes(src.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from kf2vecfsw_tpu_torch.cli import main
+    from kf2vecfsw_tpu_torch.device import resolve_device
+    from kf2vecfsw_tpu_torch.infer.classify import classify_func
+    from kf2vecfsw_tpu_torch.infer.query import query_func
+    from kf2vecfsw_tpu_torch.ingest.frequencies import get_frequencies
+    from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter
+
+    d = str(tmp_path)
+    for call in (
+        lambda: resolve_device(),
+        lambda: KmerCounter(7),
+        lambda: get_frequencies(d, d, k=5),
+        lambda: classify_func(d, [], d, 28, d),
+        lambda: query_func(d, [], d, d, 28, d),
+        lambda: main(["get_frequencies", "-input_dir", d, "-output_dir", d]),
+        lambda: main(["process_query_data", "-input_dir", d, "-output_dir", d,
+                      "-classifier_model", d, "-distance_model", d]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("mps")
+    assert os.listdir(d) == []  # nothing ran on the CPU instead
