@@ -4,13 +4,15 @@ defaults, plus ``-device {cuda,cpu}`` (default ``cuda``) for a caller who
 asks for the CPU.
 
 Commands:
+  get_kmers                Genome -> (N, k+1) k-mer point set .npy (FSW input)
   get_frequencies          Genome -> canonical k-mer frequency .kf vector
   classify                 Classify query samples
   query                    Query distance models -> APPLES inputs
-  process_query_data       Wrapper: frequencies+classify+query
+  process_query_data       Wrapper: frequencies+classify+kmers+query
 
-Training (``build_library`` and its steps) and FSW libraries are served by
-the JAX package until later slices of the port.
+Libraries of dense and of FSW subtree models are served. Training
+(``build_library`` and its steps) stays with the JAX package until later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ from . import __version__
 from . import defaults as D
 
 VERSION = f"kf2vec-tpu-torch {__version__}"
+
+
+def _cmd_get_kmers(args):
+    from .ingest.kmers import get_kmers
+
+    get_kmers(args.input_dir, args.output_dir, k=args.k, device=args.device)
 
 
 def _cmd_get_frequencies(args):
@@ -46,39 +54,45 @@ def _cmd_classify(args):
 def _cmd_query(args):
     from .infer.query import query_func
 
-    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    files = sorted(
+        glob.glob(os.path.join(args.input_dir, "*.kf"))
+        + glob.glob(os.path.join(args.input_dir, "*.npy"))
+    )
     query_func(
         args.input_dir, files, args.model, args.classes, args.seed, args.o,
         remap_path=args.remap, block_size=args.block, device=args.device,
     )
 
 
-def _refuse_fsw_library(distance_model: str) -> None:
-    from .infer.query import FSW_NOT_PORTED
-    from .train.checkpoint import load_checkpoint_meta
+def _fsw_ks(distance_model: str) -> list[int]:
+    """The k of every FSW subtree model of a library, from checkpoint meta
+    only (the weights are not read)."""
+    from .train.checkpoint import fsw_k_from_meta, load_checkpoint_meta
 
+    ks = set()
     for ckpt in sorted(glob.glob(os.path.join(distance_model, "model_subtree_*.ckpt"))):
         try:
-            model_name, _ = load_checkpoint_meta(ckpt)
-        except (OSError, ValueError) as e:
+            model_name, meta = load_checkpoint_meta(ckpt)
+            if model_name == "NeuralNetFSW":
+                ks.add(fsw_k_from_meta(meta))
+        except (OSError, ValueError, KeyError) as e:
             # as the JAX package: an unreadable model fails the query only
             # if a genome is classified into its subtree
             print(f"WARNING: could not inspect {ckpt}: {e}")
-            continue
-        if model_name == "NeuralNetFSW":
-            raise NotImplementedError(f"{ckpt}: {FSW_NOT_PORTED}")
+    return sorted(ks)
 
 
 def _cmd_process_query_data(args) -> dict[str, float]:
-    """get_frequencies -> classify -> query (main.py:626-651). Returns the
-    wall seconds of each stage."""
+    """get_frequencies -> classify -> get_kmers (once per k of the library's
+    FSW models) -> query (main.py:626-651). Returns the wall seconds of each
+    stage."""
     from .device import resolve_device
     from .infer.classify import classify_func
     from .infer.query import query_func
     from .ingest.frequencies import get_frequencies
+    from .ingest.kmers import get_kmers
 
     resolve_device(args.device)
-    _refuse_fsw_library(args.distance_model)
     seconds = {}
     t0 = time.perf_counter()
     print("\n==> Computing k-mer frequences\n")
@@ -96,12 +110,18 @@ def _cmd_process_query_data(args) -> dict[str, float]:
     )
     t2 = time.perf_counter()
     seconds["classify"] = t2 - t1
+    # FSW subtree models read {name}_k{k}.npy point sets, not .kf vectors
+    for fk in _fsw_ks(args.distance_model):
+        print(f"\n==> Computing k-mer point sets for FSW models (k={fk})\n")
+        get_kmers(args.input_dir, args.output_dir, k=fk, threads=args.p, device=args.device)
+    t3 = time.perf_counter()
+    seconds["get_kmers"] = t3 - t2
     print("\n==> Computing model distances\n")
     query_func(
         args.output_dir, files, args.distance_model, args.output_dir, args.di_seed,
         args.output_dir, device=args.device,
     )
-    seconds["query"] = time.perf_counter() - t2
+    seconds["query"] = time.perf_counter() - t3
     print("\n==> Query processing step is completed!\n")
     return seconds
 
@@ -133,6 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("-v", "--version", action="version", version=VERSION)
     sub = parser.add_subparsers(title="commands", dest="command")
+
+    p = sub.add_parser("get_kmers", description="Extract kmers and frequencies from FASTA files")
+    p.add_argument("-input_dir")
+    p.add_argument("-output_dir")
+    _add_k(p)
+    _add_device(p)
+    p.set_defaults(func=_cmd_get_kmers)
 
     p = sub.add_parser("get_frequencies", description="Process a library of reference genome-skims or assemblies")
     p.add_argument("-input_dir")

@@ -5,8 +5,9 @@ Replaces the reference's per-file Jellyfish subprocess pipeline
 FASTA/FASTQ file, optionally add a 0.5 pseudocount, normalize to sum 1
 unless raw counts are requested, and write one `.kf` line per file.
 
-A reader thread pool parses and encodes files ahead of the counter, which
-counts MAX_INFLIGHT genomes per kernel launch. Normalisation stays in numpy
+A reader thread pool (``read_batches``, shared with get_kmers) parses and
+encodes files ahead of the counter, which counts MAX_INFLIGHT genomes per
+kernel launch. Normalisation stays in numpy
 float64, so the `.kf` bytes equal the JAX package's.
 """
 
@@ -52,6 +53,37 @@ def _finalize_vec(vec: np.ndarray, pseudocount: bool, raw_cnt: bool, name: str =
     return vec
 
 
+def read_batches(input_dir: str, files: list[str], threads: int | None = None):
+    """Yield the files in order as batches of at most MAX_INFLIGHT
+    (file name, encoded records) pairs. A reader thread pool parses ahead
+    of the consumer, with at most threads + MAX_INFLIGHT genomes resident."""
+    threads = threads or min(8, os.cpu_count() or 1)
+
+    def load(fname: str):
+        recs = read_sequences(os.path.join(input_dir, fname))
+        return fname, [r.codes for r in recs]
+
+    batch: list = []
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        pending = deque()
+        it = iter(files)
+        for fname in it:
+            pending.append(pool.submit(load, fname))
+            if len(pending) >= threads + MAX_INFLIGHT:
+                break
+        while pending:
+            loaded = pending.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append(pool.submit(load, nxt))
+            batch.append(loaded)
+            if len(batch) >= MAX_INFLIGHT:
+                yield batch
+                batch = []
+    if batch:
+        yield batch
+
+
 def get_frequencies(
     input_dir: str,
     output_dir: str,
@@ -70,20 +102,8 @@ def get_frequencies(
     _check_dir(input_dir)
     _check_dir(output_dir)
 
-    files = list_sequence_files(input_dir)
-    threads = threads or min(8, os.cpu_count() or 1)
     written: list[str] = []
-
-    def load(fname: str):
-        recs = read_sequences(os.path.join(input_dir, fname))
-        return fname, [r.codes for r in recs]
-
-    inflight: list = []
-
-    def drain_all():
-        batch, inflight[:] = list(inflight), []
-        if not batch:
-            return
+    for batch in read_batches(input_dir, list_sequence_files(input_dir), threads):
         counts = counter.count_batch([seqs for _, seqs in batch])
         for (fname, _), row in zip(batch, counts):
             name = sample_name(fname)
@@ -91,24 +111,6 @@ def get_frequencies(
             out_path = os.path.join(output_dir, f"{name}.kf")
             write_kf(out_path, [(name, vec)])
             written.append(out_path)
-
-    # bounded reader window: at most threads + MAX_INFLIGHT genomes resident
-    with ThreadPoolExecutor(max_workers=threads) as pool:
-        pending = deque()
-        it = iter(files)
-        for fname in it:
-            pending.append(pool.submit(load, fname))
-            if len(pending) >= threads + MAX_INFLIGHT:
-                break
-        while pending:
-            fname, seqs = pending.popleft().result()
-            nxt = next(it, None)
-            if nxt is not None:
-                pending.append(pool.submit(load, nxt))
-            inflight.append((fname, seqs))
-            if len(inflight) >= MAX_INFLIGHT:
-                drain_all()
-        drain_all()
 
     print(f"\n==> Done processing {input_dir}")
     return written

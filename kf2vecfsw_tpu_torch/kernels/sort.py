@@ -1,0 +1,121 @@
+"""Row sort with a gathered payload: the CUDA kernel and its plain PyTorch version.
+
+``sort_rows(keys, payload)`` sorts each row of ``keys`` (R, N) ascending and
+returns the sorted keys, the payload gathered by the same permutation and
+the permutation itself. Row r carries payload row ``r // (R // P)`` of
+``payload`` (P, N), so the FSW embedding passes one weight row per genome
+for its C slice rows instead of broadcasting it. It replaces the JAX
+package's Pallas bitonic sort (``_bitonic_kernel`` in kf2vecfsw_tpu/kernels/
+sort.py, B3) and the ``lax.sort`` calls of its FSW embedding with one
+hand-written kernel, ``csrc/sort_rows.cu``.
+
+The order is that of ``f2i_keys`` (an integer total order on the float
+bits, so -0.0 sorts before +0.0). Ties may come out in any order, as in B3
+and ``lax.sort(is_stable=False)``.
+
+On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
+it runs ``sort_rows_reference``, the same function in plain tensor ops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+MAX_N = 1 << 30  # the kernel pads rows to a power of two and indexes in int32
+
+
+def f2i_keys(x: torch.Tensor) -> torch.Tensor:
+    """Monotone bijection f32 -> int32 (the JAX package's ``_f2i_keys``):
+    negative floats get their magnitude bits flipped, so integer order is
+    float order with -0.0 < +0.0."""
+    i = x.view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def i2f_keys(k: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``f2i_keys``."""
+    return torch.where(k < 0, k ^ 0x7FFFFFFF, k).view(torch.float32)
+
+
+def _check(keys: torch.Tensor, payload: torch.Tensor) -> None:
+    for name, t in (("keys", keys), ("payload", payload)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D float32 tensor")
+    if payload.device != keys.device:
+        raise ValueError(f"keys on {keys.device} but payload on {payload.device}")
+    (r, n), p = keys.shape, payload.shape[0]
+    if r < 1 or not 1 <= n <= MAX_N:
+        raise ValueError(f"sort_rows takes R >= 1 rows of 1 <= N <= {MAX_N}, got {(r, n)}")
+    if payload.shape[1] != n or p < 1 or r % p:
+        raise ValueError(f"payload {tuple(payload.shape)} must be (P, {n}) with {r} % P == 0")
+
+
+def sort_rows_reference(keys: torch.Tensor, payload: torch.Tensor):
+    """Plain-ops version: ``torch.sort`` of the ``f2i_keys`` integers, then a
+    gather of each row's payload row. Returns (sorted keys f32, sorted
+    payload f32, perm int32), all (R, N)."""
+    r, p = keys.shape[0], payload.shape[0]
+    sk, idx = torch.sort(f2i_keys(keys), dim=-1, stable=False)
+    src = (torch.arange(r, device=keys.device) // (r // p))[:, None]
+    return i2f_keys(sk), payload[src, idx], idx.to(torch.int32)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared (pointers and
+    the stream as c_void_p, so ctypes never truncates them to 32 bits)."""
+    from .build import load
+
+    lib = load("sort_rows")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.sort_rows_launch.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+    lib.sort_rows_launch.restype = ctypes.c_int
+    lib.sort_rows_error_string.argtypes = [ctypes.c_int]
+    lib.sort_rows_error_string.restype = ctypes.c_char_p
+    lib.sort_rows_tile_elems.argtypes = []
+    lib.sort_rows_tile_elems.restype = ctypes.c_int64
+    return lib
+
+
+def tile_elems() -> int:
+    """Elements a thread block sorts in shared memory; rows whose padded
+    length is longer take the kernel's global-merge path."""
+    return int(_lib().sort_rows_tile_elems())
+
+
+def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
+    """(sorted_keys, sorted_payload, perm) of ``keys`` (R, N) f32 and
+    ``payload`` (P, N) f32 with R % P == 0: ``perm[r, j]`` is the column of
+    ``keys[r]`` at sorted position j, ``sorted_payload[r, j] =
+    payload[r // (R // P), perm[r, j]]``."""
+    _check(keys, payload)
+    if keys.device.type == "cpu":
+        return sort_rows_reference(keys, payload)
+    if keys.device.type != "cuda":
+        raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
+    (r, n), p = keys.shape, payload.shape[0]
+    out_keys = torch.empty_like(keys)
+    out_payload = torch.empty_like(keys)
+    perm = torch.empty((r, n), dtype=torch.int32, device=keys.device)
+    lib = _lib()
+    n_pad = 1 << (n - 1).bit_length()
+    scratch = (torch.empty((r, n_pad), dtype=torch.int64, device=keys.device)
+               if n_pad > tile_elems() else None)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        err = lib.sort_rows_launch(
+            keys.data_ptr(), payload.data_ptr(), out_keys.data_ptr(), out_payload.data_ptr(),
+            perm.data_ptr(), None if scratch is None else scratch.data_ptr(), r, n, p, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"sort_rows launch failed: {lib.sort_rows_error_string(err).decode()} ({err})"
+        )
+    sort_rows.launches += 1
+    return out_keys, out_payload, perm
+
+
+sort_rows.launches = 0  # kernel launches in this process

@@ -11,7 +11,9 @@ Semantics of the reference's ``jellyfish count -m k -C`` + ``dump``
 
 ``KmerCounter`` counts a batch of genomes with one ``kmer_hist`` call: the
 CUDA kernel for every genome on the card, its plain version on the CPU.
-The numpy functions below are the host ground truth the tests hold both to.
+The numpy functions below are the host ground truth the tests hold both to,
+and ``count_canonical_sparse`` is also the route for k > MAX_K, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..io.fasta import INVALID
 from ..kernels.histogram import MAX_BASES, MAX_K, MIN_K, kmer_hist
 from .vocab import MAX_DENSE_K, canonical_vocab_codes
+
+MAX_SPARSE_K = 31  # int64 window codes hold 2k bits
 
 
 def window_codes_numpy(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -56,6 +60,12 @@ def count_canonical_numpy(codes: np.ndarray, k: int) -> np.ndarray:
     return np.bincount(canon[valid], minlength=4**k).astype(np.int64)
 
 
+def count_canonical_sparse(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(unique canonical codes ascending, counts) — works for any k <= 31."""
+    canon, valid = window_codes_numpy(codes, k)
+    return np.unique(canon[valid], return_counts=True)
+
+
 def concat_with_separators(seqs: list[np.ndarray], k: int) -> np.ndarray:
     """Concatenate encoded records with k-1 INVALID separators so windows
     never straddle record boundaries (matches per-record Jellyfish scans)."""
@@ -72,15 +82,18 @@ def concat_with_separators(seqs: list[np.ndarray], k: int) -> np.ndarray:
 
 class KmerCounter:
     """Counts canonical k-mers of genome batches on one device and folds
-    them to the `.kf` column order (the canonical vocabulary)."""
+    them to the `.kf` column order (the canonical vocabulary).
+
+    Dense counting (``count_batch``) takes MIN_K <= k <= MAX_K; the sparse
+    point sets of ``sparse_batch`` take any k up to MAX_SPARSE_K."""
 
     def __init__(self, k: int, device: str | torch.device = DEFAULT_DEVICE):
-        if not MIN_K <= k <= MAX_K:
-            raise ValueError(f"dense k-mer counting supports {MIN_K} <= k <= {MAX_K}, got {k}")
+        if not MIN_K <= k <= MAX_SPARSE_K:
+            raise ValueError(f"k-mer counting supports {MIN_K} <= k <= {MAX_SPARSE_K}, got {k}")
         self.k = k
         self.device = resolve_device(device)
-        self.vocab = canonical_vocab_codes(k)
-        self._vocab_dev = torch.from_numpy(self.vocab).to(self.device)
+        self.vocab = canonical_vocab_codes(k) if k <= MAX_K else None
+        self._vocab_dev = None if self.vocab is None else torch.from_numpy(self.vocab).to(self.device)
 
     def count_batch(self, seqs_batch: list[list[np.ndarray]]) -> np.ndarray:
         """int64 (G, V) vocab-ordered counts of G genomes, each a list of
@@ -88,6 +101,8 @@ class KmerCounter:
         run of consecutive genomes that together hold fewer than MAX_BASES
         bases (one run for any realistic batch); a genome of MAX_BASES or
         more raises."""
+        if self.vocab is None:
+            raise ValueError(f"dense k-mer counting supports {MIN_K} <= k <= {MAX_K}, got {self.k}")
         genomes = [concat_with_separators(seqs, self.k) for seqs in seqs_batch]
         parts, start = [], 0
         while start < len(genomes):
@@ -105,6 +120,25 @@ class KmerCounter:
         if not parts:
             return np.zeros((0, self.vocab.size), dtype=np.int64)
         return np.concatenate(parts)
+
+    def sparse_batch(self, seqs_batch: list[list[np.ndarray]]) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Per genome, (distinct canonical codes ascending, int64 counts):
+        the point sets of get_kmers (main.py:112-184).
+
+        For k <= MAX_K these are the nonzero columns of ``count_batch``, one
+        ``kmer_hist`` launch per batch; the vocabulary is sorted, so the
+        codes come out ascending. For k > MAX_K no dense row exists and the
+        counts come from ``count_canonical_sparse`` on the host: that is the
+        JAX package's own route at such k (its ``KmerCounter.sparse``), not
+        a fallback from the card."""
+        if self.vocab is None:
+            return [count_canonical_sparse(concat_with_separators(seqs, self.k), self.k)
+                    for seqs in seqs_batch]
+        out = []
+        for row in self.count_batch(seqs_batch):
+            nz = np.nonzero(row)[0]
+            out.append((self.vocab[nz], row[nz]))
+        return out
 
     def _count(self, genomes: list[np.ndarray]) -> np.ndarray:
         offsets = np.zeros(len(genomes) + 1, dtype=np.int64)

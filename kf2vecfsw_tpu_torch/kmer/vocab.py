@@ -1,5 +1,5 @@
 """Canonical k-mer vocabulary (the port's copy of the JAX package's
-``kmer/vocab.py``, limited to what the dense `.kf` route uses).
+``kmer/vocab.py``, limited to what the `.kf` and FSW `.npy` routes use).
 
 The reference ships sorted canonical k-mer lists as data files
 (kf2vec/data/test_kmers_{6,7}_sorted, vocab_generator_k{3,4,5,8,9}C_fin.fa;
@@ -60,6 +60,24 @@ def canonical_vocab_size(k: int) -> int:
     if k % 2 == 0:
         n += 4 ** (k // 2) // 2
     return n
+
+
+def codes_to_digit_matrix(codes: np.ndarray, k: int, base_map: np.ndarray) -> np.ndarray:
+    """Decode codes into an (N, k) integer matrix under an arbitrary base map.
+
+    ``base_map[b]`` gives the output integer for internal base ``b``
+    (A=0,C=1,G=2,T=3). The reference's FSW `.npy` files use A=0,T=1,C=2,G=3
+    (main.py:118), i.e. ``base_map = [0, 2, 3, 1]``.
+    """
+    codes = np.asarray(codes, dtype=np.int64)
+    out = np.empty((len(codes), k), dtype=np.int64)
+    for i in range(k):
+        out[:, k - 1 - i] = base_map[(codes >> (2 * i)) & 3]
+    return out
+
+
+# Reference FSW base map: internal A,C,G,T(0..3) -> reference's A=0,T=1,C=2,G=3.
+FSW_BASE_MAP = np.array([0, 2, 3, 1], dtype=np.int64)
 
 
 def low_complexity_mask(k: int) -> np.ndarray:

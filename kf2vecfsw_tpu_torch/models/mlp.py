@@ -6,9 +6,10 @@
                 Linear(V,H) -> ReLU -> Linear(H,C) -> log_softmax
 
 Checkpoints hold the JAX package's parameter layout: nested dicts of numpy
-arrays ``{"fc1": {"w": (in, out), "b": (out,)}, ...}``. ``params_from_jax``
-and ``params_to_jax`` convert between that layout and a module, whose
-``nn.Linear`` stores ``weight`` as (out, in).
+arrays ``{"fc1": {"w": (in, out), "b": (out,)}, ...}``, and for the FSW
+model (``models/fsw.py``) also ``"lookup"`` and ``"fsw": {"slices",
+"freqs"}``. ``params_from_jax`` and ``params_to_jax`` convert between that
+layout and a module, whose ``nn.Linear`` stores ``weight`` as (out, in).
 """
 
 from __future__ import annotations
@@ -56,33 +57,56 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def params_from_jax(params: dict) -> nn.Module:
-    """JAX-layout params -> a CPU module (Classifier if it has ``fc3``,
-    else DistEmbed)."""
+    """JAX-layout params -> a CPU module: FSWDistEmbed if it has ``fsw``,
+    Classifier if it has ``fc3``, else DistEmbed."""
     w1 = np.asarray(params["fc1"]["w"])
-    if "fc3" in params:
+    if "fsw" in params:
+        from .fsw import FSWDistEmbed
+
+        base_dim = np.shape(params["lookup"])[1]
+        d_out, d_in = np.shape(params["fsw"]["slices"])
+        out_name = "fc2"
+        module: nn.Module = FSWDistEmbed(
+            d_in // base_dim, base_dim, d_out, w1.shape[1], np.shape(params["fc2"]["w"])[1]
+        )
+        with torch.no_grad():
+            module.lookup.copy_(_tensor(params["lookup"]))
+            module.slices.copy_(_tensor(params["fsw"]["slices"]))
+            module.freqs.copy_(_tensor(params["fsw"]["freqs"]))
+    elif "fc3" in params:
         out_name = "fc3"
-        module: nn.Module = Classifier(w1.shape[0], w1.shape[1], np.shape(params["fc3"]["w"])[1])
+        module = Classifier(w1.shape[0], w1.shape[1], np.shape(params["fc3"]["w"])[1])
     elif "fc2" in params:
         out_name = "fc2"
         module = DistEmbed(w1.shape[0], w1.shape[1], np.shape(params["fc2"]["w"])[1])
     else:
-        raise ValueError(f"not a dense kf2vec model: top-level keys {sorted(params)}")
+        raise ValueError(f"not a dense or FSW kf2vec model: top-level keys {sorted(params)}")
     with torch.no_grad():
         for name in ("fc1", out_name):
             layer = getattr(module, name)
-            w = torch.from_numpy(np.asarray(params[name]["w"], dtype=np.float32))
-            layer.weight.copy_(w.T)
-            layer.bias.copy_(torch.from_numpy(np.asarray(params[name]["b"], dtype=np.float32)))
+            layer.weight.copy_(_tensor(params[name]["w"]).T)
+            layer.bias.copy_(_tensor(params[name]["b"]))
     return module
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
 
 
 def params_to_jax(module: nn.Module) -> dict:
     """A module -> JAX-layout params (numpy float32, weights (in, out))."""
-    return {
-        name: {
-            "w": layer.weight.detach().T.cpu().numpy().copy(),
-            "b": layer.bias.detach().cpu().numpy().copy(),
-        }
+    params = {
+        name: {"w": _numpy(layer.weight.T), "b": _numpy(layer.bias)}
         for name, layer in module.named_children()
         if isinstance(layer, nn.Linear)
     }
+    from .fsw import FSWDistEmbed
+
+    if isinstance(module, FSWDistEmbed):
+        params["lookup"] = _numpy(module.lookup)
+        params["fsw"] = {"slices": _numpy(module.slices), "freqs": _numpy(module.freqs)}
+    return params

@@ -2,10 +2,10 @@
 
 A `.ckpt` file is a numpy .npz archive: a '__meta__' JSON entry (model_name,
 hyperparameters, best epoch/loss) plus the flattened parameter arrays under
-keys like ``fc1/w`` in the JAX (in, out) layout, so a checkpoint written by
-either package loads in the other. Parameters cross this module as nested
-dicts of numpy arrays; ``models.mlp.params_from_jax`` turns them into a
-module.
+keys like ``fc1/w`` or ``fsw/slices`` in the JAX (in, out) layout, so a
+checkpoint written by either package loads in the other. Parameters cross
+this module as nested dicts of numpy arrays; ``models.mlp.params_from_jax``
+turns them into a module.
 
 A reference torch checkpoint (torch.save dict, utils.py:358-371) is also
 read, through the same key map as the JAX package's import shim.
@@ -57,6 +57,11 @@ def atomic_savez(path: str, meta: dict, arrays: dict) -> None:
 
 def save_checkpoint(path: str, model_name: str, meta: dict, params) -> None:
     atomic_savez(path, {"model_name": model_name, **meta}, _flatten(params))
+
+
+def fsw_k_from_meta(meta: dict) -> int:
+    """The k an FSW checkpoint was trained at (shared by query + wrappers)."""
+    return int(meta.get("fsw_k", meta["model_input_size"] - 1))
 
 
 def load_checkpoint_meta(path: str):

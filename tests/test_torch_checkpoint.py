@@ -9,6 +9,7 @@ from kf2vecfsw_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoin
 from kf2vecfsw_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from kf2vecfsw_tpu_torch.models.mlp import DistEmbed, params_from_jax, params_to_jax
 from kf2vecfsw_tpu_torch.train.checkpoint import (
+    fsw_k_from_meta,
     load_checkpoint,
     load_checkpoint_meta,
     save_checkpoint,
@@ -59,6 +60,33 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     again = params_from_jax(got)
     for pa, pb in zip(module.parameters(), again.parameters()):
         assert torch.equal(pa, pb)
+
+
+def test_jax_fsw_checkpoint_round_trips_through_port(tmp_path):
+    """The nested fsw/slices and fsw/freqs keys of a JAX FSW checkpoint load
+    in the port, build an FSWDistEmbed, and save back to what JAX reads."""
+    from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed
+
+    rng = np.random.default_rng(3)
+    params = {"lookup": rng.normal(size=(4, 2)).astype(np.float32),
+              "fsw": {"slices": rng.normal(size=(6, 10)).astype(np.float32),
+                      "freqs": np.arange(6, dtype=np.float32)}, **_params(rng)}
+    params["fc1"]["w"] = params["fc1"]["w"][:6]
+    meta = {"model_input_size": 6, "fsw_k": 5, "fsw_base_dim": 2, "fsw_out_dim": 6}
+    path, back = str(tmp_path / "fsw.ckpt"), str(tmp_path / "back.ckpt")
+    jax_save_checkpoint(path, "NeuralNetFSW", meta, params)
+    name, got_meta, got = load_checkpoint(path)
+    assert name == "NeuralNetFSW" and got_meta == meta and fsw_k_from_meta(got_meta) == 5
+    assert sorted(got) == ["fc1", "fc2", "fsw", "lookup"] and sorted(got["fsw"]) == ["freqs", "slices"]
+    module = params_from_jax(got)
+    assert isinstance(module, FSWDistEmbed)
+    save_checkpoint(back, name, got_meta, params_to_jax(module))
+    name2, meta2, again = jax_load_checkpoint(back)
+    assert (name2, meta2) == (name, meta)
+    np.testing.assert_array_equal(again["lookup"], params["lookup"])
+    _assert_params_equal({k: v for k, v in again.items() if k != "lookup"},
+                         {k: v for k, v in params.items() if k != "lookup"})
+    assert fsw_k_from_meta({"model_input_size": 8}) == 7  # no fsw_k: input width - 1
 
 
 @pytest.mark.parametrize("classifier", [False, True])

@@ -31,7 +31,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     ).stdout
     report = json.loads(out.strip().splitlines()[-1])
     assert "kf2vecfsw_tpu_torch.cli" in report["modules"]
-    assert "kf2vecfsw_tpu_torch.kernels.histogram" in report["modules"]
+    for mod in ("kernels.histogram", "kernels.sort", "models.fsw", "ingest.kmers",
+                "utils.membudget", "train.distance", "train.step"):
+        assert f"kf2vecfsw_tpu_torch.{mod}" in report["modules"]
     loaded = report["loaded"]
     assert "jax" not in loaded and not any(m.startswith("jax.") for m in loaded)
     assert "kf2vecfsw_tpu" not in loaded
@@ -69,6 +71,7 @@ def test_entry_points_default_to_the_card(tmp_path):
     from kf2vecfsw_tpu_torch.infer.classify import classify_func
     from kf2vecfsw_tpu_torch.infer.query import query_func
     from kf2vecfsw_tpu_torch.ingest.frequencies import get_frequencies
+    from kf2vecfsw_tpu_torch.ingest.kmers import get_kmers
     from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter
 
     d = str(tmp_path)
@@ -76,9 +79,12 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: resolve_device(),
         lambda: KmerCounter(7),
         lambda: get_frequencies(d, d, k=5),
+        lambda: get_kmers(d, d, k=5),
+        lambda: get_kmers(d, d, k=17),
         lambda: classify_func(d, [], d, 28, d),
         lambda: query_func(d, [], d, d, 28, d),
         lambda: main(["get_frequencies", "-input_dir", d, "-output_dir", d]),
+        lambda: main(["get_kmers", "-input_dir", d, "-output_dir", d]),
         lambda: main(["process_query_data", "-input_dir", d, "-output_dir", d,
                       "-classifier_model", d, "-distance_model", d]),
     ):

@@ -191,13 +191,27 @@ def test_query_remap_and_error_keeps_earlier_subtrees_whole(tmp_path, library):
 
 
 def test_fsw_library_is_refused_before_any_work(tmp_path, library):
+    """An FSW library is served on the card by default: with no card the
+    command raises before it writes anything, and it runs on the CPU only
+    when asked (-device cpu)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import jax
+
+    from kf2vecfsw_tpu.models.fsw import init_fsw_dist_embed
+
     qdir, mdir = library
     jax_save_checkpoint(str(mdir / "model_subtree_1.ckpt"), "NeuralNetFSW",
-                        {"model_input_size": K + 1}, {"lookup": np.zeros((4, 2), np.float32)})
+                        {"model_input_size": K + 1, "fsw_k": K},
+                        jax.device_get(init_fsw_dist_embed(jax.random.PRNGKey(1), K, 2, 8, 8, E)))
     odir = tmp_path / "out"
     odir.mkdir()
-    with pytest.raises(NotImplementedError, match="FSW"):
-        main(["process_query_data", "-input_dir", str(qdir), "-output_dir", str(odir),
-              "-k", str(K), "-classifier_model", str(mdir), "-distance_model", str(mdir),
-              "-device", "cpu"])
+    argv = ["process_query_data", "-input_dir", str(qdir), "-output_dir", str(odir),
+            "-k", str(K), "-classifier_model", str(mdir), "-distance_model", str(mdir)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
     assert os.listdir(odir) == []  # no .kf, no .npy point sets
+    stages = main(argv + ["-device", "cpu"])
+    assert list(stages) == ["get_frequencies", "classify", "get_kmers", "query"]
+    assert sorted(f for f in os.listdir(odir) if f.endswith(f"_k{K}.npy")) == [
+        f"q{i}_k{K}.npy" for i in range(6)]
