@@ -17,7 +17,7 @@ non-zero without one. Phases, each of which fails the run if it fails:
      payload row per key row or per 512, on random, tied / signed-zero,
      sorted and reversed keys: sorted keys bit-equal, ``perm`` a
      permutation that maps keys and payload to the outputs exactly, and
-     equal to the plain version's on rows without ties;
+     equal to the plain (stable) version's on every row, ties included;
 4. main paths at full width, each driven with the launch counts set to 0
    just before it and read just after:
    - dense: ``process_query_data`` (k=7, a classifier 8192->2048->12 and 12
@@ -29,9 +29,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
    card, then 4 of them again with ``-device cpu``;
 5. timings: stage wall times of both main paths, and each kernel against
    its plain version, a one-library-call yardstick and its bound at the
-   main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7;
-   ``sort_rows``: 16 genomes x 512 slices = 8,192 rows of 8,192), with CUDA
-   events.
+   main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7, and the same
+   batch of homopolymers and of dinucleotide repeats; ``sort_rows``: 16
+   genomes x 512 slices = 8,192 rows of 8,192, and rows of 32,896, a k=8
+   point set, on the global-merge path), with CUDA events.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -72,7 +73,10 @@ N_QUERIES = 32
 BIG_GENOME = 9_000_000  # > 2^23 bases: the JAX package's chunked B2 route
 PHASE5_G, PHASE5_LEN = 16, 5_000_000  # one kernel batch of typical bacterial genomes
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_SCALAR_OPS_PER_S = 67e12  # fp32 outside the tensor cores; no faster scalar rate
+# integer operations: an H100 SXM SM has 64 INT32 lanes (half its 128 FP32
+# lanes; the 67 TFLOP/s fp32 figure counts an FMA as two), so 132 SMs x 64
+# lanes x 1.98 GHz boost = 16.7e12 integer operations per second
+H100_INT_OPS_PER_S = 132 * 64 * 1.98e9
 KERNEL_SOURCE = "kf2vecfsw_tpu_torch/kernels/csrc/kmer_hist.cu"
 REPLACES = (
     "kf2vecfsw_tpu/kernels/histogram.py:511 (_hist_kernel_batch, B1); "
@@ -84,9 +88,10 @@ SORT_REPLACES = (
     "the lax.sort calls at kf2vecfsw_tpu/models/fsw.py:65,75,120,131"
 )
 SORT_ROWS = (1, 33, 4096)
-SORT_LENGTHS = (1, 2, 7, 128, 2080, 8192, 16384, 32896, 131072)
+SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 32896, 131072)
 SORT_KINDS = ("normal", "ties_and_signed_zeros", "sorted", "reversed")
 PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW query block
+PHASE5_SORT_LONG = (16 * FSW_OUT_DIM, 32896, 16)  # the same at k=8 (V = 32,896)
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
@@ -220,8 +225,9 @@ def sort_keys(kind: str, gen, r: int, n: int, dev) -> torch.Tensor:
 
 
 def check_sort(keys: torch.Tensor, payload: torch.Tensor, got, ref) -> int:
-    """Fails unless the kernel's outputs are exact; returns the number of
-    tie-free rows whose permutation was compared with the plain version's."""
+    """Fails unless the kernel's outputs are exact, ``perm`` equal to the
+    plain (stable) version's on every row; returns the number of rows with
+    tied keys, where an unstable sort could have differed."""
     (sk, sp, perm), (rk, _, rperm) = got, ref
     r, n = keys.shape
     check(torch.equal(sk.view(torch.int32), rk.view(torch.int32)), "sorted keys != plain version")
@@ -234,10 +240,9 @@ def check_sort(keys: torch.Tensor, payload: torch.Tensor, got, ref) -> int:
     rows = torch.arange(r, device=keys.device) // (r // payload.shape[0])
     check(torch.equal(payload[rows[:, None], p64].view(torch.int32), sp.view(torch.int32)),
           "payload[perm] != sorted payload")
+    check(torch.equal(perm, rperm), "perm != plain version")
     ints = rk.view(torch.int32)
-    tie_free = (ints[:, 1:] != ints[:, :-1]).all(dim=1)
-    check(torch.equal(perm[tie_free], rperm[tie_free]), "perm != plain version on a tie-free row")
-    return int(tie_free.sum())
+    return int((ints[:, 1:] == ints[:, :-1]).any(dim=1).sum())
 
 
 def phase_sort_vs_plain(dev) -> float:
@@ -246,7 +251,7 @@ def phase_sort_vs_plain(dev) -> float:
     max_err, cases = 0.0, 0
     for r in SORT_ROWS:
         for n in SORT_LENGTHS:
-            compared = 0
+            tied = 0
             for p in sorted({r, r // 512} - {0}) if r % 512 == 0 else (r,):
                 for kind in SORT_KINDS:
                     keys = sort_keys(kind, gen, r, n, dev)
@@ -254,14 +259,14 @@ def phase_sort_vs_plain(dev) -> float:
                     got = sort_rows(keys, payload)
                     torch.cuda.synchronize()
                     ref = sort_rows_reference(keys, payload)
-                    compared += check_sort(keys, payload, got, ref)
+                    tied += check_sort(keys, payload, got, ref)
                     finite = torch.isfinite(ref[0])
                     max_err = max(max_err, float((got[0] - ref[0])[finite].abs().max()))
                     cases += 1
                     del keys, payload, got, ref
             torch.cuda.empty_cache()
-            log(f"phase sort_vs_plain: R={r} N={n} exact ({compared} tie-free rows' perm "
-                f"compared)")
+            log(f"phase sort_vs_plain: R={r} N={n} exact, perm equal on every row "
+                f"({tied} rows with ties)")
     log(f"phase sort_vs_plain: {cases} cases exact")
     return max_err
 
@@ -516,33 +521,43 @@ def phase_timings(dev) -> dict:
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
     # per window: rolling fwd (shift, or, and) and revcomp (shift, sub,
     # shift, or), the min, the validity test and the bin add
-    ops_ms = windows * 10 / H100_SCALAR_OPS_PER_S * 1e3
+    ops_ms = windows * 10 / H100_INT_OPS_PER_S * 1e3
     out = {
         "shape": f"G={g} x {length} bases, k={k}",
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
     }
+    # the same batch shape on low-complexity repeats: all windows of a warp
+    # in one bin (homopolymer) or two (dinucleotide)
+    repeats = {"homopolymer": np.zeros(length, np.uint8),
+               "dinucleotide": np.tile(np.array([0, 1], np.uint8), length // 2)}
+    for name, genome in repeats.items():
+        rb, ro = to_batch([genome] * g, dev)
+        out[f"ms_{name}"] = cuda_ms(lambda: kmer_hist(rb, ro, k), reps=10)
+        check(torch.equal(kmer_hist(rb, ro, k), kmer_hist_reference(rb, ro, k)),
+              f"{name} batch: kernel != plain version")
     log(f"phase timings: kmer_hist {json.dumps(out)}")
     return out
 
 
-def phase_sort_timings(dev) -> dict:
-    r, n, p = PHASE5_SORT
+def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
+    r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     keys = torch.randn(r, n, generator=gen, device=dev)
     payload = torch.rand(p, n, generator=gen, device=dev)
-    kernel_ms = cuda_ms(lambda: sort_rows(keys, payload), reps=20)
-    plain_ms = cuda_ms(lambda: sort_rows_reference(keys, payload), reps=10)
+    kernel_ms = cuda_ms(lambda: sort_rows(keys, payload), reps=2 * reps)
+    plain_ms = cuda_ms(lambda: sort_rows_reference(keys, payload), reps=reps)
     # the one PyTorch call for the sorted keys and perm (the payload gather
     # is extra); timed here only, the port never calls it
-    library_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), reps=10)
+    library_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), reps=reps)
     check_sort(keys, payload, sort_rows(keys, payload), sort_rows_reference(keys, payload))
     # read 4 B of key per element and the payload rows once; write 4 B each
-    # of sorted key, sorted payload and perm
+    # of sorted key, sorted payload and perm (a long row's scratch pairs are
+    # traffic the function does not need, so none is counted)
     n_bytes = 4 * r * n + 4 * p * n + 12 * r * n
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    ops_ms = r * n * math.log2(n) / H100_SCALAR_OPS_PER_S * 1e3  # n log2 n comparisons a row
+    ops_ms = r * n * math.log2(n) / H100_INT_OPS_PER_S * 1e3  # n log2 n comparisons a row
     out = {
         "shape": f"R={r} x N={n}, P={p}",
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -570,7 +585,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timing = phase_timings(dev)
-    sort_timing = phase_sort_timings(dev)
+    sort_timing = phase_sort_timings(dev, PHASE5_SORT, reps=10)
+    long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -583,6 +599,7 @@ def main() -> int:
         "max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "repeats_ms": {name: timing[f"ms_{name}"] for name in ("homopolymer", "dinucleotide")},
     }, {
         "name": "sort_rows", "route": "cuda", "source": SORT_SOURCE, "replaces": SORT_REPLACES,
         "tpu_kernels": ["B3"], "launches": by_path["sort_rows"]["fsw"],
@@ -590,6 +607,8 @@ def main() -> int:
         "max_abs_err": sort_err, "ms": sort_timing["ms"], "plain_ms": sort_timing["plain_ms"],
         "bound_ms": sort_timing["bound_ms"], "bound_by": sort_timing["bound_by"],
         "library_ms": sort_timing["library_ms"],
+        "long_rows": {key: long_timing[key] for key in
+                      ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
     }]}
     print(json.dumps(report))
     print(smi)

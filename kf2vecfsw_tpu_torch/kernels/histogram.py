@@ -84,12 +84,25 @@ def _lib() -> ctypes.CDLL:
     lib.kmer_hist_error_string.restype = ctypes.c_char_p
     lib.kmer_hist_tile_windows.argtypes = []
     lib.kmer_hist_tile_windows.restype = ctypes.c_int64
+    lib.kmer_hist_span_windows.argtypes = [ctypes.c_int64]
+    lib.kmer_hist_span_windows.restype = ctypes.c_int64
     return lib
 
 
 def tile_windows() -> int:
-    """Windows per thread block tile of the CUDA kernel (its seam)."""
+    """Window starts per tile of the CUDA kernel: tiles lie on a lattice of
+    this step in the batch's concatenated bases (a seam)."""
     return int(_lib().kmer_hist_tile_windows())
+
+
+def span_windows(n_total: int) -> int:
+    """Window starts per thread block of the CUDA kernel in a batch of
+    ``n_total`` bases on the current card: block b takes the stream's
+    positions [b * span, (b + 1) * span) (a seam; a whole number of tiles)."""
+    span = int(_lib().kmer_hist_span_windows(n_total))
+    if span < 1:
+        raise RuntimeError("kmer_hist: the card's SM count could not be read")
+    return span
 
 
 def kmer_hist(bases: torch.Tensor, offsets: torch.Tensor, k: int) -> torch.Tensor:

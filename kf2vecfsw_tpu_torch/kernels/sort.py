@@ -10,8 +10,10 @@ sort.py, B3) and the ``lax.sort`` calls of its FSW embedding with one
 hand-written kernel, ``csrc/sort_rows.cu``.
 
 The order is that of ``f2i_keys`` (an integer total order on the float
-bits, so -0.0 sorts before +0.0). Ties may come out in any order, as in B3
-and ``lax.sort(is_stable=False)``.
+bits, so -0.0 sorts before +0.0). The sort is stable: equal keys come out
+in column order, so ``perm`` is fully determined, ties included. (B3 and
+``lax.sort(is_stable=False)`` may order ties otherwise: the sorted keys
+agree on every row, the payload and ``perm`` on rows without ties.)
 
 On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it runs ``sort_rows_reference``, the same function in plain tensor ops.
@@ -24,7 +26,7 @@ import functools
 
 import torch
 
-MAX_N = 1 << 30  # the kernel pads rows to a power of two and indexes in int32
+MAX_N = 1 << 30  # the kernel pads long rows to a power of two and indexes in int32
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -54,11 +56,11 @@ def _check(keys: torch.Tensor, payload: torch.Tensor) -> None:
 
 
 def sort_rows_reference(keys: torch.Tensor, payload: torch.Tensor):
-    """Plain-ops version: ``torch.sort`` of the ``f2i_keys`` integers, then a
-    gather of each row's payload row. Returns (sorted keys f32, sorted
-    payload f32, perm int32), all (R, N)."""
+    """Plain-ops version: a stable ``torch.sort`` of the ``f2i_keys``
+    integers, then a gather of each row's payload row. Returns (sorted keys
+    f32, sorted payload f32, perm int32), all (R, N)."""
     r, p = keys.shape[0], payload.shape[0]
-    sk, idx = torch.sort(f2i_keys(keys), dim=-1, stable=False)
+    sk, idx = torch.sort(f2i_keys(keys), dim=-1, stable=True)
     src = (torch.arange(r, device=keys.device) // (r // p))[:, None]
     return i2f_keys(sk), payload[src, idx], idx.to(torch.int32)
 
@@ -75,15 +77,23 @@ def _lib() -> ctypes.CDLL:
     lib.sort_rows_launch.restype = ctypes.c_int
     lib.sort_rows_error_string.argtypes = [ctypes.c_int]
     lib.sort_rows_error_string.restype = ctypes.c_char_p
-    lib.sort_rows_tile_elems.argtypes = []
-    lib.sort_rows_tile_elems.restype = ctypes.c_int64
+    for name in ("sort_rows_tile_elems", "sort_rows_items_per_thread"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int64
     return lib
 
 
 def tile_elems() -> int:
-    """Elements a thread block sorts in shared memory; rows whose padded
-    length is longer take the kernel's global-merge path."""
+    """Elements a thread block sorts in shared memory; longer rows take the
+    kernel's global-merge path."""
     return int(_lib().sort_rows_tile_elems())
+
+
+def items_per_thread() -> int:
+    """Keys each thread of a row's block holds: a row of N <= tile_elems()
+    goes to the smallest power-of-two block of at least 32 threads with
+    threads * items_per_thread() >= N."""
+    return int(_lib().sort_rows_items_per_thread())
 
 
 def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
@@ -101,9 +111,8 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
     out_payload = torch.empty_like(keys)
     perm = torch.empty((r, n), dtype=torch.int32, device=keys.device)
     lib = _lib()
-    n_pad = 1 << (n - 1).bit_length()
-    scratch = (torch.empty((r, n_pad), dtype=torch.int64, device=keys.device)
-               if n_pad > tile_elems() else None)
+    scratch = (torch.empty((r, 1 << (n - 1).bit_length()), dtype=torch.int64, device=keys.device)
+               if n > tile_elems() else None)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = lib.sort_rows_launch(

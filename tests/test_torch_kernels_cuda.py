@@ -2,10 +2,15 @@
 cases chip_smoke.py leaves out.
 
 ``kmer_hist``: against the numpy ground truth at k = 2, the first k of
-global-memory bins 8, and MAX_K 13, at the tile seams.
-``sort_rows``: a row count that is a multiple of nothing, N = 16,385 (the
-first length on the global-merge path), all-equal keys, keys at the f32
-extremes; and the FSW model on the card against the CPU at d_out 512.
+global-memory bins 8, and MAX_K 13, at the tile seams; against the plain
+version with genome boundaries at +-k and +-1 of the tile and block-span
+seams, and on 5 Mb homopolymers and dinucleotide repeats (many lanes of a
+warp on one bin).
+``sort_rows``: a row count that is a multiple of nothing, N around the
+block sizes of the radix tile sort and N = 16,385 (the first length on the
+global-merge path), all-equal keys (``perm`` the identity), keys at the f32
+extremes; ``perm`` equal to the plain (stable) version's on every row; and
+the FSW model on the card against the CPU at d_out 512.
 
 The kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc, and skips without them. On the card (where JAX is not installed, so the
@@ -19,8 +24,18 @@ import pytest
 import torch
 
 from kf2vecfsw_tpu_torch.io.fasta import INVALID
-from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
-from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, tile_elems
+from kf2vecfsw_tpu_torch.kernels.histogram import (
+    kmer_hist,
+    kmer_hist_reference,
+    span_windows,
+    tile_windows,
+)
+from kf2vecfsw_tpu_torch.kernels.sort import (
+    items_per_thread,
+    sort_rows,
+    sort_rows_reference,
+    tile_elems,
+)
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, count_canonical_numpy
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
 
@@ -62,6 +77,50 @@ def test_kernel_equals_plain_version_at_the_seams(card, k):
     assert torch.equal(kmer_hist(bases, offsets, k), got)  # integer atomics: deterministic
 
 
+def _ending_near(seams, k, n_total, rng):
+    """Genomes laid end to end whose windows stop at seams[i] + d for d in
+    (-k, -1, 0, 1, k) in turn, then one genome up to n_total bases."""
+    ends = [s + d + k - 1 for s, d in zip(seams, [-k, -1, 0, 1, k] * len(seams))]
+    lengths = np.diff([0] + ends + [n_total])
+    assert (lengths > 0).all()
+    return [_codes(rng, int(n), n_rate=0.001) for n in lengths]
+
+
+@pytest.mark.parametrize("k", [2, 7, 8, 13])
+def test_kernel_equals_plain_version_at_tile_and_span_seams(card, k):
+    rng = np.random.default_rng(100 + k)
+    tile = tile_windows()
+    # a small batch: one tile per block, so genome boundaries meet tile seams
+    small = 7 * tile
+    assert span_windows(small) == tile
+    # a large batch: spans of several tiles; boundaries at span seams and at
+    # the first tile seam inside a span
+    large = 40_000_000
+    span = span_windows(large)
+    assert span % tile == 0 and span > tile
+    for n_total, seams in ((small, [m * tile for m in range(1, 6)]),
+                           (large, [m * span + dt for m in (1, 2, 3) for dt in (0, tile)])):
+        genomes = _ending_near(seams, k, n_total, rng)
+        bases, offsets = _batch(genomes, card)
+        assert bases.numel() == n_total
+        got = kmer_hist(bases, offsets, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kmer_hist_reference(bases, offsets, k)), n_total
+
+
+@pytest.mark.parametrize("k", [2, 7, 8, 13])
+def test_kernel_equals_plain_version_on_repeats(card, k):
+    n = 5_000_000
+    homopolymer = np.zeros(n, np.uint8)
+    dinucleotide = np.tile(np.array([0, 1], np.uint8), n // 2)
+    bases, offsets = _batch([homopolymer, dinucleotide], card)
+    got = kmer_hist(bases, offsets, k)
+    torch.cuda.synchronize()
+    ref = kmer_hist_reference(bases, offsets, k)
+    assert torch.equal(got, ref)
+    assert int(got[0].sum()) == n - k + 1 and int((got[1] > 0).sum()) <= 2
+
+
 def test_kmer_counter_launches_once_per_batch(card):
     rng = np.random.default_rng(1)
     seqs_batch = [[_codes(rng, 100_000), _codes(rng, 5)], [], [_codes(rng, 70_001)]]
@@ -93,9 +152,8 @@ def _assert_sort_matches_plain(keys, payload):
     assert torch.equal(torch.gather(keys, 1, p64).view(torch.int32), sk.view(torch.int32))
     rows = torch.arange(r, device=keys.device) // (r // payload.shape[0])
     assert torch.equal(payload[rows[:, None], p64].view(torch.int32), sp.view(torch.int32))
-    ints = rk.view(torch.int32)
-    tie_free = (ints[:, 1:] != ints[:, :-1]).all(dim=1)
-    assert torch.equal(perm[tie_free], rperm[tie_free])
+    assert torch.equal(perm, rperm)  # both stable: equal on every row, ties included
+    return perm
 
 
 @pytest.mark.parametrize("r,p", [(37, 37), (37, 1), (1031, 1)])
@@ -110,10 +168,23 @@ def test_sort_equals_plain_version(card, r, p, n):
     assert tile_elems() == 16_384  # 16,385 is the first length on the global-merge path
 
 
-@pytest.mark.parametrize("n", [5, 8192, 16_385])
+def test_sort_equals_plain_version_around_the_block_sizes(card):
+    block = 512 * items_per_thread()  # the main path's N = 8,192 fills this block
+    gen = torch.Generator(device=card).manual_seed(8)
+    for n in (block // 2 - 1, block // 2, block // 2 + 1, block - 1, block, block + 1,
+              tile_elems() - 1, tile_elems(), tile_elems() + 1):
+        keys = torch.randn(65, n, generator=gen, device=card)
+        keys[::2] = torch.round(keys[::2] * 4) / 4  # ties on every other row
+        _assert_sort_matches_plain(keys, torch.rand(65, n, generator=gen, device=card))
+        _assert_sort_matches_plain(keys[:64].contiguous(), torch.rand(2, n, generator=gen, device=card))
+
+
+@pytest.mark.parametrize("n", [5, 8192, 8193, 16_384, 16_385])
 def test_sort_all_equal_keys_and_f32_extremes(card, n):
     payload = torch.rand(1, n, device=card)
-    _assert_sort_matches_plain(torch.full((4, n), 0.5, device=card), payload)
+    perm = _assert_sort_matches_plain(torch.full((4, n), 0.5, device=card), payload)
+    ramp = torch.arange(n, dtype=torch.int32, device=card).expand(4, n)
+    assert torch.equal(perm, ramp)  # stable: all-equal keys keep their order
     fi = torch.finfo(torch.float32)
     extremes = torch.tensor([fi.max, -fi.max, fi.tiny, -fi.tiny, float("inf"), float("-inf"),
                              0.0, -0.0, 1e-45, -1e-45], device=card)

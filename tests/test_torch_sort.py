@@ -1,10 +1,11 @@
 """The port's row sort on the CPU (its plain version) against the JAX
 package's Pallas bitonic sort (B3) in interpret mode and against numpy.
 
-Sorted keys must be bit-for-bit equal. The sort is unstable, so a
-permutation is compared with another only on rows without tied keys; on
-every row it must be a permutation that maps the keys and the payload to
-the sorted outputs exactly."""
+Sorted keys must be bit-for-bit equal. The port's sort is stable, so its
+permutation equals numpy's stable argsort on every row, ties included. B3
+is unstable, so a permutation is compared with B3's only on rows without
+tied keys; on every row it must be a permutation that maps the keys and the
+payload to the sorted outputs exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -106,8 +107,7 @@ def test_plain_sort_equals_numpy_at_any_length_and_shared_payload(kind, n, p):
                 assert neg.max() < pos.min()
     ints = f2i_keys(torch.from_numpy(keys)).numpy()
     for i in range(r):
-        if _tie_free(keys[i]):
-            np.testing.assert_array_equal(perm[i], np.argsort(ints[i], kind="stable"))
+        np.testing.assert_array_equal(perm[i], np.argsort(ints[i], kind="stable"))
 
 
 def test_f2i_keys_equals_jax_and_inverts():
