@@ -27,12 +27,25 @@ non-zero without one. Phases, each of which fails the run if it fails:
      forward run too;
    random weights from a seeded torch.Generator, on 32 query genomes on the
    card, then 4 of them again with ``-device cpu``;
+   - build_library: ``build_library`` on the card at full width (k=7,
+     classifier 8192->2048->C, subtree models 8192->2048->1024, batch 16,
+     default learning rates, ``-size 850``) over a seeded random backbone of
+     1,700 genomes of 100-200 kb (1% N) in at least two subtrees, cut to 5
+     classifier and 5 distance epochs; every file of the library checked,
+     no loss NaN; the trained library then serves the 32 queries; and a
+     small backbone (48 genomes, ``-size 12``, 2 epochs, full widths) built
+     on the card and on the CPU from the same seed agrees: `.kf`,
+     `.subtrees` and `.di_mtrx` bytes identical, checkpoints, classes and
+     exported CSVs within the REBUILD_* tolerances;
 5. timings: stage wall times of both main paths, and each kernel against
    its plain version, a one-library-call yardstick and its bound at the
    main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7, and the same
    batch of homopolymers and of dinucleotide repeats; ``sort_rows``: 16
    genomes x 512 slices = 8,192 rows of 8,192, and rows of 32,896, a k=8
-   point set, on the global-merge path), with CUDA events.
+   point set, on the global-merge path), with CUDA events; the stage wall
+   times of build_library, its trainers' steps per second over epochs 2-5,
+   its exports' seconds (str(np.float32) formatting apart) and its peak
+   device memory.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -44,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,7 +68,15 @@ import numpy as np
 import torch
 
 from kf2vecfsw_tpu_torch.cli import main as cli_main
-from kf2vecfsw_tpu_torch.defaults import EMBEDDING_SIZE, FSW_BASE_DIM, FSW_OUT_DIM, HIDDEN_SIZE_FC1
+from kf2vecfsw_tpu_torch.defaults import (
+    BATCH_SIZE,
+    DEFAULT_SUBTREE_SZ,
+    EMBEDDING_SIZE,
+    FSW_BASE_DIM,
+    FSW_OUT_DIM,
+    HIDDEN_SIZE_FC1,
+    LEARNING_RATE,
+)
 from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
@@ -63,7 +85,9 @@ from kf2vecfsw_tpu_torch.kmer.counter import concat_with_separators, count_canon
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_size
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
 from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
-from kf2vecfsw_tpu_torch.train.checkpoint import save_checkpoint
+from kf2vecfsw_tpu_torch.train import classifier as train_classifier
+from kf2vecfsw_tpu_torch.train import distance as train_distance
+from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 
 SEED = 20261016
 K_MAIN = 7
@@ -95,6 +119,29 @@ PHASE5_SORT_LONG = (16 * FSW_OUT_DIM, 32896, 16)  # the same at k=8 (V = 32,896)
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
+DENSE_MODEL_BYTES = 4 * (canonical_vocab_size(K_MAIN) * HIDDEN_SIZE_FC1 + HIDDEN_SIZE_FC1 * EMBEDDING_SIZE)
+# build_library at full width: a 1,700-genome backbone in subtrees of
+# -size 850; genomes and epochs cut (2,000 / 8,000 epochs by default)
+BUILD_LEAVES, BUILD_SIZE, BUILD_EPOCHS = 1700, DEFAULT_SUBTREE_SZ, 5
+BUILD_GENOME = (100_000, 200_000)
+# the same widths on a small backbone, built on the card and on the CPU
+REBUILD_LEAVES, REBUILD_SIZE, REBUILD_EPOCHS = 48, 12, 2
+REBUILD_GENOME = (20_000, 40_000)
+# cuda vs cpu rebuild: params within atol 2 * ADAM_STEP * lr * steps +
+# REBUILD_RTOL |p|. Adam's first steps move a weight by about lr *
+# sign(grad), and a gradient of rounding-noise size (the distance model's
+# biases: the pairwise distances do not change when all embeddings move
+# together) can round to opposite signs on the two devices at every step;
+# over its first six steps a bias-corrected Adam step is at most 1.015 lr
+# (Cauchy-Schwarz on the moment sums), hence ADAM_STEP. Embeddings within
+# REBUILD_EMB_ATOL (those bias steps summed over 2,048 hidden units);
+# distortions, which do not see a common shift, and class probabilities
+# within the looser relative bounds of fp32 sums over 8,192 inputs
+ADAM_STEP = 1.02
+REBUILD_RTOL, REBUILD_EMB_ATOL = 1e-4, 2e-3
+REBUILD_DIS_RTOL, REBUILD_DIS_ATOL = 1e-3, 1e-4
+REBUILD_CLASS_RTOL, REBUILD_CLASS_ATOL = 1e-3, 1e-6
+REBUILD_LOSS_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -338,12 +385,13 @@ def read_table(path: str, header: bool = True) -> tuple[list[str], dict[str, np.
     return header, rows
 
 
-def check_outputs(out_dir: str, names: list[str], lib_dir: str, fsw_k: int | None) -> dict[str, int]:
+def check_outputs(out_dir: str, names: list[str], lib_dir: str, fsw_k: int | None,
+                  n_classes: int = N_CLASSES) -> dict[str, int]:
     for ext in (".kf",) + ((f"_k{fsw_k}.npy",) if fsw_k else ()):
         got = sorted(f for f in os.listdir(out_dir) if f.endswith(ext))
         check(got == sorted(f"{n}{ext}" for n in names), f"expected {len(names)} {ext} files, got {len(got)}")
     header, classes = read_table(os.path.join(out_dir, "classes.out"))
-    check(header[:3] == ["genome", "top_class", "top_p"] and len(header) == 3 + N_CLASSES,
+    check(header[:3] == ["genome", "top_class", "top_p"] and len(header) == 3 + n_classes,
           "classes.out header")
     check(sorted(classes) == sorted(names), f"classes.out rows {len(classes)} != {len(names)}")
     top = {g: int(r[0]) for g, r in classes.items()}
@@ -357,8 +405,8 @@ def check_outputs(out_dir: str, names: list[str], lib_dir: str, fsw_k: int | Non
         members = sorted(g for g, cl in top.items() if cl == c)
         check(sorted(dist) == members, f"subtree {c}: APPLES rows")
         for g in members:
-            check(dist[g].shape == (N_ANCHORS,) and np.all(np.isfinite(dist[g])) and np.all(dist[g] >= 0),
-                  f"subtree {c} {g}: APPLES values")
+            check(dist[g].shape == (len(anchors),) and np.all(np.isfinite(dist[g]))
+                  and np.all(dist[g] >= 0), f"subtree {c} {g}: APPLES values")
         _, emb = read_table(os.path.join(out_dir, f"embedding_subtree_{c}.emb"), header=False)
         check(sorted(emb) == members and all(
             e.shape == (EMBEDDING_SIZE,) and np.all(np.isfinite(e)) for e in emb.values()),
@@ -393,11 +441,11 @@ def read_bytes(path: str) -> bytes:
         return f.read()
 
 
-def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
-               model_bytes: int, fsw_k: int | None) -> dict:
+def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
+                  model_bytes: int, fsw_k: int | None, n_classes: int = N_CLASSES) -> dict:
     """process_query_data on the card with every launch count set to 0 just
-    before it, then 4 genomes again with -device cpu; returns the counts,
-    the stage seconds and the largest cuda-vs-cpu differences."""
+    before it; returns the output directory, the counts, the stage seconds
+    and the peak device memory."""
     out_dir = os.path.join(work, f"out_{tag}_cuda")
     os.makedirs(out_dir)
     argv = ["process_query_data", "-input_dir", q_dir, "-output_dir", out_dir,
@@ -412,9 +460,18 @@ def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
     if fsw_k:
         check(launches["sort_rows"] >= 1, f"{tag}: sort_rows was not launched on the main path")
     check(peak >= model_bytes, f"{tag}: peak device memory {peak} B: the models did not run on the card")
-    top = check_outputs(out_dir, names, lib_dir, fsw_k)
+    top = check_outputs(out_dir, names, lib_dir, fsw_k, n_classes)
     log(f"phase main_path {tag}: cuda run ok, launches={launches}, peak device memory "
         f"{peak / 2**20:.0f} MiB, classes used={sorted(set(top.values()))}, stage seconds {stage_s}")
+    return {"out_dir": out_dir, "launches": launches, "stage_s": stage_s, "peak_mib": peak / 2**20}
+
+
+def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
+               model_bytes: int, fsw_k: int | None) -> dict:
+    """serve_on_card, then 4 genomes again with -device cpu; returns the
+    counts, the stage seconds and the largest cuda-vs-cpu differences."""
+    run = serve_on_card(tag, work, lib_dir, q_dir, names, model_bytes, fsw_k)
+    out_dir, launches = run["out_dir"], run["launches"]
 
     # four genomes again on the CPU (one FASTQ, multi-record, the 9 Mb one)
     cpu_names = [names[0], names[1], names[2], names[-1]]
@@ -462,11 +519,10 @@ def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
         f"{compared} genomes within rtol {rtol} / atol {atol}; largest differences "
         f"{json.dumps(diffs)} (max_rel over |value| > atol; tolerance_used = "
         f"max |a-b| / (atol + rtol |b|), at most 1)")
-    return {"launches": launches, "stage_s": stage_s, "cuda_vs_cpu": diffs,
-            "peak_mib": peak / 2**20}
+    return {**run, "cuda_vs_cpu": diffs}
 
 
-def phase_main_paths(work: str, dev) -> dict[str, dict]:
+def phase_main_paths(work: str, dev) -> tuple[dict[str, dict], str, list[str]]:
     lib_dir, fsw_dir, q_dir = (os.path.join(work, d) for d in ("library", "library_fsw", "queries"))
     for d in (lib_dir, fsw_dir, q_dir):
         os.makedirs(d)
@@ -476,11 +532,288 @@ def phase_main_paths(work: str, dev) -> dict[str, dict]:
     names, total_bases = write_queries(q_dir)
     log(f"phase main_path: libraries + {len(names)} queries ({total_bases} bases) written in "
         f"{time.perf_counter() - t0:.1f} s")
-    dense_bytes = 4 * (canonical_vocab_size(K_MAIN) * HIDDEN_SIZE_FC1 + HIDDEN_SIZE_FC1 * EMBEDDING_SIZE)
     return {
-        "dense": drive_path("dense", work, lib_dir, q_dir, names, dense_bytes, None),
+        "dense": drive_path("dense", work, lib_dir, q_dir, names, DENSE_MODEL_BYTES, None),
         "fsw": drive_path("fsw", work, fsw_dir, q_dir, names, fsw_bytes, K_MAIN),
-    }
+    }, q_dir, names
+
+
+# -- phase 4b: build_library ------------------------------------------------------
+
+
+def random_backbone(rng, n_leaves: int, prefix: str) -> tuple[str, dict[str, float]]:
+    """A random binary tree on n_leaves (sequential leaf attachment) as newick
+    text, with random edge lengths and support values on the internal nodes
+    (so divide_tree's unit-length pre-pass covers every edge and -size is
+    about the leaves per subtree), and each leaf's GC content, drifting from
+    0.5 along the tree so that near leaves have near compositions."""
+    children, parent, leaves, nxt = {0: [1, 2]}, {1: 0, 2: 0}, [1, 2], 3
+    for _ in range(n_leaves - 2):
+        target = leaves[int(rng.integers(0, len(leaves)))]
+        inner, leaf = nxt, nxt + 1
+        nxt += 2
+        p = parent[target]
+        children[p][children[p].index(target)] = inner
+        children[inner] = [target, leaf]
+        parent.update({inner: p, target: inner, leaf: inner})
+        leaves.append(leaf)
+    names = {v: f"{prefix}{i:04d}" for i, v in enumerate(sorted(leaves))}
+    gc: dict[str, float] = {}
+
+    def text(v: int, g: float) -> str:
+        g = float(np.clip(g + rng.normal(0.0, 0.03), 0.25, 0.75))
+        length = f":{0.01 + 0.2 * rng.random():.6g}" if v else ""
+        if v not in children:
+            gc[names[v]] = g
+            return names[v] + length
+        support = str(int(rng.integers(50, 101))) if v else ""
+        return "(" + ",".join(text(c, g) for c in children[v]) + ")" + support + length
+
+    return text(0, 0.5) + ";", gc
+
+
+def write_backbone(work: str, tag: str, rng, n_leaves: int, lengths: tuple[int, int]):
+    """FASTA genomes (1% N) of a random backbone and the tree; returns the
+    genome directory, the tree's text and the number of bases."""
+    fna = os.path.join(work, f"{tag}_fna")
+    os.makedirs(fna)
+    nwk, gc = random_backbone(rng, n_leaves, tag)
+    letters, total = np.frombuffer(b"ACGTN", np.uint8), 0
+    for name, g in gc.items():
+        n = int(rng.integers(lengths[0], lengths[1] + 1))
+        with open(os.path.join(fna, f"{name}.fna"), "wb") as f:
+            f.write(b">%s\n%s\n" % (name.encode(), letters[random_codes(rng, n, gc=g)].tobytes()))
+        total += n
+    return fna, nwk, total
+
+
+def build_library(work: str, tag: str, fna: str, nwk: str, size: int, epochs: int,
+                  device: str) -> tuple[str, str, dict]:
+    """The port's build_library at full width; the tree goes into a fresh
+    directory first, since the tree commands write next to it."""
+    lib, tree_dir = os.path.join(work, f"lib_{tag}"), os.path.join(work, f"tree_{tag}")
+    os.makedirs(lib)
+    os.makedirs(tree_dir)
+    tree = os.path.join(tree_dir, "tree.nwk")
+    with open(tree, "w") as f:
+        f.write(nwk)
+    stage_s = cli_main(["build_library", "-input_dir", fna, "-output_dir", lib, "-tree", tree,
+                        "-k", str(K_MAIN), "-size", str(size), "-cl_epochs", str(epochs),
+                        "-di_epochs", str(epochs), "-device", device])
+    return lib, tree_dir, stage_s
+
+
+class TrainerClock:
+    """Times a build_library run's trainers by wrapping module globals they
+    call (restored on exit): each epoch (ended by a card synchronise, which
+    costs nothing extra since the trainer fetches the epoch's loss right
+    after), each export with its str(np.float32) formatting apart, and the
+    host work around the epochs (.kf parsing, checkpoint writes, and the
+    set-up of model copies and optimizer on the card, which pays for
+    torch's first optimizer use)."""
+
+    def __init__(self):
+        self.epochs: dict[str, list[tuple[int, float]]] = {"classifier": [], "distance": []}
+        self.exports: list[dict] = []
+        self.host_s: dict[str, float] = {}
+        self._format_s = 0.0
+        self._saved = []
+
+    def __enter__(self):
+        for mod, name, wrap in (
+                (train_classifier, "classifier_epoch", self._epoch("classifier")),
+                (train_distance, "distance_epoch", self._epoch("distance")),
+                (train_distance, "export_embeddings", self._export),
+                (train_distance, "f32_row", self._format),
+                (train_classifier, "load_kf_matrix", self._host("classifier .kf parse")),
+                (train_distance, "load_kf_matrix", self._host("distance .kf parse")),
+                (train_classifier, "save_checkpoint", self._host("classifier checkpoint write")),
+                (train_distance, "save_checkpoint", self._host("distance checkpoint write")),
+                (train_classifier, "start_or_resume", self._host("classifier set-up")),
+                (train_distance, "start_or_resume", self._host("distance set-up"))):
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def _epoch(self, kind: str):
+        def wrap(fn):
+            def timed(model, opt, feats, target, order, batch_size, *args, **kw):
+                t0 = time.perf_counter()
+                out = fn(model, opt, feats, target, order, batch_size, *args, **kw)
+                torch.cuda.synchronize()
+                self.epochs[kind].append((-(-order.numel() // batch_size), time.perf_counter() - t0))
+                return out
+            return timed
+        return wrap
+
+    def _export(self, fn):
+        def timed(model, feats, names, *args, **kw):
+            self._format_s = 0.0
+            t0 = time.perf_counter()
+            out = fn(model, feats, names, *args, **kw)
+            self.exports.append({"rows": len(names), "s": time.perf_counter() - t0,
+                                 "format_s": self._format_s})
+            return out
+        return timed
+
+    def _format(self, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self._format_s += time.perf_counter() - t0
+            return out
+        return timed
+
+    def _host(self, key: str):
+        def wrap(fn):
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.host_s[key] = self.host_s.get(key, 0.0) + time.perf_counter() - t0
+                return out
+            return timed
+        return wrap
+
+    def steps_per_s(self, kind: str, epochs: int) -> float:
+        """Steps per second over epochs 2 to `epochs` of every run of a trainer
+        (the first epoch of each run pays for first-call set-up)."""
+        later = [e for i, e in enumerate(self.epochs[kind]) if i % epochs]
+        return sum(n for n, _ in later) / sum(t for _, t in later)
+
+
+def read_subtree_rows(tree_dir: str) -> dict[str, int]:
+    with open(os.path.join(tree_dir, "tree.subtrees")) as f:
+        f.readline()
+        return {g: int(c) for g, c in (line.split() for line in f if line.strip())}
+
+
+def check_library(lib: str, clades: dict[str, int], n_genomes: int) -> None:
+    """Every file of a trained dense library, with finite values of the
+    expected shapes, and no NaN loss in the run logs."""
+    check(len([f for f in os.listdir(lib) if f.endswith(".kf")]) == n_genomes, ".kf files")
+    n_classes = len(set(clades.values()))
+    header, rows = read_table(os.path.join(lib, "backbone_classes.out"))
+    check(header[:4] == ["genome", "true_class", "top_class", "top_p"]
+          and len(header) == 4 + n_classes and len(rows) == len(clades), "backbone_classes.out")
+    check(all(np.all(np.isfinite(r)) and int(r[0]) == clades[g] for g, r in rows.items()),
+          "backbone_classes.out values")
+    for c in sorted(set(clades.values())):
+        members = sorted(g for g, cl in clades.items() if cl == c)
+        _, emb = read_table(os.path.join(lib, f"embeddings_subtree_{c}.csv"), header=False)
+        check(sorted(emb) == members and all(e.shape == (EMBEDDING_SIZE,) and np.all(np.isfinite(e))
+                                             for e in emb.values()), f"subtree {c}: embeddings")
+        h, dis = read_table(os.path.join(lib, f"distortions_subtree_{c}.csv"))
+        d = np.array([dis[g] for g in h[1:]])
+        check(d.shape == (len(members),) * 2 and np.all(np.isfinite(d)) and np.all(d >= 0)
+              and np.all(np.diag(d) == 0), f"subtree {c}: distortions")
+    for name in ["classifier_model.ckpt"] + [f"model_subtree_{c}.ckpt" for c in set(clades.values())]:
+        _, meta, _ = load_checkpoint(os.path.join(lib, name))
+        check(np.isfinite(meta["lowest_loss"]), f"{name}: lowest loss {meta['lowest_loss']}")
+    for path in (os.path.join(lib, f) for f in os.listdir(lib) if f.endswith(".log")):
+        with open(path) as f:
+            text = f.read()
+        losses = [float(v) for v in re.findall(r"Train loss: ([^,\s]+)", text)]
+        check(losses and all(math.isfinite(v) for v in losses) and "Loss: nan" not in text,
+              f"{os.path.basename(path)}: a loss is not finite")
+
+
+def compare_rebuilds(work: str) -> dict:
+    """The small backbone built on the card and on the CPU with the same seed:
+    `.kf`, `.subtrees` and `.di_mtrx` bytes identical; checkpoints, classes
+    and the exported CSVs within REBUILD_* tolerances (the largest
+    differences are printed before they are checked)."""
+    rng = np.random.default_rng(SEED + 40)
+    fna, nwk, _ = write_backbone(work, "rb", rng, REBUILD_LEAVES, REBUILD_GENOME)
+    built = {dev: build_library(work, f"rebuild_{dev}", fna, nwk, REBUILD_SIZE, REBUILD_EPOCHS,
+                                dev) for dev in ("cuda", "cpu")}
+    (lib_gpu, tree_gpu, _), (lib_cpu, tree_cpu, _) = built["cuda"], built["cpu"]
+    for d_gpu, d_cpu, exts in ((lib_gpu, lib_cpu, (".kf",)),
+                               (tree_gpu, tree_cpu, (".subtrees", ".di_mtrx"))):
+        files = sorted(f for f in os.listdir(d_cpu) if f.endswith(exts))
+        check(files == sorted(f for f in os.listdir(d_gpu) if f.endswith(exts)), f"{exts} files")
+        for f in files:
+            check(read_bytes(os.path.join(d_gpu, f)) == read_bytes(os.path.join(d_cpu, f)),
+                  f"{f} differs between cuda and cpu")
+    clades = read_subtree_rows(tree_cpu)
+    used: dict[str, float] = {}
+
+    def compare(what: str, a: np.ndarray, b: np.ndarray, rtol: float, atol: float) -> None:
+        check(a.shape == b.shape, f"{what}: shapes {a.shape} {b.shape}")
+        diff = np.abs(a - b)
+        used[what] = max(used.get(what, 0.0), float(np.max(diff / (atol + rtol * np.abs(b)),
+                                                            initial=0.0)))
+        used[f"{what} max_abs"] = max(used.get(f"{what} max_abs", 0.0), float(diff.max(initial=0.0)))
+
+    batches = {"classifier_model": -(-len(clades) // BATCH_SIZE)}
+    for c in set(clades.values()):
+        batches[f"model_subtree_{c}"] = -(-sum(cl == c for cl in clades.values()) // BATCH_SIZE)
+    for name, n_batches in sorted(batches.items()):
+        _, m_gpu, p_gpu = load_checkpoint(os.path.join(lib_gpu, f"{name}.ckpt"))
+        _, m_cpu, p_cpu = load_checkpoint(os.path.join(lib_cpu, f"{name}.ckpt"))
+        compare("lowest_loss", np.array([m_gpu["lowest_loss"]]), np.array([m_cpu["lowest_loss"]]),
+                REBUILD_LOSS_RTOL, 0.0)
+        atol = 2 * ADAM_STEP * LEARNING_RATE * n_batches * REBUILD_EPOCHS
+        for layer in p_cpu:
+            for leaf in p_cpu[layer]:
+                compare("params", p_gpu[layer][leaf], p_cpu[layer][leaf], REBUILD_RTOL, atol)
+    _, cls_gpu = read_table(os.path.join(lib_gpu, "backbone_classes.out"))
+    _, cls_cpu = read_table(os.path.join(lib_cpu, "backbone_classes.out"))
+    for g in clades:
+        compare("classes", cls_gpu[g][2:], cls_cpu[g][2:], REBUILD_CLASS_RTOL, REBUILD_CLASS_ATOL)
+    for c in set(clades.values()):
+        for kind, has_header, rtol, atol in (
+                ("embeddings", False, REBUILD_RTOL, REBUILD_EMB_ATOL),
+                ("distortions", True, REBUILD_DIS_RTOL, REBUILD_DIS_ATOL)):
+            _, a = read_table(os.path.join(lib_gpu, f"{kind}_subtree_{c}.csv"), has_header)
+            _, b = read_table(os.path.join(lib_cpu, f"{kind}_subtree_{c}.csv"), has_header)
+            check(sorted(a) == sorted(b), f"{kind}_subtree_{c}: rows")
+            compare(kind, np.array([a[g] for g in sorted(a)]), np.array([b[g] for g in sorted(b)]),
+                    rtol, atol)
+    log(f"phase build_library: rebuild of {REBUILD_LEAVES} genomes, -size {REBUILD_SIZE}, "
+        f"{REBUILD_EPOCHS} epochs, cuda vs cpu: .kf/.subtrees/.di_mtrx identical; tolerance "
+        f"used (max |a-b| / (atol + rtol |b|), at most 1) and largest differences "
+        f"{json.dumps(used)}")
+    for what, u in used.items():
+        check("max_abs" in what or u <= 1.0, f"rebuild cuda vs cpu: {what} outside its tolerance ({u})")
+    return used
+
+
+def phase_build_library(work: str, q_dir: str, q_names: list[str]) -> dict:
+    rng = np.random.default_rng(SEED + 30)
+    t0 = time.perf_counter()
+    fna, nwk, total = write_backbone(work, "bb", rng, BUILD_LEAVES, BUILD_GENOME)
+    log(f"phase build_library: backbone of {BUILD_LEAVES} genomes ({total} bases) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmer_hist.launches = sort_rows.launches = 0
+    with TrainerClock() as clock:
+        lib, tree_dir, stage_s = build_library(work, "bb", fna, nwk, BUILD_SIZE, BUILD_EPOCHS, "cuda")
+    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["kmer_hist"] >= 1, "build_library: kmer_hist was not launched")
+    check(peak >= 2 * DENSE_MODEL_BYTES, f"build_library: peak device memory {peak} B")
+    clades = read_subtree_rows(tree_dir)
+    sizes = [sum(c == k for c in clades.values()) for k in sorted(set(clades.values()))]
+    check(len(sizes) >= 2 and sum(sizes) == BUILD_LEAVES,
+          f"divide_tree made {len(sizes)} subtrees of {sizes} genomes")
+    check_library(lib, clades, BUILD_LEAVES)
+    out = {"stage_s": stage_s, "launches": launches, "peak_mib": peak / 2**20,
+           "subtree_sizes": sizes,
+           "steps_per_s": {kind: clock.steps_per_s(kind, BUILD_EPOCHS) for kind in clock.epochs},
+           "epoch_s": {kind: [t for _, t in runs] for kind, runs in clock.epochs.items()},
+           "exports": clock.exports, "host_s": clock.host_s}
+    log(f"phase build_library: cuda run ok, {json.dumps(out)}")
+    serve = serve_on_card("trained", work, lib, q_dir, q_names, DENSE_MODEL_BYTES, None,
+                          n_classes=len(sizes))
+    out["serve"] = {"stage_s": serve["stage_s"], "launches": serve["launches"]}
+    out["rebuild_tolerance_used"] = compare_rebuilds(work)
+    return out
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -581,7 +914,8 @@ def main() -> int:
     sort_err = phase_sort_vs_plain(dev)
     work = tempfile.mkdtemp(prefix="kf2vec_chip_smoke_")
     try:
-        paths = phase_main_paths(work, dev)
+        paths, q_dir, q_names = phase_main_paths(work, dev)
+        build = phase_build_library(work, q_dir, q_names)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timing = phase_timings(dev)
@@ -589,9 +923,15 @@ def main() -> int:
     long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
+    log(f"phase timings: build_library stages (s) {json.dumps(build['stage_s'])}; steps/s over "
+        f"epochs 2-{BUILD_EPOCHS} {json.dumps(build['steps_per_s'])}; peak device memory "
+        f"{build['peak_mib']:.0f} MiB; exports {json.dumps(build['exports'])}; host work in "
+        f"the trainers (s) {json.dumps(build['host_s'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
+    for name in by_path:
+        by_path[name]["build_library"] = build["launches"][name]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],

@@ -11,6 +11,11 @@ runs here on an NVIDIA card:
 - the classifier, dense and FSW distance models as ``nn.Module``s,
 - the exact blocked cdist as plain tensor code.
 
+Libraries of dense models are built here too (``build_library``:
+``get_frequencies`` -> ``divide_tree`` -> ``get_distances`` ->
+``train_classifier`` -> ``train_model_set -no_fsw``), with the trainers as
+plain PyTorch on cuBLAS and ``torch.optim.Adam``.
+
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
 CPU; the JAX package ``kf2vecfsw_tpu`` is the reference it is tested
 against, and nothing here imports it. File formats (`.kf`, `.npy`,

@@ -1,18 +1,25 @@
-"""kf2vec CLI of the PyTorch port: the serving subcommands of the JAX
-package's parser (``kf2vecfsw_tpu/cli.py``), with the same flags and
-defaults, plus ``-device {cuda,cpu}`` (default ``cuda``) for a caller who
-asks for the CPU.
+"""kf2vec CLI of the PyTorch port: the subcommands of the JAX package's
+parser (``kf2vecfsw_tpu/cli.py``) that the port runs, with the same flags
+and defaults, plus ``-device {cuda,cpu}`` (default ``cuda``) on every
+command that uses a device, for a caller who asks for the CPU.
 
 Commands:
   get_kmers                Genome -> (N, k+1) k-mer point set .npy (FSW input)
   get_frequencies          Genome -> canonical k-mer frequency .kf vector
+  divide_tree              Split phylogeny into subtrees (sum_branch)
+  scale_tree               Multiply all edge lengths
+  get_distances            Patristic distance matrices (.di_mtrx)
+  train_classifier         Train the subtree classifier
   classify                 Classify query samples
+  train_model_set          Train per-subtree distance models (dense: -no_fsw)
   query                    Query distance models -> APPLES inputs
+  build_library            Wrapper: frequencies+divide+distances+train both
   process_query_data       Wrapper: frequencies+classify+kmers+query
 
-Libraries of dense and of FSW subtree models are served. Training
-(``build_library`` and its steps) stays with the JAX package until later
-slices of the port.
+Libraries of dense and of FSW subtree models are served; libraries of dense
+models are built. Training FSW models stays with the JAX package until a
+later slice of the port: ``train_model_set`` without ``-no_fsw`` stops
+with a message.
 """
 
 from __future__ import annotations
@@ -43,12 +50,53 @@ def _cmd_get_frequencies(args):
     )
 
 
+def _cmd_divide_tree(args):
+    from .ingest.tree_ops import divide_tree
+
+    divide_tree(args.tree, args.size, single_cut=args.tc_single_cut)
+
+
+def _cmd_scale_tree(args):
+    from .ingest.tree_ops import scale_tree
+
+    scale_tree(args.tree, args.factor)
+
+
+def _cmd_get_distances(args):
+    from .ingest.tree_ops import get_distances
+
+    get_distances(args.tree, args.subtrees, args.mode)
+
+
+def _cmd_train_classifier(args):
+    from .train.classifier import train_classifier_func
+
+    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    train_classifier_func(
+        args.input_dir, files, args.subtrees, args.e, args.hidden_sz, args.batch_sz,
+        args.lr, args.lr_min, args.lr_decay, args.seed, args.mask, args.o,
+        resume=args.resume, device=args.device,
+    )
+
+
 def _cmd_classify(args):
     from .infer.classify import classify_func
 
     files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
     classify_func(args.input_dir, files, args.model, args.seed, args.o, args.block,
                   device=args.device)
+
+
+def _cmd_train_model_set(args):
+    from .train.distance import train_model_set_func
+
+    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    train_model_set_func(
+        args.input_dir, files, args.subtrees, args.true_dist, args.e, args.hidden_sz,
+        args.embed_sz, args.batch_sz, args.lr, args.lr_min, args.lr_decay, args.clade,
+        args.seed, args.o, test_ids_path=args.test_set, save_interval=args.save_interval,
+        use_fsw=not args.no_fsw, resume=args.resume, device=args.device,
+    )
 
 
 def _cmd_query(args):
@@ -80,6 +128,63 @@ def _fsw_ks(distance_model: str) -> list[int]:
             # if a genome is classified into its subtree
             print(f"WARNING: could not inspect {ckpt}: {e}")
     return sorted(ks)
+
+
+def _cmd_build_library(args) -> dict[str, float]:
+    """get_frequencies -> divide_tree -> get_distances -> train_classifier ->
+    train_model_set with dense models (main.py:569-622). The tree's outputs
+    are written next to ``-tree``. Returns the wall seconds of each stage."""
+    if args.mode == "full_only":
+        raise SystemExit(
+            "build_library needs per-subtree distance matrices to train the "
+            "distance models; -mode full_only produces only the full-tree "
+            "matrix (use 'hybrid' or 'subtrees_only')"
+        )
+    from .device import resolve_device
+    from .ingest.frequencies import get_frequencies
+    from .ingest.tree_ops import divide_tree, get_distances
+    from .train.classifier import train_classifier_func
+    from .train.distance import train_model_set_func
+
+    resolve_device(args.device)
+    seconds = {}
+    t0 = time.perf_counter()
+    print("\n==> Computing k-mer frequences\n")
+    get_frequencies(
+        args.input_dir, args.output_dir, k=args.k, threads=args.p,
+        pseudocount=args.pseudocount, raw_cnt=args.raw_cnt, device=args.device,
+    )
+    t1 = time.perf_counter()
+    seconds["get_frequencies"] = t1 - t0
+    print("\n==> Splitting phylogeny into subtrees\n")
+    subtrees = divide_tree(args.tree, args.size)
+    t2 = time.perf_counter()
+    seconds["divide_tree"] = t2 - t1
+    print("\n==> Computing distance matrices\n")
+    get_distances(args.tree, subtrees, args.mode)
+    tree_dir = os.path.split(args.tree)[0]
+    t3 = time.perf_counter()
+    seconds["get_distances"] = t3 - t2
+
+    print("\n==> Training classifier model\n")
+    files = sorted(glob.glob(os.path.join(args.output_dir, "*.kf")))
+    train_classifier_func(
+        args.output_dir, files, subtrees, args.cl_epochs, args.cl_hidden_sz,
+        args.cl_batch_sz, args.cl_lr, args.cl_lr_min, args.cl_lr_decay, args.cl_seed,
+        False, args.output_dir, device=args.device,
+    )
+    t4 = time.perf_counter()
+    seconds["train_classifier"] = t4 - t3
+    print("\n==> Training distance models\n")
+    train_model_set_func(
+        args.output_dir, files, subtrees, tree_dir, args.di_epochs, args.di_hidden_sz,
+        args.di_embed_sz, args.di_batch_sz, args.di_lr, args.di_lr_min,
+        args.di_lr_decay, None, args.di_seed, args.output_dir, use_fsw=False,
+        device=args.device,
+    )
+    seconds["train_model_set"] = time.perf_counter() - t4
+    print("\n==> Building library step is completed!\n")
+    return seconds
 
 
 def _cmd_process_query_data(args) -> dict[str, float]:
@@ -146,6 +251,27 @@ def _add_device(p):
                    help="Device to run on. Default: cuda (cpu only when asked for)")
 
 
+def _add_resume(p):
+    p.add_argument("-resume", action="store_true",
+                   help="Resume from the last autosaved trainer state")
+
+
+def _add_train_common(p, epochs_default):
+    p.add_argument("-e", type=int, default=epochs_default,
+                   help=f"Number of epochs. Default: {epochs_default}")
+    p.add_argument("-hidden_sz", type=int, default=D.HIDDEN_SIZE_FC1,
+                   help=f"Hidden size. Default: {D.HIDDEN_SIZE_FC1}")
+    p.add_argument("-batch_sz", type=int, default=D.BATCH_SIZE,
+                   help=f"Batch size. Default: {D.BATCH_SIZE}")
+    p.add_argument("-lr", type=float, default=D.LEARNING_RATE,
+                   help=f"Start learning rate. Default: {D.LEARNING_RATE}")
+    p.add_argument("-lr_min", type=float, default=D.LEARNING_RATE_MIN,
+                   help=f"Minimum learning rate. Default: {D.LEARNING_RATE_MIN}")
+    p.add_argument("-lr_decay", type=float, default=D.LEARNING_RATE_DECAY,
+                   help=f"Learning rate decay. Default: {D.LEARNING_RATE_DECAY}")
+    p.add_argument("-seed", type=int, default=D.SEED, help=f"Random seed. Default: {D.SEED}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=f"K-mer frequency to distance (PyTorch/CUDA)\n{VERSION}",
@@ -173,6 +299,37 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p)
     p.set_defaults(func=_cmd_get_frequencies)
 
+    p = sub.add_parser("divide_tree", description="Divides input phylogeny into subtrees.")
+    p.add_argument("-tree", help="Input phylogeny (a .newick/.nwk format)")
+    p.add_argument("-size", type=int, default=D.DEFAULT_SUBTREE_SZ,
+                   help=f"Size of the subtree. Default: {D.DEFAULT_SUBTREE_SZ}")
+    # hidden: upstream-TreeCluster single-cut ambiguity resolution
+    p.add_argument("-tc_single_cut", action="store_true", help=argparse.SUPPRESS)
+    p.set_defaults(func=_cmd_divide_tree)
+
+    p = sub.add_parser("scale_tree", description="Scales all edges in the tree by multiplier.")
+    p.add_argument("-tree")
+    p.add_argument("-factor", type=float, default=D.DEFAULT_MULTIPLIER,
+                   help=f"Multiplier. Default: {D.DEFAULT_MULTIPLIER}")
+    p.set_defaults(func=_cmd_scale_tree)
+
+    p = sub.add_parser("get_distances", description="Computes distance matrices")
+    p.add_argument("-tree", required=True)
+    p.add_argument("-subtrees")
+    p.add_argument("-mode", type=str, default="subtrees_only", metavar="",
+                   help="Ways to perform distance computation [subtrees_only]. Default: subtrees_only")
+    p.set_defaults(func=_cmd_get_distances)
+
+    p = sub.add_parser("train_classifier", description="Train classifier model based on backbone subtrees")
+    p.add_argument("-input_dir")
+    p.add_argument("-subtrees")
+    _add_train_common(p, D.DEFAULT_CL_EPOCHS)
+    p.add_argument("-mask", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("-o", help="Model output path")
+    _add_resume(p)
+    _add_device(p)
+    p.set_defaults(func=_cmd_train_classifier)
+
     p = sub.add_parser("classify", description="Classifies query inputs using previously trained classifier model")
     p.add_argument("-input_dir")
     p.add_argument("-model")
@@ -182,6 +339,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", help="Output path")
     _add_device(p)
     p.set_defaults(func=_cmd_classify)
+
+    p = sub.add_parser("train_model_set", description="Trains individual models for each subtree")
+    p.add_argument("-input_dir")
+    p.add_argument("-test_set")
+    p.add_argument("-true_dist")
+    p.add_argument("-subtrees")
+    _add_train_common(p, D.DEFAULT_DI_EPOCHS)
+    p.add_argument("-embed_sz", type=int, default=D.EMBEDDING_SIZE,
+                   help=f"Embedding size. Default: {D.EMBEDDING_SIZE}")
+    p.add_argument("-clade", type=int, nargs="*", help="Clade number to train. Default: all")
+    p.add_argument("-save_interval", type=int,
+                   help="Save model after specified interval of epochs. Default: last")
+    p.add_argument("-o", help="Model output path")
+    p.add_argument("-no_fsw", action="store_true",
+                   help="Keep original model (the only family this port trains yet)")
+    # FSW flags of the JAX parser, kept so its command lines parse; FSW
+    # training stops with a message until the port's FSW training slice
+    p.add_argument("-fswout_dim", type=int, default=D.FSW_OUT_DIM)
+    p.add_argument("-base_dim", type=int, default=D.FSW_BASE_DIM)
+    p.add_argument("-fsw_lazy_refresh", type=int, default=None, help=argparse.SUPPRESS)
+    _add_resume(p)
+    _add_device(p)
+    p.set_defaults(func=_cmd_train_model_set)
 
     p = sub.add_parser("query", description="Query models")
     p.add_argument("-input_dir")
@@ -193,6 +373,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", help="Output path")
     _add_device(p)
     p.set_defaults(func=_cmd_query)
+
+    p = sub.add_parser("build_library", description="Wrapper: get_frequencies, divide_tree, get_distance, train_classifier, train_model_set")
+    p.add_argument("-input_dir")
+    p.add_argument("-output_dir")
+    _add_k(p)
+    _add_p(p)
+    p.add_argument("-pseudocount", action="store_true")
+    p.add_argument("-raw_cnt", action="store_true")
+    p.add_argument("-tree")
+    p.add_argument("-size", type=int, default=D.DEFAULT_SUBTREE_SZ)
+    p.add_argument("-mode", type=str, default="hybrid", choices=["full_only", "hybrid", "subtrees_only"], metavar="")
+    for prefix, epochs in (("cl", D.DEFAULT_CL_EPOCHS), ("di", D.DEFAULT_DI_EPOCHS)):
+        p.add_argument(f"-{prefix}_epochs", type=int, default=epochs)
+        p.add_argument(f"-{prefix}_hidden_sz", type=int, default=D.HIDDEN_SIZE_FC1)
+        p.add_argument(f"-{prefix}_batch_sz", type=int, default=D.BATCH_SIZE)
+        p.add_argument(f"-{prefix}_lr", type=float, default=D.LEARNING_RATE)
+        p.add_argument(f"-{prefix}_lr_min", type=float, default=D.LEARNING_RATE_MIN)
+        p.add_argument(f"-{prefix}_lr_decay", type=float, default=D.LEARNING_RATE_DECAY)
+        p.add_argument(f"-{prefix}_seed", type=int, default=D.SEED)
+    p.add_argument("-di_embed_sz", type=int, default=D.EMBEDDING_SIZE)
+    _add_device(p)
+    p.set_defaults(func=_cmd_build_library)
 
     p = sub.add_parser("process_query_data", description="Wrapper: get_frequencies, classify, query")
     p.add_argument("-input_dir")
@@ -212,7 +414,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run one subcommand; returns what the command returns (stage seconds
-    for process_query_data, else None)."""
+    for build_library and process_query_data, else None)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if hasattr(args, "func"):

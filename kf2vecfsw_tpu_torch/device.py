@@ -32,3 +32,10 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def device_line(dev: torch.device) -> str:
+    """The ``Backend:`` line of a trainer's run log."""
+    if dev.type == "cuda":
+        return f"Backend: {dev.type} ({torch.cuda.get_device_name(dev)})"
+    return f"Backend: {dev.type}"

@@ -10,6 +10,13 @@ arrays ``{"fc1": {"w": (in, out), "b": (out,)}, ...}``, and for the FSW
 model (``models/fsw.py``) also ``"lookup"`` and ``"fsw": {"slices",
 "freqs"}``. ``params_from_jax`` and ``params_to_jax`` convert between that
 layout and a module, whose ``nn.Linear`` stores ``weight`` as (out, in).
+``adam_state_from_jax`` and ``adam_state_to_jax`` do the same for the JAX
+package's Adam state ``{"count", "mu", "nu"}`` and ``torch.optim.Adam``'s
+``step`` / ``exp_avg`` / ``exp_avg_sq``, so a trainer state autosaved by
+either package resumes in the other.
+
+Training is plain autograd through ``nn.Linear``: no kernel of the port is
+on the training step.
 """
 
 from __future__ import annotations
@@ -110,3 +117,54 @@ def params_to_jax(module: nn.Module) -> dict:
         params["lookup"] = _numpy(module.lookup)
         params["fsw"] = {"slices": _numpy(module.slices), "freqs": _numpy(module.freqs)}
     return params
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def _linear_slots(module: nn.Module):
+    """(JAX layer name, leaf, parameter, stored transposed) of every Linear."""
+    for name, layer in module.named_children():
+        if isinstance(layer, nn.Linear):
+            yield name, "w", layer.weight, True
+            yield name, "b", layer.bias, False
+
+
+@torch.no_grad()
+def adam_state_from_jax(opt: torch.optim.Optimizer, module: nn.Module, state: dict) -> None:
+    """Load the JAX package's Adam state (``count``, and ``mu`` / ``nu`` in
+    the (in, out) layout) into ``opt``, an Adam over ``module``'s dense
+    parameters. ``step`` is a CPU float32 tensor, as torch.optim.Adam keeps
+    it outside capturable and fused mode."""
+    count = float(np.asarray(state["count"]))
+    for name, leaf, p, transposed in _linear_slots(module):
+        mu, nu = (_tensor(state[m][name][leaf]) for m in ("mu", "nu"))
+        if transposed:
+            mu, nu = mu.T, nu.T
+        opt.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu.contiguous().to(p.device),
+            "exp_avg_sq": nu.contiguous().to(p.device),
+        }
+
+
+def adam_state_to_jax(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
+    """``opt``'s Adam state over ``module`` -> the JAX package's
+    ``{"count": int32, "mu": params-like, "nu": params-like}`` (numpy, (in,
+    out) weights); zeros and count 0 before the first step."""
+    count = 0
+    mu: dict = {}
+    nu: dict = {}
+    for name, leaf, p, transposed in _linear_slots(module):
+        st = opt.state.get(p)
+        if st:
+            count = int(st["step"])
+            m, v = st["exp_avg"], st["exp_avg_sq"]
+        else:
+            m = v = torch.zeros_like(p)
+        if transposed:
+            m, v = m.T, v.T
+        mu.setdefault(name, {})[leaf] = _numpy(m)
+        nu.setdefault(name, {})[leaf] = _numpy(v)
+    return {"count": np.int32(count), "mu": mu, "nu": nu}

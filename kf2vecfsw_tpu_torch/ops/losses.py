@@ -1,0 +1,36 @@
+"""Training losses (the port's copy of the JAX package's ``ops/losses.py``,
+limited to the two the dense trainers use; reference: losses.py).
+
+- weighted_sqrt_mse: Loss.my_mse_loss (losses.py:13-49):
+  mean( (d_model - sqrt(d_true))^2 / (d_true + 1e-6) )
+- nll_loss: torch nn.NLLLoss over log_softmax outputs
+  (train_classifier_model.py:278)
+
+Both take an optional pair/sample mask; masked-out entries drop out of the
+mean, which is taken over the entries that remain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    if mask is None:
+        return torch.mean(values)
+    total = torch.sum(torch.where(mask, values, torch.zeros_like(values)))
+    return total / torch.clamp(torch.sum(mask), min=1)
+
+
+def weighted_sqrt_mse(model_dist: torch.Tensor, true_dist: torch.Tensor,
+                      pair_mask: torch.Tensor | None = None,
+                      weight_offset: float = 1e-6) -> torch.Tensor:
+    weight = 1.0 / (true_dist + weight_offset)
+    v = (model_dist - torch.sqrt(true_dist)) ** 2 * weight
+    return _masked_mean(v, pair_mask)
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+             sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+    picked = -torch.gather(log_probs, 1, labels[:, None].long())[:, 0]
+    return _masked_mean(picked, sample_mask)

@@ -1,17 +1,77 @@
-"""Distance-model helpers (the port's copy of what serving needs from the
-JAX package's ``train/distance.py``; the trainer arrives with the training
-slice)."""
+"""Per-subtree distance-embedding trainer, dense route (the port's
+``train_model_set -no_fsw``; reference: train_model_set.py, JAX package:
+``train/distance.py``).
+
+One model per clade: embeddings are trained so pairwise L2 distances
+approximate sqrt(patristic distance) under inverse-distance weighting
+(losses.py:13-49). The clade's features and true distances live on the
+device; each epoch draws its item order from a CPU generator seeded by
+``seed`` (which also drew the initial weights, afresh for every clade, as
+the JAX package reuses one key per clade) and runs ``step.distance_epoch``;
+the loss is fetched once per epoch. A held-out ``-test_set`` is scored each
+epoch, ``-save_interval`` writes snapshots, and the params of the
+lowest epoch loss are written to ``model_subtree_{c}.ckpt`` and embedded
+into the APPLES-compatible embeddings/distortions CSVs.
+
+FSW models (the JAX package's default, without ``-no_fsw``) are not trained
+here yet: asking for one stops with a message.
+"""
 
 from __future__ import annotations
 
-import numpy as np
+import os
+import time
 
-from .step import bucket_items
+import numpy as np
+import torch
+
+from .. import defaults
+from ..device import DEFAULT_DEVICE, device_line, resolve_device
+from ..models.mlp import DistEmbed, count_params, init_params_, params_from_jax, params_to_jax
+from ..ops.pairwise import cdist_exact_blocked, squared_clamped
+from ..utils.logging import close_logger, make_run_logger, timestamp
+from ..utils.timing import hms
+from .checkpoint import load_checkpoint, save_checkpoint
+from .classifier import load_kf_matrix
+from .resume import start_or_resume
+from .schedule import step_lr
+from .step import bucket_items, distance_epoch, epoch_order, eval_loss, set_lr
+
+F32 = np.float32
+EXPORT_BLOCK = 512  # backbone rows per forward of the export
+
+FSW_TRAINING_NOT_PORTED = (
+    "train_model_set: FSW distance models (the default) are not trained by the "
+    "PyTorch port yet; FSW training is the port's next slice. Pass -no_fsw to "
+    "train dense models (NeuralNet on .kf features), or train FSW models with "
+    "the JAX package (python -m kf2vecfsw_tpu train_model_set)."
+)
 
 
 def f32_row(vals, sep: str = "\t") -> str:
     """One str(np.float32)-formatted row ending in '\\n'."""
     return sep.join(str(np.float32(v)) for v in vals) + "\n"
+
+
+def read_test_ids(path: str | None) -> list[str]:
+    """-test_set file: one filename per line, extension stripped
+    (utils.py:440-454)."""
+    if path is None:
+        return []
+    with open(path) as f:
+        return [os.path.splitext(line.strip())[0] for line in f if line.strip()]
+
+
+def load_subtree_dist(true_dist_dir: str, clade: int, order: list[str]) -> np.ndarray:
+    """Find *_subtree_{c}.di_mtrx and reindex to feature order
+    (train_model_set.py:260-268 + utils.py sort_df)."""
+    from ..tree.distance import read_di_mtrx, reindex_matrix
+
+    candidates = [f for f in os.listdir(true_dist_dir) if f"_subtree_{clade}.di_mtrx" in f]
+    if not candidates:
+        raise FileNotFoundError(f"no *_subtree_{clade}.di_mtrx under {true_dist_dir}")
+    rl, cl, v = read_di_mtrx(os.path.join(true_dist_dir, candidates[0]))
+    return reindex_matrix(rl, cl, v, order)
 
 
 def pad_point_sets(mats: list[np.ndarray], n_fixed: int | None = None) -> np.ndarray:
@@ -28,6 +88,228 @@ def pad_point_sets(mats: list[np.ndarray], n_fixed: int | None = None) -> np.nda
     for i, m in enumerate(mats):
         out[i, : m.shape[0]] = m
     return out
+
+
+@torch.no_grad()
+def export_embeddings(model: torch.nn.Module, feats: torch.Tensor, backbone_names: list[str],
+                      out_dir: str, clade, log) -> np.ndarray:
+    """Embed the full backbone; write distortions_subtree_{c}.csv (squared,
+    <1e-6 clamped to 0) and embeddings_subtree_{c}.csv
+    (train_model_set.py:602-643). Returns the embeddings."""
+    model.eval()
+    outputs = torch.cat([model(feats[i : i + EXPORT_BLOCK])
+                         for i in range(0, feats.shape[0], EXPORT_BLOCK)])
+    dist = squared_clamped(cdist_exact_blocked(outputs, outputs)).cpu().numpy()
+    outputs = outputs.cpu().numpy()
+    with open(os.path.join(out_dir, f"distortions_subtree_{clade}.csv"), "w") as f:
+        f.write("\t" + "\t".join(backbone_names) + "\n")
+        for name, row in zip(backbone_names, dist):
+            f.write(name + "\t" + f32_row(row))
+    with open(os.path.join(out_dir, f"embeddings_subtree_{clade}.csv"), "w") as f:
+        for name, row in zip(backbone_names, outputs):
+            f.write(name + "\t" + f32_row(row))
+    if log:
+        log.info(
+            f"Dimensions of distortion matrix rows:{len(backbone_names)} "
+            f"cols:{len(backbone_names) + 1}"
+        )
+        log.info(
+            f"Dimensions of embedding output rows:{len(backbone_names)} "
+            f"cols:{outputs.shape[1] + 1}"
+        )
+    return outputs
+
+
+def train_model_set_func(
+    features_folder: str,
+    feature_files: list[str],
+    clades_info: str,
+    true_dist_dir: str,
+    num_epochs: int,
+    hidden_size: int,
+    embedding_size: int,
+    batch_size: int,
+    lr0: float,
+    lr_min: float,
+    lr_decay: float,
+    clades_to_train: list[int] | None,
+    seed: int,
+    model_filepath: str,
+    test_ids_path: str | None = None,
+    save_interval: int | None = None,
+    use_fsw: bool = True,
+    resume: bool = False,
+    autosave_every: int = 500,
+    device: str = DEFAULT_DEVICE,
+) -> list[str]:
+    if use_fsw:
+        raise SystemExit(FSW_TRAINING_NOT_PORTED)
+    dev = resolve_device(device)
+    since = time.time()
+    clade_tag = (
+        "_".join(str(c) for c in clades_to_train) if clades_to_train is not None else "all"
+    )
+    log = make_run_logger(model_filepath, f"train_model_{timestamp()}_clade_{clade_tag}.log")
+    try:
+        return _train_all(
+            log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
+            num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min,
+            lr_decay, clades_to_train, seed, model_filepath, test_ids_path,
+            save_interval, resume, autosave_every,
+        )
+    finally:
+        close_logger(log)
+
+
+def _train_all(
+    log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
+    num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min, lr_decay,
+    clades_to_train, seed, model_filepath, test_ids_path, save_interval,
+    resume, autosave_every,
+):
+    from ..ingest.tree_ops import read_subtrees
+
+    log.info("\n==> Input arguments...\n")
+    log.info(f"Feature directory: {features_folder}")
+    log.info(f"Clades information: {clades_info}")
+    log.info(f"Ground truth directory: {true_dist_dir}")
+    log.info(f"Test set: {test_ids_path if test_ids_path else 'None'}")
+
+    log.info("\n==> Parameters...\n")
+    log.info(device_line(dev))
+    log.info(f"Hidden Size fc1: {hidden_size}")
+    log.info(f"Embedding Size: {embedding_size}")
+    log.info(f"Total Epochs: {num_epochs}")
+    log.info(f"Batch Size: {batch_size}")
+    log.info(f"Learning Rate: {lr0:g}")
+    log.info(f"Learning Rate Min: {lr_min:g}")
+    log.info(f"Learning Rate Decay: {lr_decay:g}")
+    log.info(f"Clades to train: {clade_list_str(clades_to_train)}")
+    log.info(f"Random Seed: {seed}")
+    log.info(f"Model save interval: {save_interval if save_interval is not None else 'unspecified'}")
+    log.info("Model family: NeuralNet")
+
+    log.info("\n==> Subtree training...\n")
+    rows = read_subtrees(clades_info)
+    clade_order: list[int] = []
+    for _, c in rows:
+        if c not in clade_order:
+            clade_order.append(c)
+    if clades_to_train is not None:
+        clade_order = list(clades_to_train)
+    log.info(f"Number of Classes: {len(clade_order)}")
+
+    test_ids = set(read_test_ids(test_ids_path))
+    avail = {os.path.basename(f)[: -len(".kf")]: f for f in feature_files}
+    saved: list[str] = []
+    for c in clade_order:
+        log.info(f"\n==> Working on subtree {c}...\n")
+        log.info("\n==> Preparing Data...\n")
+        clade_set = {g for g, cl in rows if cl == c}
+        backbone_names, feats = load_kf_matrix([avail[g] for g in avail if g in clade_set])
+        feats = feats * F32(defaults.FEATURES_SCALER)
+        input_size = feats.shape[1]
+        n_items = len(backbone_names)
+        log.info(f"Dimensions of feature matrix rows: {n_items}, cols: {input_size}")
+
+        dist = load_subtree_dist(true_dist_dir, c, backbone_names).astype(np.float32)
+        log.info(
+            f"Dimensions of true distance matrix rows: {dist.shape[0]}, cols: {dist.shape[1]}"
+        )
+        train_idx = [i for i, g in enumerate(backbone_names) if g not in test_ids]
+        test_idx = [i for i, g in enumerate(backbone_names) if g in test_ids]
+        log.info(f"Number of Train Samples: {len(train_idx)}")
+        if test_idx:
+            log.info(f"Number of Test Samples: {len(test_idx)}")
+
+        log.info("\n==> Building model...\n")
+        gen = torch.Generator().manual_seed(seed)
+        model = init_params_(DistEmbed(input_size, hidden_size, embedding_size), gen)
+        meta = {
+            "model_input_size": input_size,
+            "model_hidden_size_fc1": hidden_size,
+            "model_embedding_size": embedding_size,
+        }
+        log.info(f"Total parameters: {count_params(model)}")
+        log.info(f"Trainable parameters: {count_params(model)}")
+        ckpt_path = os.path.join(model_filepath, f"model_subtree_{c}.ckpt")
+        state_path = os.path.join(model_filepath, f"trainer_state_subtree_{c}.ckpt")
+        st = start_or_resume(model, gen, len(train_idx), state_path, resume, log, lr0, dev)
+
+        feats_dev = torch.from_numpy(feats).to(dev)
+        dist_dev = torch.from_numpy(dist).to(dev)
+        # the epoch permutes [0, n_train): train rows and columns subset once
+        sub = torch.tensor(train_idx, dtype=torch.int64, device=dev)
+        feats_train = feats_dev.index_select(0, sub)
+        dist_train = dist_dev.index_select(0, sub).index_select(1, sub)
+
+        hrs, m, s = hms(time.time() - since)
+        log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+        log.info("\n==> Training model...\n")
+
+        n_batches = -(-len(train_idx) // batch_size)
+        for epoch in range(st.start_epoch, num_epochs):
+            lr = step_lr(epoch, lr0, lr_min, lr_decay)
+            set_lr(st.opt, lr)
+            order = epoch_order(gen, len(train_idx)).to(dev)
+            loss = float(distance_epoch(st.model, st.opt, feats_train, dist_train, order,
+                                        batch_size))  # the epoch's one fetch
+            if loss != loss:  # NaN watch (train_model_set_chunks.py:431-432)
+                log.info(f"Loss: {loss}")
+            st.keep_if_best(epoch, loss)
+            hrs, m, s = hms(time.time() - since)
+            log.info(
+                f"Epoch [{epoch + 1}/{num_epochs}], Step [{n_batches}/{n_batches}], "
+                f"Train loss: {loss:.20f}, Time: {hrs:02d}:{m:02d}:{s:02d}"
+            )
+            if test_idx:
+                test_loss = eval_loss(st.model, feats_dev, dist_dev, test_idx, batch_size)
+                log.info(f"Epoch [{epoch + 1}/{num_epochs}], Test loss: {test_loss:.20f}")
+            log.info(f"Epoch {epoch + 1}\t \x20\x20LR:{lr:.20f}")
+            if autosave_every and (epoch + 1) % autosave_every == 0:
+                st.autosave(state_path, epoch)
+            if save_interval is not None and (
+                epoch % save_interval == 0 or epoch == num_epochs - 1
+            ):
+                subdir = os.path.join(model_filepath, f"model_epoch_{epoch + 1}")
+                os.makedirs(subdir, exist_ok=True)
+                save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), "NeuralNet",
+                                meta, params_to_jax(st.model))
+
+        log.info(f"Best Epoch [{st.best_epoch + 1}/{num_epochs}], Lowest loss: {st.lowest:.20f}")
+        save_checkpoint(
+            ckpt_path, "NeuralNet",
+            {**meta, "best_epoch": st.best_epoch, "lowest_loss": st.lowest},
+            params_to_jax(st.best),
+        )
+        saved.append(ckpt_path)
+
+        # final export with the best params (train_model_set.py:602-643)
+        export_embeddings(st.best, feats_dev, backbone_names, model_filepath, c, log)
+        # interval snapshots also get embeddings (train_model_set.py:646-683)
+        if save_interval is not None:
+            for name in sorted(os.listdir(model_filepath)):
+                subdir = os.path.join(model_filepath, name)
+                snap = os.path.join(subdir, f"model_subtree_{c}.ckpt")
+                if not (name.startswith("model_epoch_") and os.path.exists(snap)):
+                    continue
+                log.info(f"Computing embeddings for interval: {subdir}")
+                _, _, snap_params = load_checkpoint(snap)
+                export_embeddings(params_from_jax(snap_params).to(dev), feats_dev,
+                                  backbone_names, subdir, c, None)
+
+        log.info(f"\n==> Training for subtree {c} completed!\n")
+        hrs, m, s = hms(time.time() - since)
+        log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+
+    log.info("\n==> Training Completed!\n")
+    hrs, m, s = hms(time.time() - since)
+    log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+    return saved
+
+
+def clade_list_str(clades) -> str:
+    return " ".join(str(c) for c in clades) if clades is not None else "all"
 
 
 def _strip_npy_suffix(basename: str) -> str:

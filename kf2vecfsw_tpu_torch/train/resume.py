@@ -1,0 +1,157 @@
+"""Training resume (crash recovery), in the JAX package's trainer-state
+format (``train/resume.py`` there).
+
+Trainers autosave the full trainer state every N epochs: params, Adam
+state, best-so-far params, the epoch and the best epoch and loss. The
+archive is an npz with keys ``params::fc1/w``, ``opt::count``,
+``opt::mu/fc1/w``, ``opt::nu/fc1/w``, ``best::fc1/w`` (and so on) and the
+``__meta__`` JSON, all in the JAX (in, out) layout, so a state
+autosaved by either package resumes in the other
+(``models.mlp.adam_state_from_jax`` / ``adam_state_to_jax`` carry the
+optimizer across). ``resume=True`` continues from the last autosave.
+
+Single process only: the multi-process guards of the JAX package wait for
+the port's multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.mlp import adam_state_from_jax, adam_state_to_jax, params_from_jax, params_to_jax
+from .checkpoint import _flatten, _unflatten, atomic_savez
+from .step import epoch_order, make_adam
+
+_TAGS = ("params", "opt", "best")
+
+
+def save_trainer_state(
+    path: str,
+    epoch: int,
+    params: dict,
+    opt: dict,
+    best_params: dict,
+    lowest: float,
+    best_epoch: int,
+    extra: dict | None = None,
+) -> None:
+    """All trees in the JAX layout (nested dicts of numpy arrays). ``extra``
+    carries trainer-specific JSON-serializable scalars (e.g. the
+    classifier's accuracy at the best epoch)."""
+    arrays = {}
+    for tag, tree in zip(_TAGS, (params, opt, best_params)):
+        for k, v in _flatten(tree).items():
+            arrays[f"{tag}::{k}"] = v
+    meta = {"epoch": epoch, "lowest": lowest, "best_epoch": best_epoch, **(extra or {})}
+    atomic_savez(path, meta, arrays)
+
+
+def load_trainer_state(path: str):
+    """-> (epoch, params, opt, best_params, lowest, best_epoch, extra) or None."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        data = np.load(f, allow_pickle=False)
+        meta = json.loads(str(data["__meta__"]))
+        trees: dict[str, dict] = {tag: {} for tag in _TAGS}
+        for key in data.files:
+            if key == "__meta__":
+                continue
+            tag, _, rest = key.partition("::")
+            trees[tag][rest] = data[key]
+    extra = {k: v for k, v in meta.items() if k not in ("epoch", "lowest", "best_epoch")}
+    return (
+        int(meta["epoch"]),
+        _unflatten(trees["params"]),
+        _unflatten(trees["opt"]),
+        _unflatten(trees["best"]),
+        float(meta["lowest"]),
+        int(meta["best_epoch"]),
+        extra,
+    )
+
+
+def _shapes(tree: dict) -> dict:
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(np.shape(v)) for k, v in tree.items()}
+
+
+def restore_trainer_state(state_path: str, params: dict, log=None):
+    """Load an autosave and guard its parameter shapes against the freshly
+    built ``params`` (JAX layout); returns (start_epoch, params, opt,
+    best_params, lowest, best_epoch, extra) as JAX-layout trees, or None when
+    no autosave exists.
+
+    Raises SystemExit on an architecture mismatch: silently training resumed
+    params of a different shape under lying checkpoint metadata is the one
+    failure mode worse than losing the run."""
+    state = load_trainer_state(state_path)
+    if state is None:
+        return None
+    last_epoch, s_params, s_opt, s_best, lowest, best_epoch, extra = state
+    want, got = _shapes(params), _shapes(s_params)
+    if want != got:
+        raise SystemExit(
+            f"cannot -resume: autosaved state in {state_path} has parameter "
+            f"shapes {got} but the current flags build {want} — rerun with "
+            f"the original size/model-family flags, or delete the state file"
+        )
+    if log is not None:
+        log.info(f"Resuming from epoch {last_epoch + 1} (autosaved state)")
+    return last_epoch + 1, s_params, s_opt, s_best, lowest, best_epoch, extra
+
+
+@dataclass
+class TrainerState:
+    """What a trainer carries from epoch to epoch besides the data."""
+
+    model: nn.Module
+    best: nn.Module  # a copy of the params at the lowest epoch loss so far
+    opt: torch.optim.Adam
+    start_epoch: int = 0
+    lowest: float = math.inf
+    best_epoch: int = -1
+    extra: dict = field(default_factory=dict)
+
+    def autosave(self, path: str, epoch: int, extra: dict | None = None) -> None:
+        save_trainer_state(
+            path, epoch, params_to_jax(self.model), adam_state_to_jax(self.opt, self.model),
+            params_to_jax(self.best), self.lowest, self.best_epoch, extra,
+        )
+
+    @torch.no_grad()
+    def keep_if_best(self, epoch: int, loss: float) -> bool:
+        """Strict ``<``, as the JAX package's best-epoch tracking."""
+        if not loss < self.lowest:
+            return False
+        self.lowest, self.best_epoch = loss, epoch
+        for b, p in zip(self.best.parameters(), self.model.parameters()):
+            b.copy_(p)
+        return True
+
+
+def start_or_resume(model: nn.Module, gen: torch.Generator, n_items: int, state_path: str,
+                    resume: bool, log, lr: float, device: torch.device) -> TrainerState:
+    """``model`` is freshly drawn on the CPU from ``gen``. With ``resume`` and
+    an autosave at ``state_path``, params, Adam state and best-so-far come
+    from it and ``gen`` skips the item orders of the epochs already run, so
+    the resumed run takes the batches an uninterrupted one would."""
+    state = restore_trainer_state(state_path, params_to_jax(model), log) if resume else None
+    if state is None:
+        model = model.to(device)
+        return TrainerState(model, copy.deepcopy(model), make_adam(model, lr))
+    start, params, opt_state, best_params, lowest, best_epoch, extra = state
+    model = params_from_jax(params).to(device)
+    opt = make_adam(model, lr)
+    adam_state_from_jax(opt, model, opt_state)
+    for _ in range(start):
+        epoch_order(gen, n_items)
+    return TrainerState(model, params_from_jax(best_params).to(device), opt, start, lowest,
+                        best_epoch, extra)

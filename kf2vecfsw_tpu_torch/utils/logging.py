@@ -7,6 +7,7 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import time
 
 _counter = itertools.count()
 
@@ -30,3 +31,7 @@ def close_logger(log: logging.Logger) -> None:
     for h in list(log.handlers):
         log.removeHandler(h)
         h.close()
+
+
+def timestamp() -> str:
+    return time.strftime("%Y%m%d_%H%M%S")

@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = json.loads(out.strip().splitlines()[-1])
     assert "kf2vecfsw_tpu_torch.cli" in report["modules"]
     for mod in ("kernels.histogram", "kernels.sort", "models.fsw", "ingest.kmers",
-                "utils.membudget", "train.distance", "train.step"):
+                "utils.membudget", "train.distance", "train.step", "tree.newick",
+                "tree.cluster", "tree.distance", "ingest.tree_ops", "ops.losses",
+                "train.schedule", "train.resume", "train.classifier"):
         assert f"kf2vecfsw_tpu_torch.{mod}" in report["modules"]
     loaded = report["loaded"]
     assert "jax" not in loaded and not any(m.startswith("jax.") for m in loaded)
@@ -73,6 +75,8 @@ def test_entry_points_default_to_the_card(tmp_path):
     from kf2vecfsw_tpu_torch.ingest.frequencies import get_frequencies
     from kf2vecfsw_tpu_torch.ingest.kmers import get_kmers
     from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter
+    from kf2vecfsw_tpu_torch.train.classifier import train_classifier_func
+    from kf2vecfsw_tpu_torch.train.distance import train_model_set_func
 
     d = str(tmp_path)
     for call in (
@@ -87,6 +91,12 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: main(["get_kmers", "-input_dir", d, "-output_dir", d]),
         lambda: main(["process_query_data", "-input_dir", d, "-output_dir", d,
                       "-classifier_model", d, "-distance_model", d]),
+        lambda: train_classifier_func(d, [], d, 1, 8, 4, 1e-3, 1e-6, 2000, 28, False, d),
+        lambda: train_model_set_func(d, [], d, d, 1, 8, 4, 4, 1e-3, 1e-6, 2000, None, 28, d,
+                                     use_fsw=False),
+        lambda: main(["train_classifier", "-input_dir", d, "-subtrees", d, "-o", d]),
+        lambda: main(["train_model_set", "-input_dir", d, "-subtrees", d, "-o", d, "-no_fsw"]),
+        lambda: main(["build_library", "-input_dir", d, "-output_dir", d, "-tree", d]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

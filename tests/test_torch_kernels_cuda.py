@@ -11,6 +11,8 @@ block sizes of the radix tile sort and N = 16,385 (the first length on the
 global-merge path), all-equal keys (``perm`` the identity), keys at the f32
 extremes; ``perm`` equal to the plain (stable) version's on every row; and
 the FSW model on the card against the CPU at d_out 512.
+Trainers: two epochs of ``train_classifier`` and of the dense
+``train_model_set`` on the card against the CPU, from one CPU generator.
 
 The kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc, and skips without them. On the card (where JAX is not installed, so the
@@ -211,3 +213,80 @@ def test_fsw_model_on_the_card_equals_cpu(card):
         got = model.to(card)(x.to(card)).cpu()
     assert sort_rows.launches > before
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-3, atol=1e-4)
+
+
+def _backbone(root, sizes=(6, 5), v=32):
+    """.kf vectors of two clades, their .subtrees file and .di_mtrx files."""
+    from kf2vecfsw_tpu_torch.io.kf import write_kf
+    from kf2vecfsw_tpu_torch.tree.distance import write_di_mtrx
+
+    rng = np.random.default_rng(9)
+    kf_dir = root / "kf"
+    kf_dir.mkdir()
+    rows = []
+    for c, n in enumerate(sizes):
+        names = [f"c{c}g{i}" for i in range(n)]
+        rows += [(g, c) for g in names]
+        for g in names:
+            x = rng.random(v) + (np.arange(v) % 2 == c)
+            write_kf(str(kf_dir / f"{g}.kf"), [(g, x / x.sum())])
+        d = np.abs(rng.normal(size=(n, n))) * 0.1
+        d = d + d.T
+        np.fill_diagonal(d, 0)
+        write_di_mtrx(str(root / f"t_subtree_{c}.di_mtrx"), names, d)
+    (root / "t.subtrees").write_text("genome clade\n" + "".join(f"{g} {c}\n" for g, c in rows))
+    return str(kf_dir), sorted(str(p) for p in kf_dir.glob("*.kf")), str(root / "t.subtrees")
+
+
+def _csv(path, header):
+    with open(path) as f:
+        if header:
+            f.readline()
+        return np.array([line.rstrip("\n").split("\t")[1:] for line in f], dtype=np.float64)
+
+
+def test_trainers_on_the_card_equal_cpu(card, tmp_path):
+    """Two epochs of each trainer at the default learning rate on the card and
+    on the CPU, from one CPU generator (same initial weights, same batches).
+    Params within atol 2 * 1.02 * lr * steps + rtol 1e-4: Adam's first steps
+    move a weight by about lr * sign(grad) (a bias-corrected step is at most
+    1.015 lr over the first six steps), and a gradient of rounding-noise size
+    (the distance model's biases: pairwise distances do not change when all
+    embeddings move together) can round to opposite signs on the two
+    devices. Embeddings within atol 1e-3 (those bias steps, summed over 64
+    hidden units), translation-invariant distortions and probabilities
+    within rtol 1e-3 / atol 1e-5; losses finite and within rtol 1e-4."""
+    from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint
+    from kf2vecfsw_tpu_torch.train.classifier import train_classifier_func
+    from kf2vecfsw_tpu_torch.train.distance import train_model_set_func
+
+    kf_dir, files, sub = _backbone(tmp_path)
+    lr, epochs, batch = 1e-5, 2, 4
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        train_classifier_func(kf_dir, files, sub, epochs, 64, batch, lr, 3e-6, 2000, 28, False,
+                              str(out), device=dev)
+        train_model_set_func(kf_dir, files, sub, str(tmp_path), epochs, 64, 16, batch, lr, 3e-6,
+                             2000, None, 28, str(out), use_fsw=False, device=dev)
+        runs[dev] = out
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    for name, steps in (("classifier_model", epochs * 3), ("model_subtree_0", epochs * 2),
+                        ("model_subtree_1", epochs * 2)):
+        _, m_cpu, p_cpu = load_checkpoint(str(cpu / f"{name}.ckpt"))
+        _, m_gpu, p_gpu = load_checkpoint(str(gpu / f"{name}.ckpt"))
+        assert np.isfinite(m_gpu["lowest_loss"]) and m_gpu["best_epoch"] == m_cpu["best_epoch"]
+        np.testing.assert_allclose(m_gpu["lowest_loss"], m_cpu["lowest_loss"], rtol=1e-4)
+        for layer in p_cpu:
+            for leaf in p_cpu[layer]:
+                np.testing.assert_allclose(p_gpu[layer][leaf], p_cpu[layer][leaf], rtol=1e-4,
+                                           atol=2 * 1.02 * lr * steps,
+                                           err_msg=f"{name} {layer}/{leaf}")
+    np.testing.assert_allclose(_csv(gpu / "backbone_classes.out", True)[:, 2:],
+                               _csv(cpu / "backbone_classes.out", True)[:, 2:], rtol=1e-3, atol=1e-5)
+    for c in range(2):
+        np.testing.assert_allclose(_csv(gpu / f"embeddings_subtree_{c}.csv", False),
+                                   _csv(cpu / f"embeddings_subtree_{c}.csv", False), atol=1e-3)
+        np.testing.assert_allclose(_csv(gpu / f"distortions_subtree_{c}.csv", True),
+                                   _csv(cpu / f"distortions_subtree_{c}.csv", True),
+                                   rtol=1e-3, atol=1e-5)
