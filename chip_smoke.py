@@ -37,15 +37,29 @@ non-zero without one. Phases, each of which fails the run if it fails:
      on the card and on the CPU from the same seed agrees: `.kf`,
      `.subtrees` and `.di_mtrx` bytes identical, checkpoints, classes and
      exported CSVs within the REBUILD_* tolerances;
-5. timings: stage wall times of both main paths, and each kernel against
+   - train_fsw: FSW ``train_model_set`` on the card at full width (k=7,
+     base_dim 4, 512 slices, 2048 hidden, 1024 out, batch 16, default
+     learning rates): ``get_kmers`` over the build's backbone, then default
+     flags (the lazy sort-refresh at R=128, shared-vocab) over every
+     subtree for FSW_EPOCHS epochs, ``-fsw_lazy_refresh 0`` (exact, shared)
+     on the smallest subtree, and short contigs of 1-2 kb (the per-genome
+     route, lazy and exact); each run's route lines, files and losses are
+     checked and ``sort_rows`` must launch outside the exports; the
+     trained FSW library serves the 32 queries; and a small backbone
+     trained with default flags on the card and on the CPU from one seed
+     agrees within the FSW_REBUILD_* tolerances;
+5. timings: stage wall times of the main paths, and each kernel against
    its plain version, a one-library-call yardstick and its bound at the
    main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7, and the same
    batch of homopolymers and of dinucleotide repeats; ``sort_rows``: 16
-   genomes x 512 slices = 8,192 rows of 8,192, and rows of 32,896, a k=8
-   point set, on the global-merge path), with CUDA events; the stage wall
-   times of build_library, its trainers' steps per second over epochs 2-5,
-   its exports' seconds (str(np.float32) formatting apart) and its peak
-   device memory.
+   genomes x 512 slices = 8,192 rows of 8,192, the FSW training sort of
+   512 rows of 8,192 with one payload row, and rows of 32,896, a k=8 point
+   set, on the global-merge path; the sort's backward, an unsort scatter,
+   at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
+   of build_library, its trainers' steps per second over epochs 2-5, its
+   exports' seconds (str(np.float32) formatting apart) and its peak device
+   memory; each FSW training route's seconds, steps per second (with and
+   without the refreshes), refreshes and peak device memory.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -76,6 +90,8 @@ from kf2vecfsw_tpu_torch.defaults import (
     FSW_OUT_DIM,
     HIDDEN_SIZE_FC1,
     LEARNING_RATE,
+    LEARNING_RATE_DECAY,
+    LEARNING_RATE_MIN,
 )
 from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
 from kf2vecfsw_tpu_torch.kernels import build
@@ -83,11 +99,14 @@ from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference
 from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, tile_elems
 from kf2vecfsw_tpu_torch.kmer.counter import concat_with_separators, count_canonical_numpy
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_size
-from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
+from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_, unsort
 from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
 from kf2vecfsw_tpu_torch.train import classifier as train_classifier
 from kf2vecfsw_tpu_torch.train import distance as train_distance
+from kf2vecfsw_tpu_torch.train import fsw_lazy
 from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from kf2vecfsw_tpu_torch.train.schedule import step_lr
+from kf2vecfsw_tpu_torch.train.step import bucket_items
 
 SEED = 20261016
 K_MAIN = 7
@@ -127,8 +146,9 @@ BUILD_GENOME = (100_000, 200_000)
 # the same widths on a small backbone, built on the card and on the CPU
 REBUILD_LEAVES, REBUILD_SIZE, REBUILD_EPOCHS = 48, 12, 2
 REBUILD_GENOME = (20_000, 40_000)
-# cuda vs cpu rebuild: params within atol 2 * ADAM_STEP * lr * steps +
-# REBUILD_RTOL |p|. Adam's first steps move a weight by about lr *
+# cuda vs cpu rebuild: params within atol 2 * ADAM_STEP * (the sum of the
+# default schedule's lr over the run's steps; from the second epoch it is
+# lr_min + lr) + REBUILD_RTOL |p|. Adam's first steps move a weight by about lr *
 # sign(grad), and a gradient of rounding-noise size (the distance model's
 # biases: the pairwise distances do not change when all embeddings move
 # together) can round to opposite signs on the two devices at every step;
@@ -142,6 +162,35 @@ REBUILD_RTOL, REBUILD_EMB_ATOL = 1e-4, 2e-3
 REBUILD_DIS_RTOL, REBUILD_DIS_ATOL = 1e-3, 1e-4
 REBUILD_CLASS_RTOL, REBUILD_CLASS_ATOL = 1e-3, 1e-6
 REBUILD_LOSS_RTOL = 1e-3
+# FSW training at full width: R = 128 refreshes every 2-4 epochs on the
+# backbone's subtrees of 27-45 batches, so 6 epochs refresh 2-3 times each
+FSW_EPOCHS = 6
+V_MAIN = canonical_vocab_size(K_MAIN)
+FSW_MODEL_BYTES = 4 * (4 * FSW_BASE_DIM + FSW_OUT_DIM * (K_MAIN * FSW_BASE_DIM + 1)
+                       + (FSW_OUT_DIM + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * EMBEDDING_SIZE)
+# short contigs of 1-2 kb hold at most ~2,000 k-mers at k=7, padded to at
+# most 2,432 < V / 3: the per-genome route
+CONTIGS, CONTIG_SIZE, CONTIG_LEN = 96, 48, (1_000, 2_000)
+# the route lines each FSW training run logs once per subtree
+FSW_ROUTES = {
+    "lazy_shared": (f"FSW shared-vocab path: V={V_MAIN} (one shared sort per batch)",
+                    "FSW lazy sort-refresh path: refresh every 128 steps (auto-enabled; pass "
+                    "-fsw_lazy_refresh 0 for the exact per-step sort)"),
+    "exact_shared": (f"FSW shared-vocab path: V={V_MAIN} (one shared sort per batch)",),
+    "lazy_pergenome": ("FSW lazy sort-refresh path (per-genome sort orders): refresh every 128 "
+                       "steps (auto-enabled; pass -fsw_lazy_refresh 0 for the exact per-step "
+                       "sort)",),
+    "exact_pergenome": (),
+}
+# cuda vs cpu FSW training (2 subtrees of the small backbone, 2 epochs,
+# default flags): params within the dense rebuild's Adam sign-flip bound;
+# the exported embeddings within FSW_RTOL, the served FSW forward's
+# tolerance, plus REBUILD_EMB_ATOL for those flips summed over 2,048 hidden
+# units; distortions, which see no common shift, and best losses as in the
+# dense rebuild
+FSW_REBUILD_CLADES, FSW_REBUILD_EPOCHS = (0, 1), 2
+PHASE5_TRAIN_SORT = (FSW_OUT_DIM, V_MAIN, 1)  # the exact shared step's one sort
+UNSORT_SHAPES = ((FSW_OUT_DIM, V_MAIN), (16 * FSW_OUT_DIM, V_MAIN))
 
 
 def log(msg: str) -> None:
@@ -610,12 +659,15 @@ class TrainerClock:
     after), each export with its str(np.float32) formatting apart, and the
     host work around the epochs (.kf parsing, checkpoint writes, and the
     set-up of model copies and optimizer on the card, which pays for
-    torch's first optimizer use)."""
+    torch's first optimizer use). FSW runs add their lazy epochs, each
+    lazy refresh between two card synchronises (with the index of the
+    epoch it fell in) and the exports' ``sort_rows`` launches."""
 
     def __init__(self):
         self.epochs: dict[str, list[tuple[int, float]]] = {"classifier": [], "distance": []}
         self.exports: list[dict] = []
         self.host_s: dict[str, float] = {}
+        self.refresh_s: list[tuple[int, float]] = []
         self._format_s = 0.0
         self._saved = []
 
@@ -623,6 +675,8 @@ class TrainerClock:
         for mod, name, wrap in (
                 (train_classifier, "classifier_epoch", self._epoch("classifier")),
                 (train_distance, "distance_epoch", self._epoch("distance")),
+                (train_distance, "lazy_distance_epoch", self._epoch("distance")),
+                (fsw_lazy.LazyPlanes, "refresh", self._refresh),
                 (train_distance, "export_embeddings", self._export),
                 (train_distance, "f32_row", self._format),
                 (train_classifier, "load_kf_matrix", self._host("classifier .kf parse")),
@@ -654,10 +708,22 @@ class TrainerClock:
     def _export(self, fn):
         def timed(model, feats, names, *args, **kw):
             self._format_s = 0.0
+            launches = sort_rows.launches
             t0 = time.perf_counter()
             out = fn(model, feats, names, *args, **kw)
             self.exports.append({"rows": len(names), "s": time.perf_counter() - t0,
-                                 "format_s": self._format_s})
+                                 "format_s": self._format_s,
+                                 "sort_rows": sort_rows.launches - launches})
+            return out
+        return timed
+
+    def _refresh(self, fn):
+        def timed(planes, model):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(planes, model)
+            torch.cuda.synchronize()
+            self.refresh_s.append((len(self.epochs["distance"]), time.perf_counter() - t0))
             return out
         return timed
 
@@ -679,11 +745,15 @@ class TrainerClock:
             return timed
         return wrap
 
-    def steps_per_s(self, kind: str, epochs: int) -> float:
+    def steps_per_s(self, kind: str, epochs: int, without_refresh: bool = False) -> float:
         """Steps per second over epochs 2 to `epochs` of every run of a trainer
-        (the first epoch of each run pays for first-call set-up)."""
-        later = [e for i, e in enumerate(self.epochs[kind]) if i % epochs]
-        return sum(n for n, _ in later) / sum(t for _, t in later)
+        (the first epoch of each run pays for first-call set-up), with or
+        without the lazy refreshes that fell in those epochs."""
+        later = [i for i in range(len(self.epochs[kind])) if i % epochs]
+        seconds = sum(self.epochs[kind][i][1] for i in later)
+        if without_refresh:
+            seconds -= sum(s for i, s in self.refresh_s if i % epochs)
+        return sum(self.epochs[kind][i][0] for i in later) / seconds
 
 
 def read_subtree_rows(tree_dir: str) -> dict[str, int]:
@@ -702,6 +772,15 @@ def check_library(lib: str, clades: dict[str, int], n_genomes: int) -> None:
           and len(header) == 4 + n_classes and len(rows) == len(clades), "backbone_classes.out")
     check(all(np.all(np.isfinite(r)) and int(r[0]) == clades[g] for g, r in rows.items()),
           "backbone_classes.out values")
+    _, meta, _ = load_checkpoint(os.path.join(lib, "classifier_model.ckpt"))
+    check(np.isfinite(meta["lowest_loss"]), f"classifier: lowest loss {meta['lowest_loss']}")
+    check_subtree_models(lib, clades, "NeuralNet")
+
+
+def check_subtree_models(lib: str, clades: dict[str, int], family: str) -> None:
+    """Each subtree's checkpoint (family, finite best loss; an FSW model's
+    meta and parameter shapes at full width), embeddings and distortions of
+    every member, and no NaN loss in the run logs."""
     for c in sorted(set(clades.values())):
         members = sorted(g for g, cl in clades.items() if cl == c)
         _, emb = read_table(os.path.join(lib, f"embeddings_subtree_{c}.csv"), header=False)
@@ -711,9 +790,21 @@ def check_library(lib: str, clades: dict[str, int], n_genomes: int) -> None:
         d = np.array([dis[g] for g in h[1:]])
         check(d.shape == (len(members),) * 2 and np.all(np.isfinite(d)) and np.all(d >= 0)
               and np.all(np.diag(d) == 0), f"subtree {c}: distortions")
-    for name in ["classifier_model.ckpt"] + [f"model_subtree_{c}.ckpt" for c in set(clades.values())]:
-        _, meta, _ = load_checkpoint(os.path.join(lib, name))
-        check(np.isfinite(meta["lowest_loss"]), f"{name}: lowest loss {meta['lowest_loss']}")
+        name, meta, params = load_checkpoint(os.path.join(lib, f"model_subtree_{c}.ckpt"))
+        check(name == family and np.isfinite(meta["lowest_loss"]),
+              f"subtree {c}: {name}, lowest loss {meta['lowest_loss']}")
+        if family == "NeuralNetFSW":
+            check((meta["fsw_k"], meta["fsw_base_dim"], meta["fsw_out_dim"])
+                  == (K_MAIN, FSW_BASE_DIM, FSW_OUT_DIM), f"subtree {c}: FSW meta {meta}")
+            shapes = {"lookup": (4, FSW_BASE_DIM), "fsw/slices": (FSW_OUT_DIM, K_MAIN * FSW_BASE_DIM),
+                      "fsw/freqs": (FSW_OUT_DIM,), "fc1/w": (FSW_OUT_DIM, HIDDEN_SIZE_FC1),
+                      "fc2/w": (HIDDEN_SIZE_FC1, EMBEDDING_SIZE)}
+            for path, shape in shapes.items():
+                leaf = params
+                for key in path.split("/"):
+                    leaf = leaf[key]
+                check(np.shape(leaf) == shape and np.all(np.isfinite(leaf)),
+                      f"subtree {c}: {path} {np.shape(leaf)}")
     for path in (os.path.join(lib, f) for f in os.listdir(lib) if f.endswith(".log")):
         with open(path) as f:
             text = f.read()
@@ -722,68 +813,111 @@ def check_library(lib: str, clades: dict[str, int], n_genomes: int) -> None:
               f"{os.path.basename(path)}: a loss is not finite")
 
 
-def compare_rebuilds(work: str) -> dict:
+def same_files(d_gpu: str, d_cpu: str, exts: tuple[str, ...]) -> None:
+    files = sorted(f for f in os.listdir(d_cpu) if f.endswith(exts))
+    check(files and files == sorted(f for f in os.listdir(d_gpu) if f.endswith(exts)),
+          f"{exts} files")
+    for f in files:
+        check(read_bytes(os.path.join(d_gpu, f)) == read_bytes(os.path.join(d_cpu, f)),
+              f"{f} differs between cuda and cpu")
+
+
+class Tolerances:
+    """The largest share of its tolerance, max |a-b| / (atol + rtol |b|),
+    and the largest difference of each compared quantity."""
+
+    def __init__(self):
+        self.used: dict[str, float] = {}
+
+    def compare(self, what: str, a: np.ndarray, b: np.ndarray, rtol: float, atol: float) -> None:
+        check(a.shape == b.shape, f"{what}: shapes {a.shape} {b.shape}")
+        diff = np.abs(a - b)
+        self.used[what] = max(self.used.get(what, 0.0),
+                              float(np.max(diff / (atol + rtol * np.abs(b)), initial=0.0)))
+        self.used[f"{what} max_abs"] = max(self.used.get(f"{what} max_abs", 0.0),
+                                           float(diff.max(initial=0.0)))
+
+    def subtree_models(self, lib_gpu: str, lib_cpu: str, batches: dict[int, int], epochs: int,
+                       emb_rtol: float) -> None:
+        """Best losses, params (the Adam sign-flip bound over the run's
+        steps), embeddings and distortions of the subtree models."""
+        for c, n_batches in sorted(batches.items()):
+            _, m_gpu, p_gpu = load_checkpoint(os.path.join(lib_gpu, f"model_subtree_{c}.ckpt"))
+            _, m_cpu, p_cpu = load_checkpoint(os.path.join(lib_cpu, f"model_subtree_{c}.ckpt"))
+            self.compare("lowest_loss", np.array([m_gpu["lowest_loss"]]),
+                         np.array([m_cpu["lowest_loss"]]), REBUILD_LOSS_RTOL, 0.0)
+            self.params(p_gpu, p_cpu, adam_drift(n_batches, epochs))
+            for kind, has_header, rtol, atol in (
+                    ("embeddings", False, emb_rtol, REBUILD_EMB_ATOL),
+                    ("distortions", True, REBUILD_DIS_RTOL, REBUILD_DIS_ATOL)):
+                _, a = read_table(os.path.join(lib_gpu, f"{kind}_subtree_{c}.csv"), has_header)
+                _, b = read_table(os.path.join(lib_cpu, f"{kind}_subtree_{c}.csv"), has_header)
+                check(sorted(a) == sorted(b), f"{kind}_subtree_{c}: rows")
+                self.compare(kind, np.array([a[g] for g in sorted(a)]),
+                             np.array([b[g] for g in sorted(b)]), rtol, atol)
+
+    def params(self, p_gpu: dict, p_cpu: dict, atol: float) -> None:
+        for key in p_cpu:
+            if isinstance(p_cpu[key], dict):
+                self.params(p_gpu[key], p_cpu[key], atol)
+            else:
+                self.compare("params", p_gpu[key], p_cpu[key], REBUILD_RTOL, atol)
+
+    def check_all(self, what: str) -> None:
+        for key, u in self.used.items():
+            check("max_abs" in key or u <= 1.0, f"{what}: {key} outside its tolerance ({u})")
+
+
+def adam_drift(n_batches: int, epochs: int) -> float:
+    """The Adam sign-flip bound on a weight's cuda-vs-cpu difference after
+    `epochs` epochs of `n_batches` steps at the default lr schedule."""
+    return 2 * ADAM_STEP * n_batches * sum(
+        step_lr(e, LEARNING_RATE, LEARNING_RATE_MIN, LEARNING_RATE_DECAY) for e in range(epochs))
+
+
+def clade_batches(clades: dict[str, int], only=None) -> dict[int, int]:
+    return {c: -(-sum(cl == c for cl in clades.values()) // BATCH_SIZE)
+            for c in set(clades.values()) if only is None or c in only}
+
+
+def compare_rebuilds(work: str) -> tuple[dict, str, str]:
     """The small backbone built on the card and on the CPU with the same seed:
     `.kf`, `.subtrees` and `.di_mtrx` bytes identical; checkpoints, classes
     and the exported CSVs within REBUILD_* tolerances (the largest
-    differences are printed before they are checked)."""
+    differences are printed before they are checked). Returns the
+    tolerances used, the genomes' directory and the tree's."""
     rng = np.random.default_rng(SEED + 40)
     fna, nwk, _ = write_backbone(work, "rb", rng, REBUILD_LEAVES, REBUILD_GENOME)
     built = {dev: build_library(work, f"rebuild_{dev}", fna, nwk, REBUILD_SIZE, REBUILD_EPOCHS,
                                 dev) for dev in ("cuda", "cpu")}
     (lib_gpu, tree_gpu, _), (lib_cpu, tree_cpu, _) = built["cuda"], built["cpu"]
-    for d_gpu, d_cpu, exts in ((lib_gpu, lib_cpu, (".kf",)),
-                               (tree_gpu, tree_cpu, (".subtrees", ".di_mtrx"))):
-        files = sorted(f for f in os.listdir(d_cpu) if f.endswith(exts))
-        check(files == sorted(f for f in os.listdir(d_gpu) if f.endswith(exts)), f"{exts} files")
-        for f in files:
-            check(read_bytes(os.path.join(d_gpu, f)) == read_bytes(os.path.join(d_cpu, f)),
-                  f"{f} differs between cuda and cpu")
+    same_files(lib_gpu, lib_cpu, (".kf",))
+    same_files(tree_gpu, tree_cpu, (".subtrees", ".di_mtrx"))
     clades = read_subtree_rows(tree_cpu)
-    used: dict[str, float] = {}
-
-    def compare(what: str, a: np.ndarray, b: np.ndarray, rtol: float, atol: float) -> None:
-        check(a.shape == b.shape, f"{what}: shapes {a.shape} {b.shape}")
-        diff = np.abs(a - b)
-        used[what] = max(used.get(what, 0.0), float(np.max(diff / (atol + rtol * np.abs(b)),
-                                                            initial=0.0)))
-        used[f"{what} max_abs"] = max(used.get(f"{what} max_abs", 0.0), float(diff.max(initial=0.0)))
-
-    batches = {"classifier_model": -(-len(clades) // BATCH_SIZE)}
-    for c in set(clades.values()):
-        batches[f"model_subtree_{c}"] = -(-sum(cl == c for cl in clades.values()) // BATCH_SIZE)
-    for name, n_batches in sorted(batches.items()):
-        _, m_gpu, p_gpu = load_checkpoint(os.path.join(lib_gpu, f"{name}.ckpt"))
-        _, m_cpu, p_cpu = load_checkpoint(os.path.join(lib_cpu, f"{name}.ckpt"))
-        compare("lowest_loss", np.array([m_gpu["lowest_loss"]]), np.array([m_cpu["lowest_loss"]]),
+    tol = Tolerances()
+    _, m_gpu, p_gpu = load_checkpoint(os.path.join(lib_gpu, "classifier_model.ckpt"))
+    _, m_cpu, p_cpu = load_checkpoint(os.path.join(lib_cpu, "classifier_model.ckpt"))
+    tol.compare("lowest_loss", np.array([m_gpu["lowest_loss"]]), np.array([m_cpu["lowest_loss"]]),
                 REBUILD_LOSS_RTOL, 0.0)
-        atol = 2 * ADAM_STEP * LEARNING_RATE * n_batches * REBUILD_EPOCHS
-        for layer in p_cpu:
-            for leaf in p_cpu[layer]:
-                compare("params", p_gpu[layer][leaf], p_cpu[layer][leaf], REBUILD_RTOL, atol)
+    tol.params(p_gpu, p_cpu, adam_drift(-(-len(clades) // BATCH_SIZE), REBUILD_EPOCHS))
+    tol.subtree_models(lib_gpu, lib_cpu, clade_batches(clades), REBUILD_EPOCHS, REBUILD_RTOL)
     _, cls_gpu = read_table(os.path.join(lib_gpu, "backbone_classes.out"))
     _, cls_cpu = read_table(os.path.join(lib_cpu, "backbone_classes.out"))
     for g in clades:
-        compare("classes", cls_gpu[g][2:], cls_cpu[g][2:], REBUILD_CLASS_RTOL, REBUILD_CLASS_ATOL)
-    for c in set(clades.values()):
-        for kind, has_header, rtol, atol in (
-                ("embeddings", False, REBUILD_RTOL, REBUILD_EMB_ATOL),
-                ("distortions", True, REBUILD_DIS_RTOL, REBUILD_DIS_ATOL)):
-            _, a = read_table(os.path.join(lib_gpu, f"{kind}_subtree_{c}.csv"), has_header)
-            _, b = read_table(os.path.join(lib_cpu, f"{kind}_subtree_{c}.csv"), has_header)
-            check(sorted(a) == sorted(b), f"{kind}_subtree_{c}: rows")
-            compare(kind, np.array([a[g] for g in sorted(a)]), np.array([b[g] for g in sorted(b)]),
-                    rtol, atol)
+        tol.compare("classes", cls_gpu[g][2:], cls_cpu[g][2:], REBUILD_CLASS_RTOL,
+                    REBUILD_CLASS_ATOL)
     log(f"phase build_library: rebuild of {REBUILD_LEAVES} genomes, -size {REBUILD_SIZE}, "
         f"{REBUILD_EPOCHS} epochs, cuda vs cpu: .kf/.subtrees/.di_mtrx identical; tolerance "
         f"used (max |a-b| / (atol + rtol |b|), at most 1) and largest differences "
-        f"{json.dumps(used)}")
-    for what, u in used.items():
-        check("max_abs" in what or u <= 1.0, f"rebuild cuda vs cpu: {what} outside its tolerance ({u})")
-    return used
+        f"{json.dumps(tol.used)}")
+    tol.check_all("rebuild cuda vs cpu")
+    return tol.used, fna, tree_gpu
 
 
-def phase_build_library(work: str, q_dir: str, q_names: list[str]) -> dict:
+def phase_build_library(work: str, q_dir: str, q_names: list[str]) -> tuple[dict, dict]:
+    """The build phase's numbers, and the paths the FSW training phase
+    reuses: the backbone's genomes, tree directory and library, and the
+    small backbone's genomes and tree directory."""
     rng = np.random.default_rng(SEED + 30)
     t0 = time.perf_counter()
     fna, nwk, total = write_backbone(work, "bb", rng, BUILD_LEAVES, BUILD_GENOME)
@@ -812,7 +946,167 @@ def phase_build_library(work: str, q_dir: str, q_names: list[str]) -> dict:
     serve = serve_on_card("trained", work, lib, q_dir, q_names, DENSE_MODEL_BYTES, None,
                           n_classes=len(sizes))
     out["serve"] = {"stage_s": serve["stage_s"], "launches": serve["launches"]}
-    out["rebuild_tolerance_used"] = compare_rebuilds(work)
+    out["rebuild_tolerance_used"], rb_fna, rb_tree = compare_rebuilds(work)
+    return out, {"fna": fna, "tree_dir": tree_dir, "lib": lib, "rb_fna": rb_fna,
+                 "rb_tree_dir": rb_tree}
+
+
+# -- phase 4c: FSW training -------------------------------------------------------
+
+
+def route_lines(out_dir: str) -> list[str]:
+    lines = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith("train_model_") and name.endswith(".log"):
+            with open(os.path.join(out_dir, name)) as f:
+                lines += [line[line.index("FSW "):].rstrip("\n") for line in f if "FSW " in line]
+    return lines
+
+
+def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int,
+              *flags: str) -> dict:
+    """FSW train_model_set on the card at the default widths and learning
+    rates for FSW_EPOCHS epochs, with every launch count set to 0 just
+    before it; checks its route lines (FSW_ROUTES, once per subtree) and
+    that sort_rows launched outside the exports; returns its launches,
+    seconds, steps/s, refreshes and peak device memory."""
+    os.makedirs(out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmer_hist.launches = sort_rows.launches = 0
+    t0 = time.perf_counter()
+    with TrainerClock() as clock:
+        cli_main(["train_model_set", "-input_dir", feats, "-subtrees",
+                  os.path.join(tree_dir, "tree.subtrees"), "-true_dist", tree_dir, "-o", out_dir,
+                  "-e", str(FSW_EPOCHS), *flags])
+    seconds = time.perf_counter() - t0
+    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}
+    peak = torch.cuda.max_memory_allocated()
+    lines = route_lines(out_dir)
+    check(lines == list(FSW_ROUTES[route]) * n_clades,
+          f"{route}: route lines {lines}, expected {FSW_ROUTES[route]} x {n_clades}")
+    export_launches = sum(e["sort_rows"] for e in clock.exports)
+    out = {
+        "seconds": seconds, "launches": launches,
+        "launches_outside_exports": launches["sort_rows"] - export_launches,
+        "export_launches": export_launches,
+        "steps": sum(n for n, _ in clock.epochs["distance"]),
+        "steps_per_s": clock.steps_per_s("distance", FSW_EPOCHS),
+        "steps_per_s_without_refresh": clock.steps_per_s("distance", FSW_EPOCHS, True),
+        "refreshes": len(clock.refresh_s), "refresh_s": [s for _, s in clock.refresh_s],
+        "epoch_s": [t for _, t in clock.epochs["distance"]],
+        "exports": clock.exports, "peak_mib": peak / 2**20,
+    }
+    check(out["launches_outside_exports"] >= 1, f"{route}: sort_rows did not launch in training")
+    check(("lazy" in route) == (out["refreshes"] > 0), f"{route}: {out['refreshes']} refreshes")
+    check(peak >= 2 * FSW_MODEL_BYTES, f"{route}: peak device memory {peak} B")
+    log(f"phase train_fsw {route}: {json.dumps(out)}")
+    return out
+
+
+def contig_backbone(work: str) -> tuple[str, str]:
+    """Short contigs of a random tree, divided into subtrees of
+    CONTIG_SIZE with their distance matrices; returns the contigs'
+    directory and the tree's."""
+    fna, nwk, _ = write_backbone(work, "ct", np.random.default_rng(SEED + 50), CONTIGS,
+                                 CONTIG_LEN)
+    tree_dir = os.path.join(work, "tree_ct")
+    os.makedirs(tree_dir)
+    tree = os.path.join(tree_dir, "tree.nwk")
+    with open(tree, "w") as f:
+        f.write(nwk)
+    cli_main(["divide_tree", "-tree", tree, "-size", str(CONTIG_SIZE)])
+    cli_main(["get_distances", "-tree", tree, "-subtrees",
+              os.path.join(tree_dir, "tree.subtrees"), "-mode", "subtrees_only"])
+    return fna, tree_dir
+
+
+def get_kmers_on_card(fna: str, out_dir: str, n_genomes: int) -> int:
+    """get_kmers at k=7 on the card, launch counts from 0; returns the
+    kmer_hist launches."""
+    kmer_hist.launches = sort_rows.launches = 0
+    cli_main(["get_kmers", "-input_dir", fna, "-output_dir", out_dir, "-k", str(K_MAIN)])
+    check(kmer_hist.launches >= 1, f"get_kmers {fna}: kmer_hist was not launched")
+    check(len([f for f in os.listdir(out_dir) if f.endswith(f"_k{K_MAIN}.npy")]) == n_genomes,
+          f"get_kmers {fna}: .npy files")
+    return kmer_hist.launches
+
+
+def compare_fsw_rebuilds(work: str, fna: str, tree_dir: str) -> dict:
+    """The small backbone's .npy point sets from get_kmers on the card and
+    on the CPU (bytes identical), then FSW training with default flags on
+    FSW_REBUILD_CLADES for FSW_REBUILD_EPOCHS epochs on each device from the
+    card's point sets; checkpoints and exports within the FSW_REBUILD_*
+    tolerances."""
+    clades = read_subtree_rows(tree_dir)
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        feats[dev] = os.path.join(work, f"rb_k7_{dev}")
+        cli_main(["get_kmers", "-input_dir", fna, "-output_dir", feats[dev], "-k", str(K_MAIN),
+                  "-device", dev])
+    same_files(feats["cuda"], feats["cpu"], (".npy",))
+    libs = {}
+    for dev in ("cuda", "cpu"):
+        libs[dev] = os.path.join(work, f"lib_fsw_rb_{dev}")
+        os.makedirs(libs[dev])
+        cli_main(["train_model_set", "-input_dir", feats["cuda"], "-subtrees",
+                  os.path.join(tree_dir, "tree.subtrees"), "-true_dist", tree_dir,
+                  "-o", libs[dev], "-e", str(FSW_REBUILD_EPOCHS), "-clade",
+                  *map(str, FSW_REBUILD_CLADES), "-device", dev])
+        check(route_lines(libs[dev]) == list(FSW_ROUTES["lazy_shared"]) * len(FSW_REBUILD_CLADES),
+              f"{dev}: FSW rebuild route lines {route_lines(libs[dev])}")
+    tol = Tolerances()
+    tol.subtree_models(libs["cuda"], libs["cpu"], clade_batches(clades, FSW_REBUILD_CLADES),
+                       FSW_REBUILD_EPOCHS, FSW_RTOL)
+    log(f"phase train_fsw: rebuild of subtrees {FSW_REBUILD_CLADES} of the {REBUILD_LEAVES}-genome "
+        f"backbone, {FSW_REBUILD_EPOCHS} epochs, default flags, cuda vs cpu: .npy identical; "
+        f"tolerance used (max |a-b| / (atol + rtol |b|), at most 1) and largest differences "
+        f"{json.dumps(tol.used)}")
+    tol.check_all("FSW rebuild cuda vs cpu")
+    return tol.used
+
+
+def phase_train_fsw(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict:
+    """FSW training on the card (see the module docstring, phase 4)."""
+    clades = read_subtree_rows(paths["tree_dir"])
+    sizes = {c: sum(cl == c for cl in clades.values()) for c in set(clades.values())}
+    feats = os.path.join(work, "bb_k7")
+    t0 = time.perf_counter()
+    kmer_launches = get_kmers_on_card(paths["fna"], feats, len(clades))
+    out = {"get_kmers_s": time.perf_counter() - t0, "routes": {}}
+    lib_fsw = os.path.join(work, "lib_fsw")
+    runs = out["routes"]
+    runs["lazy_shared"] = train_fsw("lazy_shared", feats, paths["tree_dir"], lib_fsw, len(sizes))
+    check_subtree_models(lib_fsw, clades, "NeuralNetFSW")
+    smallest = min(sizes, key=sizes.get)
+    exact_dir = os.path.join(work, "lib_fsw_exact")
+    runs["exact_shared"] = train_fsw("exact_shared", feats, paths["tree_dir"], exact_dir, 1,
+                                     "-fsw_lazy_refresh", "0", "-clade", str(smallest))
+    check_subtree_models(exact_dir, {g: c for g, c in clades.items() if c == smallest},
+                         "NeuralNetFSW")
+
+    ct_fna, ct_tree = contig_backbone(work)
+    ct_clades = read_subtree_rows(ct_tree)
+    ct_feats = os.path.join(work, "ct_k7")
+    kmer_launches += get_kmers_on_card(ct_fna, ct_feats, CONTIGS)
+    longest = max(np.load(os.path.join(ct_feats, f), mmap_mode="r").shape[0]
+                  for f in os.listdir(ct_feats))
+    padded = bucket_items(longest, floor=128)
+    check(V_MAIN > 3 * padded, f"contigs of {longest} k-mers pad to {padded}: not per-genome")
+    n_ct = len(set(ct_clades.values()))
+    for route, flags in (("lazy_pergenome", ()), ("exact_pergenome", ("-fsw_lazy_refresh", "0"))):
+        ct_lib = os.path.join(work, f"lib_{route}")
+        runs[route] = train_fsw(route, ct_feats, ct_tree, ct_lib, n_ct, *flags)
+        check_subtree_models(ct_lib, ct_clades, "NeuralNetFSW")
+    out["kmer_hist_launches"] = kmer_launches
+    out["contigs"] = {"subtrees": n_ct, "longest_point_set": longest, "padded": padded}
+
+    shutil.copy(os.path.join(paths["lib"], "classifier_model.ckpt"), lib_fsw)
+    serve = serve_on_card("trained_fsw", work, lib_fsw, q_dir, q_names, FSW_MODEL_BYTES, K_MAIN,
+                          n_classes=len(sizes))
+    out["serve"] = {"stage_s": serve["stage_s"], "launches": serve["launches"]}
+    out["rebuild_tolerance_used"] = compare_fsw_rebuilds(work, paths["rb_fna"],
+                                                         paths["rb_tree_dir"])
     return out
 
 
@@ -901,6 +1195,26 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     return out
 
 
+def phase_unsort_timings(dev) -> list[dict]:
+    """The sort's backward at FSW training shapes: ``unsort`` (one library
+    scatter_ by ``perm``) of a cotangent, bound by reading it and perm and
+    writing the result once; checked to invert the sort."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = []
+    for r, n in UNSORT_SHAPES:
+        keys = torch.randn(r, n, generator=gen, device=dev)
+        sk, _, perm = sort_rows(keys, torch.rand(1, n, generator=gen, device=dev))
+        d = torch.randn(r, n, generator=gen, device=dev)
+        ms = cuda_ms(lambda: unsort(d, perm), reps=20)
+        check(torch.equal(unsort(sk, perm), keys), f"unsort at {(r, n)} does not invert the sort")
+        n_bytes = 12 * r * n
+        bound_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        out.append({"shape": f"R={r} x N={n}", "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "bytes": n_bytes})
+    log(f"phase timings: unsort {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -915,23 +1229,35 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kf2vec_chip_smoke_")
     try:
         paths, q_dir, q_names = phase_main_paths(work, dev)
-        build = phase_build_library(work, q_dir, q_names)
+        build, built = phase_build_library(work, q_dir, q_names)
+        fsw = phase_train_fsw(work, built, q_dir, q_names)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timing = phase_timings(dev)
     sort_timing = phase_sort_timings(dev, PHASE5_SORT, reps=10)
+    train_sort_timing = phase_sort_timings(dev, PHASE5_TRAIN_SORT, reps=50)
     long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
+    unsort_timing = phase_unsort_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
     log(f"phase timings: build_library stages (s) {json.dumps(build['stage_s'])}; steps/s over "
         f"epochs 2-{BUILD_EPOCHS} {json.dumps(build['steps_per_s'])}; peak device memory "
         f"{build['peak_mib']:.0f} MiB; exports {json.dumps(build['exports'])}; host work in "
         f"the trainers (s) {json.dumps(build['host_s'])}")
+    log(f"phase timings: train_fsw get_kmers {fsw['get_kmers_s']} s; per route (s, steps/s over "
+        f"epochs 2-{FSW_EPOCHS} with and without refreshes, refresh s, peak MiB) " + json.dumps(
+            {route: [run["seconds"], run["steps_per_s"], run["steps_per_s_without_refresh"],
+                     run["refresh_s"], run["peak_mib"]] for route, run in fsw["routes"].items()})
+        + f"; trained FSW library served in (s) {json.dumps(fsw['serve']['stage_s'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
     for name in by_path:
         by_path[name]["build_library"] = build["launches"][name]
+    by_path["kmer_hist"]["train_fsw"] = fsw["kmer_hist_launches"] + sum(
+        run["launches"]["kmer_hist"] for run in fsw["routes"].values())
+    by_path["sort_rows"]["train_fsw"] = sum(
+        run["launches"]["sort_rows"] for run in fsw["routes"].values())
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],
@@ -949,6 +1275,12 @@ def main() -> int:
         "library_ms": sort_timing["library_ms"],
         "long_rows": {key: long_timing[key] for key in
                       ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "train_shape": {key: train_sort_timing[key] for key in
+                        ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "train_fsw_routes": {route: {key: run[key] for key in (
+            "launches_outside_exports", "export_launches", "refreshes")}
+            for route, run in fsw["routes"].items()},
+        "unsort": unsort_timing,
     }]}
     print(json.dumps(report))
     print(smi)

@@ -11,15 +11,15 @@ Commands:
   get_distances            Patristic distance matrices (.di_mtrx)
   train_classifier         Train the subtree classifier
   classify                 Classify query samples
-  train_model_set          Train per-subtree distance models (dense: -no_fsw)
+  train_model_set          Train per-subtree distance models (FSW; dense: -no_fsw)
   query                    Query distance models -> APPLES inputs
   build_library            Wrapper: frequencies+divide+distances+train both
   process_query_data       Wrapper: frequencies+classify+kmers+query
 
-Libraries of dense and of FSW subtree models are served; libraries of dense
-models are built. Training FSW models stays with the JAX package until a
-later slice of the port: ``train_model_set`` without ``-no_fsw`` stops
-with a message.
+Libraries of dense and of FSW subtree models are served. ``train_model_set``
+trains FSW models on get_kmers' ``.npy`` point sets by default and dense
+models on ``.kf`` vectors with ``-no_fsw``; ``build_library`` builds dense
+libraries, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,12 +90,14 @@ def _cmd_classify(args):
 def _cmd_train_model_set(args):
     from .train.distance import train_model_set_func
 
-    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    pattern = "*.kf" if args.no_fsw else "*.npy"
+    files = sorted(glob.glob(os.path.join(args.input_dir, pattern)))
     train_model_set_func(
         args.input_dir, files, args.subtrees, args.true_dist, args.e, args.hidden_sz,
         args.embed_sz, args.batch_sz, args.lr, args.lr_min, args.lr_decay, args.clade,
         args.seed, args.o, test_ids_path=args.test_set, save_interval=args.save_interval,
-        use_fsw=not args.no_fsw, resume=args.resume, device=args.device,
+        use_fsw=not args.no_fsw, base_dim=args.base_dim, fswout_dim=args.fswout_dim,
+        resume=args.resume, fsw_lazy_refresh=args.fsw_lazy_refresh, device=args.device,
     )
 
 
@@ -352,13 +354,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-save_interval", type=int,
                    help="Save model after specified interval of epochs. Default: last")
     p.add_argument("-o", help="Model output path")
-    p.add_argument("-no_fsw", action="store_true",
-                   help="Keep original model (the only family this port trains yet)")
-    # FSW flags of the JAX parser, kept so its command lines parse; FSW
-    # training stops with a message until the port's FSW training slice
+    p.add_argument("-no_fsw", action="store_true", help="Keep original model")
     p.add_argument("-fswout_dim", type=int, default=D.FSW_OUT_DIM)
     p.add_argument("-base_dim", type=int, default=D.FSW_BASE_DIM)
-    p.add_argument("-fsw_lazy_refresh", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("-fsw_lazy_refresh", type=int, default=None,
+                   help="FSW acceleration (extension): re-sort the FSW "
+                        "projections every N steps instead of every step "
+                        "(shared-vocab clades only). Default: auto — engage "
+                        f"at N={D.FSW_LAZY_AUTO_REFRESH} when the clade fits "
+                        "the per-device plane budget. 0 = exact per-step sort")
     _add_resume(p)
     _add_device(p)
     p.set_defaults(func=_cmd_train_model_set)

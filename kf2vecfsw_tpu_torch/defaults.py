@@ -33,7 +33,6 @@ FEATURES_SCALER = 1e4  # train_*_model*.py `features_scaler`
 FSW_OUT_DIM = 512
 FSW_BASE_DIM = 4
 
-# auto-engaged lazy sort-refresh cadence of the JAX package's FSW trainer
-# (kept so both packages share one defaults table; no slice of the port
-# uses it yet). -fsw_lazy_refresh 0 forces the exact per-step sort.
+# auto-engaged lazy sort-refresh cadence of the FSW trainer (the JAX
+# package's). -fsw_lazy_refresh 0 forces the exact per-step sort.
 FSW_LAZY_AUTO_REFRESH = 128

@@ -21,7 +21,7 @@ import numpy as np
 from ..device import DEFAULT_DEVICE
 from ..io.fasta import list_sequence_files, sample_name
 from ..kmer.counter import KmerCounter
-from ..kmer.vocab import FSW_BASE_MAP, codes_to_digit_matrix
+from ..kmer.vocab import FSW_BASE_MAP, canonical_vocab_codes, codes_to_digit_matrix
 from .frequencies import read_batches
 
 
@@ -33,6 +33,33 @@ def kmer_matrix(codes: np.ndarray, counts: np.ndarray, k: int) -> np.ndarray | N
     digits = codes_to_digit_matrix(codes, k, FSW_BASE_MAP).astype(np.float32)
     freqs = (counts / counts.sum()).astype(np.float32)
     return np.column_stack((digits, freqs))
+
+
+def point_sets_to_vocab_weights(mats: list[np.ndarray], k: int) -> np.ndarray:
+    """(N_i, k+1) point-set matrices -> (n, V) weights over the canonical
+    vocab at k: each row's reference-coded digits decode back to its
+    canonical code, and its frequency lands in that code's column (absent
+    k-mers stay 0; duplicate rows of one k-mer sum, one atom of their joint
+    mass). Exact for the FSW embedding, whose zero-weight points are
+    no-ops; it feeds the shared-vocab path. Raises ValueError on digits
+    outside 0..3 or non-canonical codes (hand-made inputs: get_kmers never
+    writes them), where the trainer keeps the per-genome path."""
+    vocab = canonical_vocab_codes(k)
+    inv = np.zeros(4, dtype=np.int64)
+    inv[FSW_BASE_MAP] = np.arange(4)  # reference digit -> internal base
+    w = np.zeros((len(mats), len(vocab)), dtype=np.float32)
+    for i, m in enumerate(mats):
+        digits = m[:, :k].astype(np.int64)
+        if digits.size and (digits.min() < 0 or digits.max() > 3):
+            raise ValueError("point-set rows contain out-of-range base digits")
+        codes = np.zeros(len(m), dtype=np.int64)
+        for j in range(k):
+            codes = (codes << 2) | inv[digits[:, j]]
+        idx = np.searchsorted(vocab, codes)
+        if idx.size and not np.array_equal(vocab[np.minimum(idx, len(vocab) - 1)], codes):
+            raise ValueError("point-set rows contain non-canonical k-mer codes")
+        np.add.at(w[i], idx, m[:, k])
+    return w
 
 
 def get_kmers(input_dir: str, output_dir: str, k: int = 7, threads: int | None = None,

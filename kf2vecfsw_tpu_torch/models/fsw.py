@@ -1,6 +1,5 @@
-"""Fourier Sliced-Wasserstein (FSW) embedding and distance model: the forward
-half of the JAX package's ``models/fsw.py`` (NeuralNetFSW, reference
-models.py:51-68).
+"""Fourier Sliced-Wasserstein (FSW) embedding and distance model (the JAX
+package's ``models/fsw.py``; NeuralNetFSW, reference models.py:51-68).
 
 A learnable (4, base_dim) lookup maps each k-mer of a (N, k+1) point-set
 matrix from get_kmers to a point in R^{k*base_dim}; the weighted point set
@@ -14,27 +13,136 @@ where cbar_i is the midpoint of the i-th cumulative-weight step and sinc is
 the normalized sinc. Zero-weight (padding) points leave E unchanged.
 
 The sort is ``kernels.sort.sort_rows``: the hand-written CUDA kernel on the
-card, its plain version on the CPU. The weights are passed once per genome
-and gathered by the kernel for each of the genome's slice rows. The cumsum,
-the cos/sinc coefficients and the row sums stay torch ops: the JAX
+card, its plain version on the CPU. ``SortPW`` and ``SortShared`` put it
+under autograd: the gradient reaches the projections (and so the slices and
+the lookup) through the transpose of the permutation, an unsort by the
+kernel's ``perm``; the weights are data and get none. The port's sort is
+stable, so ``perm`` and the sorted weights always come from one sort. The
+cumsum, the cos/sinc coefficients and the row sums stay torch ops: the JAX
 package's ``_cumsum_minor_matmul`` is a workaround for the TPU's matrix unit
-and ``torch.cumsum`` in fp32 computes the same prefix sums. The shared-vocab
-and lazy paths serve only the trainers and arrive with the training slice.
+and ``torch.cumsum`` in fp32 computes the same prefix sums.
+
+Three forwards train the model:
+- per genome (``fsw_embed``, ``FSWDistEmbed.forward`` on (B, N, k+1) point
+  sets): one sort of the B*C projection rows;
+- shared vocab (``fsw_embed_shared``, ``forward_shared`` on (B, V) weights
+  over the canonical vocab): the points are the vocab's, the same for every
+  genome, so one sort of the C rows serves the batch;
+- lazy (``fsw_lazy_refresh`` / ``fsw_lazy_refresh_pergenome`` then
+  ``fsw_lazy_apply``): the sort order is frozen at a refresh. Everything the
+  sort produces besides the order depends on data only, so the per-point
+  coefficient delta is fixed between refreshes; since every point is a
+  concatenation of lookup rows, E[i,c] = sum_{j,a} S[i,c,j,a] <v_c[j],
+  lookup[a]> with S the coefficients summed over the points whose j-th base
+  is a: an (n, C, k, 4) plane, whatever the vocab. The frequencies train
+  through (xi - xi.detach()) * g2, zero in value, where g2 = dE/dxi at the
+  refresh. At a fresh order the value and every gradient equal the exact
+  forward's.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.sort import f2i_keys, i2f_keys, sort_rows  # noqa: F401  (the JAX module's names)
+from ..kmer.vocab import (
+    FSW_BASE_MAP,
+    MAX_DENSE_K,
+    canonical_vocab_codes,
+    canonical_vocab_size,
+    codes_to_digit_matrix,
+)
 from ..utils.membudget import hbm_fraction
 from .mlp import init_params_
 
 _SQRT2 = math.sqrt(2.0)
+
+# shared-vocab gate: V beyond this would blow the sort transients; a batch
+# beyond this is not the reference's (its FSW batch is 16)
+FSW_SHARED_VOCAB_MAX = 1 << 18
+FSW_SHARED_BATCH_MAX = 64
+
+
+def unsort(d: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The transpose of a row permutation: out[..., perm[..., j]] = d[..., j]."""
+    return torch.empty_like(d).scatter_(-1, perm.long().expand(d.shape), d)
+
+
+class SortPW(torch.autograd.Function):
+    """(ps, ws) = ``sort_rows(p, w)``: the projections p (R, N) sorted per
+    row, carrying weight row w[r // (R // P)] of w (P, N) (the JAX package's
+    ``_sort_pw``). Differentiable in p only: the weights are normalized
+    k-mer frequencies, data in every caller, so their cotangent is dropped.
+    The backward unsorts d_ps by the forward's ``perm``."""
+
+    @staticmethod
+    def forward(ctx, p, w):
+        ps, ws, perm = sort_rows(p, w)
+        ctx.save_for_backward(perm)
+        ctx.mark_non_differentiable(ws)
+        return ps, ws
+
+    @staticmethod
+    def backward(ctx, d_ps, _d_ws):
+        (perm,) = ctx.saved_tensors
+        return unsort(d_ps, perm), None
+
+
+class SortShared(torch.autograd.Function):
+    """(ps (C, V), wsb (B, C, V)): the shared projections p (C, V) sorted
+    once, and every genome's weights wn (B, V) gathered by that order,
+    ``wsb[b] = wn[b, perm]`` (the JAX package's ``_sort_shared``). Every
+    genome reads the same ps, so autograd hands the backward one
+    batch-summed cotangent: one unsort. The weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, p, wn):
+        ps, _, perm = sort_rows(p, wn[:1])
+        ctx.save_for_backward(perm)
+        wsb = wn[:, perm.long()]
+        ctx.mark_non_differentiable(wsb)
+        return ps, wsb
+
+    @staticmethod
+    def backward(ctx, d_ps, _d_wsb):
+        (perm,) = ctx.saved_tensors
+        return unsort(d_ps, perm), None
+
+
+def quantile_coefficients(ws: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """delta = sqrt(2) w cos(pi xi cbar) sinc(xi w / 2) of sorted weights ws
+    (..., N), xi broadcast against them; E = sum(ps * delta, -1)."""
+    cbar = torch.cumsum(ws, dim=-1) - ws / 2.0
+    return _SQRT2 * ws * torch.cos(math.pi * xi * cbar) * torch.sinc(xi * ws / 2.0)
+
+
+def _normalized(weights: torch.Tensor) -> torch.Tensor:
+    total = torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-30)
+    return (weights / total).contiguous()
+
+
+def _by_slice_chunks(fn, slices: torch.Tensor, freqs: torch.Tensor,
+                     slice_chunk: int) -> torch.Tensor:
+    """fn(slices, freqs) -> (B, C) over chunks of slice_chunk slices (0: all
+    at once), concatenated. Under autograd each chunk is recomputed in the
+    backward rather than kept (the JAX package's ``jax.checkpoint`` per
+    chunk), so the chunk bounds the backward's memory too."""
+    d_out = slices.shape[0]
+    if slice_chunk <= 0 or d_out <= slice_chunk:
+        return fn(slices, freqs)
+    out = []
+    for c0 in range(0, d_out, slice_chunk):
+        v, xi = slices[c0 : c0 + slice_chunk], freqs[c0 : c0 + slice_chunk]
+        out.append(checkpoint(fn, v, xi, use_reentrant=False)
+                   if torch.is_grad_enabled() else fn(v, xi))
+    return torch.cat(out, dim=1)
 
 
 @torch.no_grad()
@@ -59,22 +167,34 @@ def fsw_embed(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
     sort's transients to that many slices at a time; 0 sorts all C slices
     of the batch in one call."""
     b, n, _ = points.shape
-    d_out = slices.shape[0]
-    total = torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-30)
-    wn = (weights / total).contiguous()
-    chunk = d_out if slice_chunk <= 0 else slice_chunk
-    out = []
-    for c0 in range(0, d_out, chunk):
-        v, xi = slices[c0 : c0 + chunk], freqs[c0 : c0 + chunk]
+    wn = _normalized(weights)
+
+    def chunk(v, xi):
         c = v.shape[0]
         p = torch.einsum("cd,bnd->bcn", v, points).reshape(b * c, n).contiguous()
-        ps, ws, _ = sort_rows(p, wn)  # row b*c + j carries wn[b]
+        ps, ws = SortPW.apply(p, wn)  # row b*c + j carries wn[b]
         ps, ws = ps.view(b, c, n), ws.view(b, c, n)
-        cbar = torch.cumsum(ws, dim=-1) - ws / 2.0
-        x = xi[None, :, None]
-        delta = _SQRT2 * ws * torch.cos(math.pi * x * cbar) * torch.sinc(x * ws / 2.0)
-        out.append(torch.sum(ps * delta, dim=-1))
-    return torch.cat(out, dim=1)
+        return torch.sum(ps * quantile_coefficients(ws, xi[None, :, None]), dim=-1)
+
+    return _by_slice_chunks(chunk, slices, freqs, slice_chunk)
+
+
+def fsw_embed_shared(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
+                     weights: torch.Tensor, slice_chunk: int = 0) -> torch.Tensor:
+    """FSW embeddings (B, C) of B weighted point sets sharing one point
+    matrix: points (V, d_in), the canonical vocab under the lookup; weights
+    (B, V), zero for absent k-mers. Equal, up to float summation order, to
+    ``fsw_embed`` of the per-genome point sets: zero-weight points are
+    no-ops, so padding every set out to the vocab changes nothing, and the
+    projections become one (C, V) matrix for the whole batch."""
+    wn = _normalized(weights)
+
+    def chunk(v, xi):
+        p = (v @ points.T).contiguous()  # (C, V), shared across the batch
+        ps, wsb = SortShared.apply(p, wn)
+        return torch.sum(ps[None] * quantile_coefficients(wsb, xi[None, :, None]), dim=-1)
+
+    return _by_slice_chunks(chunk, slices, freqs, slice_chunk)
 
 
 def fsw_sort_budget_bytes(device: str | torch.device) -> int:
@@ -96,11 +216,44 @@ def auto_slice_chunk(b: int, n: int, d_out: int, device: str | torch.device) -> 
     return p
 
 
+def shared_vocab_applicable(k: int, n_points_bucket: int, batch: int) -> bool:
+    """Whether a clade trains on the shared-vocab path: the vocab is small
+    enough to carry and the padded point sets cover at least a third of it
+    (the shared sort moves ~(B+2) V floats against ~3 B N per genome and
+    pays its comparisons once; full genomes at k <= 9 hold nearly every
+    canonical k-mer, short contigs stay per genome)."""
+    if not 1 <= k <= MAX_DENSE_K:
+        return False
+    v = canonical_vocab_size(k)
+    if v > FSW_SHARED_VOCAB_MAX or batch > FSW_SHARED_BATCH_MAX:
+        return False
+    return v <= 3 * n_points_bucket
+
+
+@functools.cache
+def vocab_digits(k: int, device: torch.device) -> torch.Tensor:
+    """(V, k) int64 reference-coded bases (A=0,T=1,C=2,G=3) of the canonical
+    vocab at k, on ``device``."""
+    digits = codes_to_digit_matrix(canonical_vocab_codes(k), k, FSW_BASE_MAP)
+    return torch.from_numpy(digits.astype(np.int64)).to(device)
+
+
+def lookup_points(lookup: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
+    """(..., k * base_dim) points of (..., k) int64 digits: the lookup rows
+    of each k-mer's bases, concatenated. Made as a one-hot product, whose
+    values equal the gather ``lookup[digits]``: the gather's backward
+    accumulates every digit into the 4-row table one after another on the
+    card (27 ms of a 32 ms per-genome training step at full width on an
+    H100, PERF.md §6), the product's is one matrix product."""
+    return (F.one_hot(digits, 4).to(lookup.dtype) @ lookup).flatten(-2)
+
+
 class FSWDistEmbed(nn.Module):
     """NeuralNetFSW: lookup -> FSW layer -> Linear -> ReLU -> Linear."""
 
     def __init__(self, k: int, base_dim: int, d_out: int, hidden_size: int, embedding_size: int):
         super().__init__()
+        self.k = k
         self.lookup = nn.Parameter(torch.zeros(4, base_dim))
         self.slices = nn.Parameter(torch.zeros(d_out, k * base_dim))
         self.freqs = nn.Parameter(torch.zeros(d_out))
@@ -108,18 +261,114 @@ class FSWDistEmbed(nn.Module):
         self.fc2 = nn.Linear(hidden_size, embedding_size)
 
     def forward(self, x: torch.Tensor, slice_chunk: int | None = None) -> torch.Tensor:
-        """x: (B, N, k+1) — reference-coded bases (A=0,T=1,C=2,G=3) in the
-        first k columns, frequency weight in the last (the JAX package's
-        ``fsw_dist_embed_apply``). slice_chunk=None picks
+        """x: (B, N, k+1) point sets — reference-coded bases (A=0,T=1,C=2,G=3)
+        in the first k columns, frequency weight in the last (the JAX
+        package's ``fsw_dist_embed_apply``) — or (B, V) weights over the
+        canonical vocab at k (``forward_shared``). slice_chunk=None picks
         ``auto_slice_chunk`` for x's device."""
+        if x.dim() == 2:
+            return self.forward_shared(x, vocab_digits(self.k, x.device), slice_chunk)
         kmers = x[..., :-1].long()
         weights = x[..., -1]
         b, n, _ = kmers.shape
-        points = self.lookup[kmers].reshape(b, n, -1)
+        points = lookup_points(self.lookup, kmers)
         if slice_chunk is None:
             slice_chunk = auto_slice_chunk(b, n, self.slices.shape[0], x.device)
         e = fsw_embed(self.slices, self.freqs, points, weights, slice_chunk)
         return self.fc2(F.relu(self.fc1(e)))
+
+    def forward_shared(self, w: torch.Tensor, digits: torch.Tensor,
+                       slice_chunk: int | None = None) -> torch.Tensor:
+        """w: (B, V) vocab-aligned weights, digits: (V, k) int64 reference-coded
+        bases of the vocab (the JAX package's ``fsw_dist_embed_apply_shared``)."""
+        b, v = w.shape
+        points = lookup_points(self.lookup, digits)
+        if slice_chunk is None:
+            slice_chunk = auto_slice_chunk(b, v, self.slices.shape[0], w.device)
+        e = fsw_embed_shared(self.slices, self.freqs, points, w, slice_chunk)
+        return self.fc2(F.relu(self.fc1(e)))
+
+
+def _delta_and_gdelta(ws: torch.Tensor, freqs: torch.Tensor, xi_shape):
+    """delta = quantile_coefficients(ws, xi) and d delta / d xi, by jvp."""
+    return torch.func.jvp(lambda xi: quantile_coefficients(ws, xi.view(xi_shape)),
+                          (freqs.detach(),), (torch.ones_like(freqs),))
+
+
+def _refresh_groups(n: int, group: int):
+    return (slice(g0, min(g0 + max(group, 1), n)) for g0 in range(0, n, max(group, 1)))
+
+
+@torch.no_grad()
+def fsw_lazy_refresh(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
+                     digits: torch.Tensor, w: torch.Tensor, group: int = 8):
+    """(S (n, C, k, 4), g2 (n, C)) of the shared-vocab lazy path.
+
+    points: (V, d_in) vocab points under the current lookup; digits: (V, k)
+    int64 codes of the vocab (points[v] = concat_j lookup[digits[v, j]]);
+    w: (n, V) nonnegative weights (all-zero rows give S = 0).
+    S[i,c,j,a] sums delta over the vocab entries whose j-th base is a;
+    g2[i,c] = sum_v ps[c,v] d delta[i,c,v] / d xi_c, contracted in sorted
+    order. One ``sort_rows`` of the shared (C, V) projections serves every
+    item; per group of ``group`` items the sorted weights are gathered by its
+    ``perm``, delta and d delta / d xi computed, delta unsorted and
+    segment-summed by one matmul with the (V, 4k) one-hot digit matrix."""
+    n, v = w.shape
+    k = digits.shape[1]
+    wn = _normalized(w)
+    ps, _, perm = sort_rows((slices @ points.T).contiguous(), wn[:1])
+    perm = perm.long()
+    onehot = F.one_hot(digits, 4).reshape(v, 4 * k).to(torch.float32)
+    s_out, g2_out = [], []
+    for rows in _refresh_groups(n, group):
+        wsb = wn[rows][:, perm]  # (G, C, V) sorted weights
+        delta, gdelta = _delta_and_gdelta(wsb, freqs, (1, -1, 1))
+        g2_out.append(torch.sum(ps[None] * gdelta, dim=-1))
+        s_out.append(unsort(delta, perm) @ onehot)
+    c = slices.shape[0]
+    return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
+
+
+@torch.no_grad()
+def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup: torch.Tensor,
+                               x: torch.Tensor, group: int = 4):
+    """(S (n, C, k, 4), g2 (n, C)) of the per-genome lazy path, from padded
+    point sets x (n, N, k+1) whose genomes each own their points (short
+    contigs, sparse clades, k > 9). Per group of ``group`` items: one
+    ``sort_rows`` of the G*C projection rows carrying the G weight rows,
+    delta and d delta / d xi, the unsort, and each item's own one-hot digit
+    matrix. Zero-weight padding rows add nothing to S or g2."""
+    n, npts, kp1 = x.shape
+    k = kp1 - 1
+    c = slices.shape[0]
+    kmers = x[..., :k].long()
+    wn = _normalized(x[..., -1])
+    s_out, g2_out = [], []
+    for rows in _refresh_groups(n, group):
+        km, wg = kmers[rows], wn[rows]
+        g = km.shape[0]
+        points = lookup_points(lookup, km)
+        p = torch.einsum("cd,gnd->gcn", slices, points).reshape(g * c, npts).contiguous()
+        ps, ws, perm = sort_rows(p, wg.contiguous())
+        ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
+        delta, gdelta = _delta_and_gdelta(ws, freqs, (1, -1, 1))
+        g2_out.append(torch.sum(ps * gdelta, dim=-1))
+        onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
+        s_out.append(torch.bmm(unsort(delta, perm), onehot))
+    return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
+
+
+def fsw_lazy_apply(model: FSWDistEmbed, s: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    """Embeddings (B, E) from rows of a refresh's S (B, C, k, 4) and g2
+    (B, C). Gradients reach the slices and the lookup through the (C, k, 4)
+    projections of the slice blocks on the lookup rows, the frequencies
+    through (xi - xi.detach()) * g2, which is zero in value."""
+    c, k = s.shape[1], s.shape[2]
+    vblocks = model.slices.reshape(c, k, -1)
+    proj = torch.einsum("ckd,ad->cka", vblocks, model.lookup)
+    e = torch.einsum("bcka,cka->bc", s, proj)
+    e = e + (model.freqs - model.freqs.detach())[None, :] * g2
+    return model.fc2(F.relu(model.fc1(e)))
 
 
 @torch.no_grad()

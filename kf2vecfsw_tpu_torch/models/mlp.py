@@ -16,7 +16,7 @@ package's Adam state ``{"count", "mu", "nu"}`` and ``torch.optim.Adam``'s
 either package resumes in the other.
 
 Training is plain autograd through ``nn.Linear``: no kernel of the port is
-on the training step.
+on the dense models' training step.
 """
 
 from __future__ import annotations
@@ -123,23 +123,42 @@ def count_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
-def _linear_slots(module: nn.Module):
-    """(JAX layer name, leaf, parameter, stored transposed) of every Linear."""
+def _param_slots(module: nn.Module):
+    """(path in the JAX layout, parameter, stored transposed) of every
+    parameter: the FSW model's lookup, slices and freqs, then each Linear."""
+    from .fsw import FSWDistEmbed
+
+    if isinstance(module, FSWDistEmbed):
+        yield ("lookup",), module.lookup, False
+        yield ("fsw", "slices"), module.slices, False
+        yield ("fsw", "freqs"), module.freqs, False
     for name, layer in module.named_children():
         if isinstance(layer, nn.Linear):
-            yield name, "w", layer.weight, True
-            yield name, "b", layer.bias, False
+            yield (name, "w"), layer.weight, True
+            yield (name, "b"), layer.bias, False
+
+
+def _get(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 @torch.no_grad()
 def adam_state_from_jax(opt: torch.optim.Optimizer, module: nn.Module, state: dict) -> None:
     """Load the JAX package's Adam state (``count``, and ``mu`` / ``nu`` in
-    the (in, out) layout) into ``opt``, an Adam over ``module``'s dense
-    parameters. ``step`` is a CPU float32 tensor, as torch.optim.Adam keeps
-    it outside capturable and fused mode."""
+    the params' layout) into ``opt``, an Adam over ``module``'s parameters.
+    ``step`` is a CPU float32 tensor, as torch.optim.Adam keeps it outside
+    capturable and fused mode."""
     count = float(np.asarray(state["count"]))
-    for name, leaf, p, transposed in _linear_slots(module):
-        mu, nu = (_tensor(state[m][name][leaf]) for m in ("mu", "nu"))
+    for path, p, transposed in _param_slots(module):
+        mu, nu = (_tensor(_get(state[m], path)) for m in ("mu", "nu"))
         if transposed:
             mu, nu = mu.T, nu.T
         opt.state[p] = {
@@ -156,7 +175,7 @@ def adam_state_to_jax(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
     count = 0
     mu: dict = {}
     nu: dict = {}
-    for name, leaf, p, transposed in _linear_slots(module):
+    for path, p, transposed in _param_slots(module):
         st = opt.state.get(p)
         if st:
             count = int(st["step"])
@@ -165,6 +184,6 @@ def adam_state_to_jax(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
             m = v = torch.zeros_like(p)
         if transposed:
             m, v = m.T, v.T
-        mu.setdefault(name, {})[leaf] = _numpy(m)
-        nu.setdefault(name, {})[leaf] = _numpy(v)
+        _put(mu, path, _numpy(m))
+        _put(nu, path, _numpy(v))
     return {"count": np.int32(count), "mu": mu, "nu": nu}

@@ -1,20 +1,27 @@
-"""Per-subtree distance-embedding trainer, dense route (the port's
-``train_model_set -no_fsw``; reference: train_model_set.py, JAX package:
-``train/distance.py``).
+"""Per-subtree distance-embedding trainer (the port's ``train_model_set``;
+reference: train_model_set.py, JAX package: ``train/distance.py``).
 
 One model per clade: embeddings are trained so pairwise L2 distances
 approximate sqrt(patristic distance) under inverse-distance weighting
-(losses.py:13-49). The clade's features and true distances live on the
-device; each epoch draws its item order from a CPU generator seeded by
-``seed`` (which also drew the initial weights, afresh for every clade, as
-the JAX package reuses one key per clade) and runs ``step.distance_epoch``;
-the loss is fetched once per epoch. A held-out ``-test_set`` is scored each
-epoch, ``-save_interval`` writes snapshots, and the params of the
-lowest epoch loss are written to ``model_subtree_{c}.ckpt`` and embedded
-into the APPLES-compatible embeddings/distortions CSVs.
+(losses.py:13-49). Two model families:
+- NeuralNet (``-no_fsw``) on the `.kf` vectors;
+- NeuralNetFSW (the default) on the `.npy` k-mer point sets of get_kmers.
+  A clade whose padded point sets cover at least a third of the canonical
+  vocab trains on (n, V) vocab weights (the shared-vocab path, one sort a
+  batch); others, and inputs that are not canonical k-mers, keep the
+  per-genome point sets. On either, the lazy sort-refresh route
+  (``train/fsw_lazy.py``) runs by default at R = 128 when its refresh fits
+  the device; ``fsw_lazy_refresh=0`` asks for the exact per-step sort, N > 0
+  for R = N. The export always runs the exact per-genome forward.
 
-FSW models (the JAX package's default, without ``-no_fsw``) are not trained
-here yet: asking for one stops with a message.
+The clade's features and true distances live on the device; each epoch
+draws its item order from a CPU generator seeded by ``seed`` (which also
+drew the initial weights, afresh for every clade, as the JAX package reuses
+one key per clade); the loss is fetched once per epoch. A held-out
+``-test_set`` is scored each epoch with the exact forward, ``-save_interval``
+writes snapshots, and the params of the lowest epoch loss are written to
+``model_subtree_{c}.ckpt`` and embedded into the APPLES-compatible
+embeddings/distortions CSVs.
 """
 
 from __future__ import annotations
@@ -27,25 +34,22 @@ import torch
 
 from .. import defaults
 from ..device import DEFAULT_DEVICE, device_line, resolve_device
+from ..ingest.kmers import point_sets_to_vocab_weights
+from ..models.fsw import FSWDistEmbed, init_fsw_dist_embed_, shared_vocab_applicable
 from ..models.mlp import DistEmbed, count_params, init_params_, params_from_jax, params_to_jax
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.timing import hms
 from .checkpoint import load_checkpoint, save_checkpoint
 from .classifier import load_kf_matrix
+from .fsw_lazy import LazyPlanes, lazy_applicable, lazy_distance_epoch, pick_refresh_group
 from .resume import start_or_resume
 from .schedule import step_lr
 from .step import bucket_items, distance_epoch, epoch_order, eval_loss, set_lr
 
 F32 = np.float32
 EXPORT_BLOCK = 512  # backbone rows per forward of the export
-
-FSW_TRAINING_NOT_PORTED = (
-    "train_model_set: FSW distance models (the default) are not trained by the "
-    "PyTorch port yet; FSW training is the port's next slice. Pass -no_fsw to "
-    "train dense models (NeuralNet on .kf features), or train FSW models with "
-    "the JAX package (python -m kf2vecfsw_tpu train_model_set)."
-)
+FSW_EXPORT_BLOCK = 16  # point sets per forward of the export (a training batch)
 
 
 def f32_row(vals, sep: str = "\t") -> str:
@@ -97,8 +101,8 @@ def export_embeddings(model: torch.nn.Module, feats: torch.Tensor, backbone_name
     <1e-6 clamped to 0) and embeddings_subtree_{c}.csv
     (train_model_set.py:602-643). Returns the embeddings."""
     model.eval()
-    outputs = torch.cat([model(feats[i : i + EXPORT_BLOCK])
-                         for i in range(0, feats.shape[0], EXPORT_BLOCK)])
+    block = FSW_EXPORT_BLOCK if feats.dim() == 3 else EXPORT_BLOCK
+    outputs = torch.cat([model(feats[i : i + block]) for i in range(0, feats.shape[0], block)])
     dist = squared_clamped(cdist_exact_blocked(outputs, outputs)).cpu().numpy()
     outputs = outputs.cpu().numpy()
     with open(os.path.join(out_dir, f"distortions_subtree_{clade}.csv"), "w") as f:
@@ -138,13 +142,20 @@ def train_model_set_func(
     test_ids_path: str | None = None,
     save_interval: int | None = None,
     use_fsw: bool = True,
+    base_dim: int = defaults.FSW_BASE_DIM,
+    fswout_dim: int = defaults.FSW_OUT_DIM,
     resume: bool = False,
     autosave_every: int = 500,
+    fsw_lazy_refresh: int | None = None,
     device: str = DEFAULT_DEVICE,
 ) -> list[str]:
-    if use_fsw:
-        raise SystemExit(FSW_TRAINING_NOT_PORTED)
     dev = resolve_device(device)
+    if use_fsw and not any(f.endswith(".npy") for f in feature_files):
+        raise SystemExit(
+            f"train_model_set: no .npy k-mer point sets in {features_folder}; FSW models "
+            "(the default) train on the output of get_kmers. Pass -no_fsw to train dense "
+            "models on .kf files."
+        )
     since = time.time()
     clade_tag = (
         "_".join(str(c) for c in clades_to_train) if clades_to_train is not None else "all"
@@ -155,17 +166,53 @@ def train_model_set_func(
             log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
             num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min,
             lr_decay, clades_to_train, seed, model_filepath, test_ids_path,
-            save_interval, resume, autosave_every,
+            save_interval, use_fsw, base_dim, fswout_dim, resume, autosave_every,
+            fsw_lazy_refresh,
         )
     finally:
         close_logger(log)
+
+
+def _feature_files(feature_files: list[str], use_fsw: bool) -> dict[str, str]:
+    """Sample name -> feature file: ``{name}.kf``, or ``{name}_k{k}.npy``
+    with one k per directory."""
+    if not use_fsw:
+        return {os.path.basename(f)[: -len(".kf")]: f for f in feature_files}
+    avail: dict[str, str] = {}
+    for f in feature_files:
+        stem = _strip_npy_suffix(os.path.basename(f))
+        if stem in avail:
+            # genome_k7.npy and genome_k9.npy both strip to 'genome': picking
+            # one would train the clade at the wrong k
+            raise ValueError(
+                f"feature dir contains multiple .npy files for '{stem}' "
+                f"({os.path.basename(avail[stem])} and {os.path.basename(f)}); "
+                "keep one k per directory"
+            )
+        avail[stem] = f
+    return avail
+
+
+def _fsw_features(paths: list[str], batch_size: int):
+    """(padded point sets (n, N, k+1), training features, shared): the
+    training features are (n, V) vocab weights when the clade takes the
+    shared-vocab path, else the point sets themselves."""
+    mats = [np.load(p).astype(np.float32) for p in paths]
+    k = mats[0].shape[-1] - 1
+    feats = pad_point_sets(mats)
+    if shared_vocab_applicable(k, feats.shape[1], batch_size):
+        try:
+            return feats, point_sets_to_vocab_weights(mats, k), True
+        except ValueError:
+            pass  # rows outside the canonical vocab: the per-genome path
+    return feats, feats, False
 
 
 def _train_all(
     log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
     num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min, lr_decay,
     clades_to_train, seed, model_filepath, test_ids_path, save_interval,
-    resume, autosave_every,
+    use_fsw, base_dim, fswout_dim, resume, autosave_every, fsw_lazy_refresh,
 ):
     from ..ingest.tree_ops import read_subtrees
 
@@ -187,7 +234,8 @@ def _train_all(
     log.info(f"Clades to train: {clade_list_str(clades_to_train)}")
     log.info(f"Random Seed: {seed}")
     log.info(f"Model save interval: {save_interval if save_interval is not None else 'unspecified'}")
-    log.info("Model family: NeuralNet")
+    model_name = "NeuralNetFSW" if use_fsw else "NeuralNet"
+    log.info(f"Model family: {model_name}")
 
     log.info("\n==> Subtree training...\n")
     rows = read_subtrees(clades_info)
@@ -200,15 +248,25 @@ def _train_all(
     log.info(f"Number of Classes: {len(clade_order)}")
 
     test_ids = set(read_test_ids(test_ids_path))
-    avail = {os.path.basename(f)[: -len(".kf")]: f for f in feature_files}
+    avail = _feature_files(feature_files, use_fsw)
+    # the lazy route: auto at R = 128 unless asked for (0 = the exact sort)
+    lazy_auto = fsw_lazy_refresh is None
+    lazy_refresh = defaults.FSW_LAZY_AUTO_REFRESH if lazy_auto else fsw_lazy_refresh
     saved: list[str] = []
     for c in clade_order:
         log.info(f"\n==> Working on subtree {c}...\n")
         log.info("\n==> Preparing Data...\n")
         clade_set = {g for g, cl in rows if cl == c}
-        backbone_names, feats = load_kf_matrix([avail[g] for g in avail if g in clade_set])
-        feats = feats * F32(defaults.FEATURES_SCALER)
-        input_size = feats.shape[1]
+        if use_fsw:
+            backbone_names = [g for g in avail if g in clade_set]
+            points, feats, fsw_shared = _fsw_features([avail[g] for g in backbone_names],
+                                                      batch_size)
+            input_size = points.shape[-1]
+        else:
+            backbone_names, feats = load_kf_matrix([avail[g] for g in avail if g in clade_set])
+            feats = feats * F32(defaults.FEATURES_SCALER)
+            input_size = feats.shape[1]
+            fsw_shared = False
         n_items = len(backbone_names)
         log.info(f"Dimensions of feature matrix rows: {n_items}, cols: {input_size}")
 
@@ -224,12 +282,20 @@ def _train_all(
 
         log.info("\n==> Building model...\n")
         gen = torch.Generator().manual_seed(seed)
-        model = init_params_(DistEmbed(input_size, hidden_size, embedding_size), gen)
         meta = {
             "model_input_size": input_size,
             "model_hidden_size_fc1": hidden_size,
             "model_embedding_size": embedding_size,
         }
+        if use_fsw:
+            k = input_size - 1
+            model = init_fsw_dist_embed_(
+                FSWDistEmbed(k, base_dim, fswout_dim, hidden_size, embedding_size), gen)
+            if fsw_shared:
+                log.info(f"FSW shared-vocab path: V={feats.shape[1]} (one shared sort per batch)")
+            meta.update(fsw_k=k, fsw_base_dim=base_dim, fsw_out_dim=fswout_dim)
+        else:
+            model = init_params_(DistEmbed(input_size, hidden_size, embedding_size), gen)
         log.info(f"Total parameters: {count_params(model)}")
         log.info(f"Trainable parameters: {count_params(model)}")
         ckpt_path = os.path.join(model_filepath, f"model_subtree_{c}.ckpt")
@@ -243,17 +309,45 @@ def _train_all(
         feats_train = feats_dev.index_select(0, sub)
         dist_train = dist_dev.index_select(0, sub).index_select(1, sub)
 
+        n_batches = -(-len(train_idx) // batch_size)
+        planes = None
+        if use_fsw and lazy_refresh > 0:
+            # the refresh transients scale with the features' minor length,
+            # V (vocab weights) or N (padded point sets)
+            if lazy_applicable(fswout_dim, feats.shape[1], dev):
+                planes = LazyPlanes(feats_train, fsw_shared, lazy_refresh, n_batches,
+                                    pick_refresh_group(fswout_dim, feats.shape[1], dev))
+            else:
+                log.info(
+                    "FSW lazy-refresh "
+                    + ("auto-check: " if lazy_auto else "requested but ")
+                    + "the refresh sort transients exceed the per-device "
+                    "HBM budget for this clade; using the exact "
+                    + ("shared" if fsw_shared else "per-genome")
+                    + " path"
+                )
+        if planes is not None:
+            log.info(
+                "FSW lazy sort-refresh path"
+                + ("" if fsw_shared else " (per-genome sort orders)")
+                + f": refresh every {lazy_refresh} steps"
+                + (" (auto-enabled; pass -fsw_lazy_refresh 0 for the exact per-step sort)"
+                   if lazy_auto else "")
+            )
+
         hrs, m, s = hms(time.time() - since)
         log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
         log.info("\n==> Training model...\n")
 
-        n_batches = -(-len(train_idx) // batch_size)
         for epoch in range(st.start_epoch, num_epochs):
             lr = step_lr(epoch, lr0, lr_min, lr_decay)
             set_lr(st.opt, lr)
             order = epoch_order(gen, len(train_idx)).to(dev)
-            loss = float(distance_epoch(st.model, st.opt, feats_train, dist_train, order,
-                                        batch_size))  # the epoch's one fetch
+            if planes is None:
+                loss = distance_epoch(st.model, st.opt, feats_train, dist_train, order, batch_size)
+            else:
+                loss = lazy_distance_epoch(st.model, st.opt, planes, dist_train, order, batch_size)
+            loss = float(loss)  # the epoch's one fetch
             if loss != loss:  # NaN watch (train_model_set_chunks.py:431-432)
                 log.info(f"Loss: {loss}")
             st.keep_if_best(epoch, loss)
@@ -273,19 +367,22 @@ def _train_all(
             ):
                 subdir = os.path.join(model_filepath, f"model_epoch_{epoch + 1}")
                 os.makedirs(subdir, exist_ok=True)
-                save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), "NeuralNet",
+                save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), model_name,
                                 meta, params_to_jax(st.model))
 
         log.info(f"Best Epoch [{st.best_epoch + 1}/{num_epochs}], Lowest loss: {st.lowest:.20f}")
         save_checkpoint(
-            ckpt_path, "NeuralNet",
+            ckpt_path, model_name,
             {**meta, "best_epoch": st.best_epoch, "lowest_loss": st.lowest},
             params_to_jax(st.best),
         )
         saved.append(ckpt_path)
 
-        # final export with the best params (train_model_set.py:602-643)
-        export_embeddings(st.best, feats_dev, backbone_names, model_filepath, c, log)
+        # final export with the best params (train_model_set.py:602-643); FSW
+        # models embed the per-genome point sets with the exact forward,
+        # whichever route trained them
+        export_feats = torch.from_numpy(points).to(dev) if fsw_shared else feats_dev
+        export_embeddings(st.best, export_feats, backbone_names, model_filepath, c, log)
         # interval snapshots also get embeddings (train_model_set.py:646-683)
         if save_interval is not None:
             for name in sorted(os.listdir(model_filepath)):
@@ -295,7 +392,7 @@ def _train_all(
                     continue
                 log.info(f"Computing embeddings for interval: {subdir}")
                 _, _, snap_params = load_checkpoint(snap)
-                export_embeddings(params_from_jax(snap_params).to(dev), feats_dev,
+                export_embeddings(params_from_jax(snap_params).to(dev), export_feats,
                                   backbone_names, subdir, c, None)
 
         log.info(f"\n==> Training for subtree {c} completed!\n")

@@ -1,0 +1,116 @@
+"""The lazy sort-refresh route of the FSW distance trainer (the JAX package's
+``train/fsw_lazy.py``).
+
+Instead of sorting the projections at every step, a refresh freezes the
+sort order and precomputes, for every training item, the compact plane S
+(n, C, k, 4) and the frequencies' gradient matrix g2 (n, C)
+(``models/fsw.py``: ``fsw_lazy_refresh`` for shared-vocab weights,
+``fsw_lazy_refresh_pergenome`` for padded point sets). A step gathers its
+batch's rows and runs ``fsw_lazy_apply``: two small einsums and the MLP.
+Between refreshes the model trains on the exact FSW of a slightly stale
+order; at a refresh step value and gradient are the exact forward's, so
+refresh_steps=1 is the exact route.
+
+Cadence (the JAX package's span path, which default flags run): with R
+refresh steps and n_batches steps an epoch, a run refreshes before its
+first step (a resumed run too), then every R steps when R < n_batches, else
+before every max(1, R // n_batches)-th epoch; the steps are counted from the
+start of the run. A run with a ``-test_set`` keeps the same cadence. The
+JAX package snaps the epoch interval to a divisor of each device span, to
+bound XLA recompiles; the port has no spans and does not.
+
+Memory: S is a few MB at any k, so the gate is the refresh's transients,
+(3G + 4) f32 buffers of (C, V) for a group of G items; ``pick_refresh_group``
+halves G from 8 until they fit 3/8 of the device memory, and the route is
+off (``lazy_applicable``) when not even G = 1 fits.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..models.fsw import (
+    FSWDistEmbed,
+    fsw_lazy_apply,
+    fsw_lazy_refresh,
+    fsw_lazy_refresh_pergenome,
+    lookup_points,
+    vocab_digits,
+)
+from ..utils.membudget import hbm_fraction
+from .step import distance_steps
+
+# items per refresh group; halved until one group's transients fit
+REFRESH_GROUP = 8
+
+
+def fsw_lazy_budget_bytes(device: str | torch.device) -> int:
+    """Budget of one refresh group's transients: 3/8 of the device memory."""
+    return hbm_fraction(3, 8, device)
+
+
+def refresh_transient_bytes(d_out: int, vocab: int, group: int) -> int:
+    """The worst-stage live set of one refresh group: ~(3G + 4) f32 buffers
+    of (d_out, vocab) (sorted weights, delta and its derivative, the unsort)."""
+    return 4 * (3 * group + 4) * d_out * vocab
+
+
+def pick_refresh_group(d_out: int, vocab: int, device: str | torch.device) -> int:
+    """The largest group (<= REFRESH_GROUP, halving) whose transients fit
+    ``fsw_lazy_budget_bytes``; 0 when not even one item's fit."""
+    g = REFRESH_GROUP
+    while g >= 1:
+        if refresh_transient_bytes(d_out, vocab, g) <= fsw_lazy_budget_bytes(device):
+            return g
+        g //= 2
+    return 0
+
+
+def lazy_applicable(d_out: int, vocab: int, device: str | torch.device) -> bool:
+    """Whether the lazy route fits: one item's refresh transients within the
+    budget (``vocab`` is the features' minor length, V or N)."""
+    return pick_refresh_group(d_out, vocab, device) > 0
+
+
+class LazyPlanes:
+    """S and g2 of every training item, refreshed on the model's current
+    params on the cadence of the module docstring. ``feats`` are the train
+    rows: (n, V) vocab weights when ``shared``, else (n, N, k+1) point sets."""
+
+    def __init__(self, feats: torch.Tensor, shared: bool, refresh_steps: int, n_batches: int,
+                 group: int):
+        self.feats, self.shared, self.group = feats, shared, group
+        r = max(1, refresh_steps)
+        self.interval = r if r < n_batches else (r // n_batches) * n_batches
+        self.step = 0  # batch steps since the start of the run
+        self.refreshes = 0
+        self.s = self.g2 = None
+
+    def refresh(self, model: FSWDistEmbed) -> None:
+        if self.shared:
+            digits = vocab_digits(model.k, self.feats.device)
+            with torch.no_grad():
+                points = lookup_points(model.lookup, digits)
+            self.s, self.g2 = fsw_lazy_refresh(model.slices, model.freqs, points, digits,
+                                               self.feats, self.group)
+        else:
+            self.s, self.g2 = fsw_lazy_refresh_pergenome(model.slices, model.freqs, model.lookup,
+                                                         self.feats, self.group)
+        self.refreshes += 1
+
+    def rows(self, model: FSWDistEmbed, idx: torch.Tensor):
+        """(S, g2) rows of one batch step, refreshing first when it is due."""
+        if self.step % self.interval == 0:
+            self.refresh(model)
+        self.step += 1
+        return self.s.index_select(0, idx), self.g2.index_select(0, idx)
+
+
+def lazy_distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, planes: LazyPlanes,
+                        dist: torch.Tensor, order: torch.Tensor, batch_size: int,
+                        weight_offset: float = 1e-6) -> torch.Tensor:
+    """One epoch of the distance trainer on the lazy route; returns the epoch
+    loss as a device scalar."""
+    return distance_steps(lambda idx: fsw_lazy_apply(model, *planes.rows(model, idx)), model,
+                          opt, dist, order, batch_size, weight_offset)

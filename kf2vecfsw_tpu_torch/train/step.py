@@ -56,27 +56,34 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _distance_batch_loss(model, feats, dist, idx, weight_offset):
-    emb = model(feats.index_select(0, idx))
+def _distance_batch_loss(emb, dist, idx, weight_offset):
     true_dist = dist.index_select(0, idx).index_select(1, idx)
     return weighted_sqrt_mse(pairwise_l2_exact(emb), true_dist, None, weight_offset)
 
 
-def distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.Tensor,
-                   dist: torch.Tensor, order: torch.Tensor, batch_size: int,
-                   weight_offset: float = 1e-6) -> torch.Tensor:
+def distance_steps(embed, model: nn.Module, opt: torch.optim.Optimizer, dist: torch.Tensor,
+                   order: torch.Tensor, batch_size: int, weight_offset: float = 1e-6) -> torch.Tensor:
     """One epoch of the distance-embedding trainer over ``order`` (item
-    indices into ``feats`` rows and ``dist`` rows/cols, on their device);
-    returns the epoch loss as a device scalar."""
+    indices into ``dist`` rows/cols, on its device), with ``embed(idx)``
+    the embeddings of a batch; returns the epoch loss as a device scalar."""
     model.train()
-    total = torch.zeros((), dtype=torch.float32, device=feats.device)
+    total = torch.zeros((), dtype=torch.float32, device=dist.device)
     for idx in torch.split(order, batch_size):
-        loss = _distance_batch_loss(model, feats, dist, idx, weight_offset)
+        loss = _distance_batch_loss(embed(idx), dist, idx, weight_offset)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
         total += loss.detach() * idx.numel()
     return total / max(order.numel(), 1)
+
+
+def distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.Tensor,
+                   dist: torch.Tensor, order: torch.Tensor, batch_size: int,
+                   weight_offset: float = 1e-6) -> torch.Tensor:
+    """``distance_steps`` with the model's forward of ``feats`` rows: dense
+    (n, V) vectors, FSW (n, N, k+1) point sets or (n, V) vocab weights."""
+    return distance_steps(lambda idx: model(feats.index_select(0, idx)), model, opt, dist,
+                          order, batch_size, weight_offset)
 
 
 def classifier_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.Tensor,
@@ -112,5 +119,6 @@ def eval_loss(model: nn.Module, feats: torch.Tensor, dist: torch.Tensor,
     order = torch.tensor(indices, dtype=torch.int64, device=feats.device)
     total = torch.zeros((), dtype=torch.float32, device=feats.device)
     for idx in torch.split(order, batch_size):
-        total += _distance_batch_loss(model, feats, dist, idx, weight_offset) * idx.numel()
+        emb = model(feats.index_select(0, idx))
+        total += _distance_batch_loss(emb, dist, idx, weight_offset) * idx.numel()
     return float(total / len(indices))

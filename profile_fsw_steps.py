@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Where an FSW training step's time goes on the card:
+``python3 profile_fsw_steps.py`` (one NVIDIA card; exits non-zero without one).
+
+For each route of the FSW distance trainer (exact and lazy, shared-vocab and
+per-genome) at full width (k=7, V=8,192, base_dim 4, 512 slices, 2048
+hidden, 1024 out, batch 16, lr 1e-5), on seeded random inputs: one warm-up
+epoch, one timed epoch of STEPS steps, then one more under
+``torch.profiler`` (CPU and CUDA activity; a lazy route's one refresh falls
+in the warm-up). Prints one JSON line per route: the wall time per step of
+the timed epoch (host clock, ended by a synchronise) and of the profiled
+one (the profiler slows the host), the device time per step (the traced
+kernels, copies and fills summed), the device's idle share in the timed
+epoch, and the TOP kernels by device time per step, with their launches
+per step; then the card's ``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from kf2vecfsw_tpu_torch.defaults import (
+    BATCH_SIZE,
+    EMBEDDING_SIZE,
+    FSW_BASE_DIM,
+    FSW_OUT_DIM,
+    HIDDEN_SIZE_FC1,
+    LEARNING_RATE,
+)
+from kf2vecfsw_tpu_torch.kmer.vocab import (
+    FSW_BASE_MAP,
+    canonical_vocab_codes,
+    canonical_vocab_size,
+    codes_to_digit_matrix,
+)
+from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
+from kf2vecfsw_tpu_torch.train.distance import pad_point_sets
+from kf2vecfsw_tpu_torch.train.fsw_lazy import LazyPlanes, lazy_distance_epoch, pick_refresh_group
+from kf2vecfsw_tpu_torch.train.step import distance_epoch, make_adam
+
+SEED = 20261016
+K = 7
+STEPS = 20  # steps of the profiled epoch
+POINTS = (1_000, 2_000)  # k-mers per per-genome point set: 1-2 kb contigs
+TOP = 12
+
+
+def features(route: str, rng, n: int) -> np.ndarray:
+    """(n, V) vocab weights with every k-mer present (full genomes), or (n,
+    N, k+1) padded point sets of distinct canonical k-mers (short contigs)."""
+    if route.endswith("shared"):
+        return rng.random((n, canonical_vocab_size(K)), dtype=np.float32) + np.float32(0.01)
+    codes = canonical_vocab_codes(K)
+    mats = []
+    for m in rng.integers(*POINTS, n):
+        pick = np.sort(rng.choice(codes, int(m), replace=False))
+        mats.append(np.column_stack((codes_to_digit_matrix(pick, K, FSW_BASE_MAP),
+                                     rng.random(int(m)) + 0.01)).astype(np.float32))
+    return pad_point_sets(mats)
+
+
+def profile_route(route: str, dev: torch.device) -> dict:
+    rng = np.random.default_rng(SEED)
+    n = STEPS * BATCH_SIZE
+    x = torch.from_numpy(features(route, rng, n)).to(dev)
+    d = np.abs(rng.normal(size=(n, n))).astype(np.float32)
+    dist = torch.from_numpy(d + d.T).fill_diagonal_(0).to(dev)
+    model = init_fsw_dist_embed_(
+        FSWDistEmbed(K, FSW_BASE_DIM, FSW_OUT_DIM, HIDDEN_SIZE_FC1, EMBEDDING_SIZE),
+        torch.Generator().manual_seed(SEED)).to(dev)
+    opt = make_adam(model, LEARNING_RATE)
+    gen = torch.Generator().manual_seed(SEED)
+    if route.startswith("lazy"):
+        # R = the three epochs' steps: one refresh, at the warm-up's start
+        planes = LazyPlanes(x, route == "lazy_shared", 3 * STEPS, STEPS,
+                            pick_refresh_group(FSW_OUT_DIM, x.shape[1], dev))
+        epoch = lambda order: lazy_distance_epoch(model, opt, planes, dist, order, BATCH_SIZE)
+    else:
+        planes = None
+        epoch = lambda order: distance_epoch(model, opt, x, dist, order, BATCH_SIZE)
+    float(epoch(torch.randperm(n, generator=gen).to(dev)))  # warm-up
+
+    def timed_epoch() -> tuple[float, float]:
+        order = torch.randperm(n, generator=gen).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(epoch(order))  # the epoch's one fetch synchronises
+        return loss, (time.perf_counter() - t0) * 1e3 / STEPS
+
+    loss, wall_ms = timed_epoch()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, profiled_wall_ms = timed_epoch()
+    # kernels, copies and fills only: a CPU op's self device time repeats its
+    # kernels', and a user annotation's device range (Adam's step) spans them
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                     key=lambda e: e.device_time_total, reverse=True)
+    device_ms = sum(e.device_time_total for e in kernels) / STEPS / 1e3
+    return {
+        "route": route, "shape": list(x.shape), "steps": STEPS, "loss": loss,
+        "refreshes": planes.refreshes if planes else 0,
+        "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": profiled_wall_ms,
+        "device_ms_per_step": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+        "top": [{"kernel": e.key[:120], "device_ms_per_step": e.device_time_total / STEPS / 1e3,
+                 "launches_per_step": e.count / STEPS} for e in kernels[:TOP]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_fsw_steps: no CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    for route in ("exact_shared", "lazy_shared", "exact_pergenome", "lazy_pergenome"):
+        out = profile_route(route, dev)
+        if not (np.isfinite(out["loss"]) and out["device_ms_per_step"] > 0
+                and out["refreshes"] == route.startswith("lazy")):
+            raise AssertionError(f"{route}: loss {out['loss']}, {out['refreshes']} refreshes, "
+                                 f"{out['device_ms_per_step']} device ms a step")
+        print(json.dumps(out), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -96,6 +96,8 @@ def test_entry_points_default_to_the_card(tmp_path):
                                      use_fsw=False),
         lambda: main(["train_classifier", "-input_dir", d, "-subtrees", d, "-o", d]),
         lambda: main(["train_model_set", "-input_dir", d, "-subtrees", d, "-o", d, "-no_fsw"]),
+        lambda: train_model_set_func(d, [], d, d, 1, 8, 4, 4, 1e-3, 1e-6, 2000, None, 28, d),
+        lambda: main(["train_model_set", "-input_dir", d, "-subtrees", d, "-o", d]),
         lambda: main(["build_library", "-input_dir", d, "-output_dir", d, "-tree", d]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -10,9 +10,12 @@ warp on one bin).
 block sizes of the radix tile sort and N = 16,385 (the first length on the
 global-merge path), all-equal keys (``perm`` the identity), keys at the f32
 extremes; ``perm`` equal to the plain (stable) version's on every row; and
-the FSW model on the card against the CPU at d_out 512.
-Trainers: two epochs of ``train_classifier`` and of the dense
-``train_model_set`` on the card against the CPU, from one CPU generator.
+the FSW model on the card against the CPU at d_out 512; the sort under
+autograd (``SortPW``, ``SortShared``) forward and backward against the CPU.
+Trainers: two epochs of ``train_classifier``, of the dense
+``train_model_set`` and of each FSW training route (shared-vocab and
+per-genome, lazy and exact) on the card against the CPU, from one CPU
+generator.
 
 The kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc, and skips without them. On the card (where JAX is not installed, so the
@@ -290,3 +293,114 @@ def test_trainers_on_the_card_equal_cpu(card, tmp_path):
         np.testing.assert_allclose(_csv(gpu / f"distortions_subtree_{c}.csv", True),
                                    _csv(cpu / f"distortions_subtree_{c}.csv", True),
                                    rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_sort_autograd_on_the_card_equals_cpu(card, shared):
+    """SortPW (16 genomes x 32 slices of 2,000 points) and SortShared (512
+    slices of the 8,192-entry vocab, 16 genomes) forward and backward on the
+    card equal the plain version on the CPU. The sorted keys, the sorted
+    weights and SortPW's gradient bit for bit: the sort is stable on both,
+    and the unsort is a scatter of the same values. SortShared's gradient
+    unsorts the cotangent that autograd sums over the 16 genomes, in an
+    order of additions that differs between the devices: within fp32
+    rounding of that sum (``torch.testing.assert_close``'s float32 default,
+    rtol 1.3e-6 / atol 1e-5)."""
+    from kf2vecfsw_tpu_torch.models.fsw import SortPW, SortShared
+
+    gen = torch.Generator().manual_seed(11)
+    b, c, n = (16, 512, 8192) if shared else (16, 32, 2000)
+    keys = torch.randn(c if shared else b * c, n, generator=gen)
+    weights = torch.rand(b, n, generator=gen)
+    cot = torch.randn((b, c, n) if shared else (b * c, n), generator=gen)
+    grads = []
+    for dev in ("cpu", card):
+        k = keys.to(dev, copy=True).requires_grad_()
+        before = sort_rows.launches
+        ps, ws = (SortShared if shared else SortPW).apply(k, weights.to(dev))
+        assert sort_rows.launches == before + (dev != "cpu")
+        ((ps[None] if shared else ps) * cot.to(dev)).sum().backward()
+        grads.append((ps.detach().cpu(), ws.cpu(), k.grad.cpu()))
+    (ps_cpu, ws_cpu, grad_cpu), (ps_gpu, ws_gpu, grad_gpu) = grads
+    assert torch.equal(ps_gpu, ps_cpu) and torch.equal(ws_gpu, ws_cpu)
+    if shared:
+        torch.testing.assert_close(grad_gpu, grad_cpu)
+    else:
+        assert torch.equal(grad_gpu, grad_cpu)
+
+
+def _fsw_backbone(root, route, n=10, k_shared=3, k_pergenome=5):
+    """One clade of n .npy point sets (k=3, every canonical k-mer: the
+    shared-vocab route; or k=5, 20-90 distinct k-mers padded to 128 < V/3:
+    the per-genome route), the .subtrees file and the .di_mtrx."""
+    from kf2vecfsw_tpu_torch.kmer.vocab import FSW_BASE_MAP, canonical_vocab_codes, codes_to_digit_matrix
+    from kf2vecfsw_tpu_torch.tree.distance import write_di_mtrx
+
+    rng = np.random.default_rng(12)
+    k = k_shared if route.endswith("shared") else k_pergenome
+    codes = canonical_vocab_codes(k)
+    feats = root / "npy"
+    feats.mkdir()
+    names = [f"g{i}" for i in range(n)]
+    for g in names:
+        pick = codes if k == k_shared else np.sort(rng.choice(codes, int(rng.integers(20, 91)),
+                                                             replace=False))
+        w = rng.random(len(pick)) + 0.01
+        mat = np.column_stack((codes_to_digit_matrix(pick, k, FSW_BASE_MAP), w / w.sum()))
+        np.save(feats / f"{g}_k{k}.npy", mat.astype(np.float32))
+    d = np.abs(rng.normal(size=(n, n))) * 0.1
+    d = d + d.T
+    np.fill_diagonal(d, 0)
+    write_di_mtrx(str(root / f"t_subtree_0.di_mtrx"), names, d)
+    (root / "t.subtrees").write_text("genome clade\n" + "".join(f"{g} 0\n" for g in names))
+    return str(feats), sorted(str(p) for p in feats.glob("*.npy")), str(root / "t.subtrees")
+
+
+@pytest.mark.parametrize("route", ["lazy_shared", "exact_shared", "lazy_pergenome",
+                                   "exact_pergenome"])
+def test_fsw_training_routes_on_the_card_equal_cpu(card, tmp_path, route):
+    """Two epochs of FSW train_model_set (10 genomes, batch 4: 3 steps an
+    epoch; 16 slices, base_dim 2, H 64, E 16, lr 1e-5) on the card and on the
+    CPU from one CPU generator. Params within the Adam sign-flip bound of
+    the dense trainers (atol 2 * 1.02 * the sum of the scheduled lr over the
+    steps, lr_min + lr from the second epoch, + rtol 1e-4), best losses
+    within rtol 1e-4; embeddings and distortions within rtol 1e-3 / atol
+    1e-4, the FSW forward's cuda-vs-cpu tolerance, plus 1e-3 for the sign
+    flips summed over 64 hidden units."""
+    from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint
+    from kf2vecfsw_tpu_torch.train.distance import train_model_set_func
+
+    from kf2vecfsw_tpu_torch.train.schedule import step_lr
+
+    feats, files, sub = _fsw_backbone(tmp_path, route)
+    lr, lr_min, epochs = 1e-5, 3e-6, 2
+    drift = 2 * 1.02 * 3 * sum(step_lr(e, lr, lr_min, 2000) for e in range(epochs))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        before = sort_rows.launches
+        train_model_set_func(feats, files, sub, str(tmp_path), epochs, 64, 16, 4, lr, lr_min, 2000,
+                             None, 28, str(out), base_dim=2, fswout_dim=16,
+                             fsw_lazy_refresh=0 if route.startswith("exact") else None,
+                             device=dev)
+        launched = sort_rows.launches - before
+        assert launched == 0 if dev == "cpu" else launched >= 2  # training and the export
+        log = "".join(p.read_text() for p in out.glob("train_model_*.log"))
+        assert ("FSW shared-vocab path" in log) == route.endswith("shared")
+        assert ("FSW lazy sort-refresh path" in log) == route.startswith("lazy")
+        runs[dev] = out
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    name_c, m_cpu, p_cpu = load_checkpoint(str(cpu / "model_subtree_0.ckpt"))
+    name_g, m_gpu, p_gpu = load_checkpoint(str(gpu / "model_subtree_0.ckpt"))
+    assert name_c == name_g == "NeuralNetFSW" and m_gpu["best_epoch"] == m_cpu["best_epoch"]
+    np.testing.assert_allclose(m_gpu["lowest_loss"], m_cpu["lowest_loss"], rtol=1e-4)
+    for key in ("lookup", "fsw/slices", "fsw/freqs", "fc1/w", "fc1/b", "fc2/w", "fc2/b"):
+        a, b = p_gpu, p_cpu
+        for part in key.split("/"):
+            a, b = a[part], b[part]
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=drift, err_msg=key)
+    np.testing.assert_allclose(_csv(gpu / "embeddings_subtree_0.csv", False),
+                               _csv(cpu / "embeddings_subtree_0.csv", False), rtol=1e-3,
+                               atol=1.1e-3)
+    np.testing.assert_allclose(_csv(gpu / "distortions_subtree_0.csv", True),
+                               _csv(cpu / "distortions_subtree_0.csv", True), rtol=1e-3, atol=1e-4)

@@ -2,7 +2,7 @@
 checkpoint reader and forward: ``train_classifier_func`` (with ``-mask``)
 and the dense ``train_model_set_func`` (with ``-test_set`` and
 ``-save_interval``), autosave and ``-resume`` in both directions between the
-packages, and the refusal of FSW training.
+packages, and FSW training's refusal of a folder without point sets.
 
 Embeddings that the JAX package's ``dist_embed_apply`` computes from the
 port's checkpoint agree with the port's exported CSVs within rtol 1e-5 /
@@ -223,7 +223,7 @@ def test_fsw_training_stops_with_a_message(backbone, capsys):
     with pytest.raises(SystemExit, match="-no_fsw") as exc:
         main(["train_model_set", "-input_dir", kf_dir, "-subtrees", sub, "-true_dist", str(root),
               "-o", str(out), "-device", "cpu"])
-    assert "next slice" in str(exc.value)
+    assert "get_kmers" in str(exc.value) and ".npy" in str(exc.value)
     with pytest.raises(SystemExit, match="-no_fsw"):
         train_model_set_func(kf_dir, files, sub, str(root), 1, H, E, 4, 1e-3, 3e-6, 2000,
                              None, 28, str(out), device="cpu")
