@@ -48,6 +48,21 @@ non-zero without one. Phases, each of which fails the run if it fails:
      trained FSW library serves the 32 queries; and a small backbone
      trained with default flags on the card and on the CPU from one seed
      agrees within the FSW_REBUILD_* tolerances;
+   - train_chunks: ``get_chunks`` on the card (k=7, 10 kb windows) over
+     CHUNK_PER_CLADE genomes of each of the build's subtrees, then
+     ``train_classifier_chunks`` and ``train_model_set_chunks`` at full
+     width (the build's full-genome `.kf` files, batch 16, default learning
+     rates) for CHUNK_EPOCHS epochs on the device-resident store; every
+     file and loss checked; the chunk library serves the 32 queries and
+     ``get_secondary_classes`` ranks its classes.out; one subtree retrained
+     for 2 epochs on the device store and on the host store
+     (``KF2VEC_CHUNK_DEVICE_BUDGET=1``) takes the same batches bit for bit;
+     the chunk `.kf` of 4 genomes from ``-device cpu`` equals the card's;
+     and a small chunk backbone (CHUNK_RB_*) trained on the card and on the
+     CPU agrees within the dense rebuild's tolerances;
+   - long genome: one genome of more than 2^31 bases (a 1 Mb block repeated
+     LONG_REPEATS times) counted on the card in overlapping pieces, exact
+     against R x the block's counts + (R - 1) x its junction's;
 5. timings: stage wall times of the main paths, and each kernel against
    its plain version, a one-library-call yardstick and its bound at the
    main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7, and the same
@@ -59,7 +74,12 @@ non-zero without one. Phases, each of which fails the run if it fails:
    of build_library, its trainers' steps per second over epochs 2-5, its
    exports' seconds (str(np.float32) formatting apart) and its peak device
    memory; each FSW training route's seconds, steps per second (with and
-   without the refreshes), refreshes and peak device memory.
+   without the refreshes), refreshes and peak device memory; ``kmer_hist``
+   at the get_chunks shape (PHASE5_CHUNK_WINDOWS windows of 10 kb, k=7) and
+   the chunk sampler's batch of 2 x 16 span rows from the device store and
+   from the host store; get_chunks' seconds (counting and formatting
+   apart) and both chunk trainers' steps per second and seconds outside
+   the epochs.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -93,14 +113,17 @@ from kf2vecfsw_tpu_torch.defaults import (
     LEARNING_RATE_DECAY,
     LEARNING_RATE_MIN,
 )
+from kf2vecfsw_tpu_torch.ingest import chunks as ingest_chunks
 from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
 from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, tile_elems
-from kf2vecfsw_tpu_torch.kmer.counter import concat_with_separators, count_canonical_numpy
-from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_size
+from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
+from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators, count_canonical_numpy
+from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_codes, canonical_vocab_size
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_, unsort
 from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
+from kf2vecfsw_tpu_torch.train import chunks as train_chunks
 from kf2vecfsw_tpu_torch.train import classifier as train_classifier
 from kf2vecfsw_tpu_torch.train import distance as train_distance
 from kf2vecfsw_tpu_torch.train import fsw_lazy
@@ -191,6 +214,17 @@ FSW_ROUTES = {
 FSW_REBUILD_CLADES, FSW_REBUILD_EPOCHS = (0, 1), 2
 PHASE5_TRAIN_SORT = (FSW_OUT_DIM, V_MAIN, 1)  # the exact shared step's one sort
 UNSORT_SHAPES = ((FSW_OUT_DIM, V_MAIN), (16 * FSW_OUT_DIM, V_MAIN))
+# chunk training at full width: get_chunks over the first CHUNK_PER_CLADE
+# genomes (100-200 kb: 10-20 windows) of each subtree of the build's
+# backbone; genomes, subtree sizes and epochs cut (2,000 / 8,000 by default)
+CHUNK_PER_CLADE, CHUNK_EPOCHS = 64, 5
+CHUNK_CPU_GENOMES = 4  # counted again with -device cpu
+# a small chunk backbone trained on the card and on the CPU
+CHUNK_RB_LEAVES, CHUNK_RB_SIZE, CHUNK_RB_EPOCHS = 24, 12, 2
+CHUNK_RB_GENOME = (50_000, 80_000)
+# more than 2^31 bases in one genome: a block repeated, counted in pieces
+LONG_BLOCK, LONG_REPEATS = 1_000_000, 2_150
+PHASE5_CHUNK_WINDOWS = 512  # one genome's 10 kb windows in one get_chunks launch
 
 
 def log(msg: str) -> None:
@@ -661,7 +695,8 @@ class TrainerClock:
     set-up of model copies and optimizer on the card, which pays for
     torch's first optimizer use). FSW runs add their lazy epochs, each
     lazy refresh between two card synchronises (with the index of the
-    epoch it fell in) and the exports' ``sort_rows`` launches."""
+    epoch it fell in) and the exports' ``sort_rows`` launches; the chunk
+    trainers, their epochs, exports, `.kf` parsing and store builds."""
 
     def __init__(self):
         self.epochs: dict[str, list[tuple[int, float]]] = {"classifier": [], "distance": []}
@@ -684,7 +719,15 @@ class TrainerClock:
                 (train_classifier, "save_checkpoint", self._host("classifier checkpoint write")),
                 (train_distance, "save_checkpoint", self._host("distance checkpoint write")),
                 (train_classifier, "start_or_resume", self._host("classifier set-up")),
-                (train_distance, "start_or_resume", self._host("distance set-up"))):
+                (train_distance, "start_or_resume", self._host("distance set-up")),
+                (train_chunks, "chunk_classifier_epoch", self._epoch("classifier")),
+                (train_chunks, "chunk_distance_epoch", self._epoch("distance")),
+                (train_chunks, "export_embeddings", self._export),
+                (train_chunks, "load_kf_matrix", self._host("chunk full-genome .kf parse")),
+                (train_chunks.ChunkStore, "__init__", self._host("chunk .kf parse")),
+                (train_chunks.DeviceChunkStore, "__init__", self._host("device store build")),
+                (train_chunks, "save_checkpoint", self._host("chunk checkpoint write")),
+                (train_chunks, "start_or_resume", self._host("chunk set-up"))):
             fn = getattr(mod, name)
             self._saved.append((mod, name, fn))
             setattr(mod, name, wrap(fn))
@@ -1110,6 +1153,321 @@ def phase_train_fsw(work: str, paths: dict, q_dir: str, q_names: list[str]) -> d
     return out
 
 
+# -- phase 4d: chunk training -----------------------------------------------------
+
+
+class GetChunksClock:
+    """Times get_chunks' counting (``count_windows``) and its text formatting
+    (``append_kf``) by wrapping the module's globals (restored on exit)."""
+
+    def __init__(self):
+        self.count_s = self.format_s = 0.0
+        self._saved = []
+
+    def __enter__(self):
+        for name, key in (("count_windows", "count_s"), ("append_kf", "format_s")):
+            fn = getattr(ingest_chunks, name)
+            self._saved.append((name, fn))
+            setattr(ingest_chunks, name, self._timed(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved:
+            setattr(ingest_chunks, name, fn)
+
+    def _timed(self, fn, key):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            setattr(self, key, getattr(self, key) + time.perf_counter() - t0)
+            return out
+        return timed
+
+
+class BatchRecorder:
+    """Records every batch the chunk stores hand a trainer (a host copy),
+    by wrapping both stores' ``batch`` (restored on exit)."""
+
+    def __init__(self):
+        self.batches: list[np.ndarray] = []
+        self._saved = []
+
+    def __enter__(self):
+        for cls in (train_chunks.ChunkStore, train_chunks.DeviceChunkStore):
+            fn = cls.batch
+            self._saved.append((cls, fn))
+
+            def recorded(*args, _fn=fn, **kw):
+                out = _fn(*args, **kw)
+                self.batches.append(out.cpu().numpy())
+                return out
+            cls.batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self._saved:
+            cls.batch = fn
+
+
+def link_genomes(fna: str, out: str, names: list[str]) -> str:
+    os.makedirs(out)
+    for g in names:
+        os.symlink(os.path.join(fna, f"{g}.fna"), os.path.join(out, f"{g}.fna"))
+    return out
+
+
+def store_lines(lib: str) -> list[str]:
+    lines = []
+    for name in sorted(os.listdir(lib)):
+        if name.endswith(".log"):
+            with open(os.path.join(lib, name)) as f:
+                lines += [line.strip() for line in f if line.startswith("Chunk store:")]
+    return lines
+
+
+def train_chunks_cli(chunks_dir: str, full_dir: str, tree_dir: str, lib: str, epochs: int,
+                     device: str, which=("classifier", "distance"), *flags: str) -> None:
+    """The port's chunk trainers at full width (default widths, batch and
+    learning rates)."""
+    common = ["-input_dir", chunks_dir, "-input_dir_fullgenomes", full_dir, "-subtrees",
+              os.path.join(tree_dir, "tree.subtrees"), "-o", lib, "-e", str(epochs),
+              "-device", device, *flags]
+    if "classifier" in which:
+        cli_main(["train_classifier_chunks", *common])
+    if "distance" in which:
+        cli_main(["train_model_set_chunks", "-true_dist", tree_dir, *common])
+
+
+def check_chunk_library(lib: str, clades: dict[str, int]) -> None:
+    header, rows = read_table(os.path.join(lib, "backbone_classes.out"))
+    n_classes = len(set(clades.values()))
+    check(header[:4] == ["genome", "true_class", "top_class", "top_p"]
+          and len(header) == 4 + n_classes and sorted(rows) == sorted(clades),
+          "chunk backbone_classes.out")
+    check(all(np.all(np.isfinite(r)) and int(r[0]) == clades[g] and abs(r[3:].sum() - 1) < 1e-4
+              for g, r in rows.items()), "chunk backbone_classes.out values")
+    name, meta, params = load_checkpoint(os.path.join(lib, "classifier_model.ckpt"))
+    check(name == "NeuralNetClassifierOnly" and np.isfinite(meta["lowest_loss"])
+          and np.shape(params["fc1"]["w"]) == (V_MAIN, HIDDEN_SIZE_FC1)
+          and np.shape(params["fc3"]["w"]) == (HIDDEN_SIZE_FC1, n_classes),
+          f"chunk classifier checkpoint {name} {meta}")
+    check_subtree_models(lib, clades, "NeuralNet")
+
+
+def compare_stores(work: str, chunks_dir: str, full_dir: str, tree_dir: str, clade: int) -> dict:
+    """One subtree retrained for 2 epochs on the device store and on the
+    host store: the batches bit for bit; losses, params and embeddings
+    identical, or within the dense rebuild's tolerances where a step is not
+    deterministic on the card."""
+    runs = {}
+    for store, budget in (("device", None), ("host", "1")):
+        lib = os.path.join(work, f"lib_chunks_{store}")
+        os.makedirs(lib)
+        if budget:
+            os.environ["KF2VEC_CHUNK_DEVICE_BUDGET"] = budget
+        try:
+            with BatchRecorder() as rec:
+                train_chunks_cli(chunks_dir, full_dir, tree_dir, lib, 2, "cuda", ("distance",),
+                                 "-clade", str(clade))
+        finally:
+            os.environ.pop("KF2VEC_CHUNK_DEVICE_BUDGET", None)
+        want = "device-resident" if store == "device" else "host streaming"
+        check(len(store_lines(lib)) == 1 and want in store_lines(lib)[0],
+              f"{store} store: {store_lines(lib)}")
+        runs[store] = (lib, rec.batches)
+    (lib_d, b_d), (lib_h, b_h) = runs["device"], runs["host"]
+    check(len(b_d) == len(b_h) > 0 and all(
+        a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+        for a, b in zip(b_d, b_h)), "device and host stores sampled other batches")
+    _, m_d, p_d = load_checkpoint(os.path.join(lib_d, f"model_subtree_{clade}.ckpt"))
+    _, m_h, p_h = load_checkpoint(os.path.join(lib_h, f"model_subtree_{clade}.ckpt"))
+    identical = m_d == m_h and all(
+        np.array_equal(p_d[layer][leaf], p_h[layer][leaf]) for layer in p_d for leaf in p_d[layer])
+    tol = Tolerances()
+    tol.subtree_models(lib_d, lib_h, {clade: len(b_d) // 2}, 2, REBUILD_RTOL)
+    tol.check_all("device store vs host store")
+    out = {"batches": len(b_d), "rows": int(sum(b.shape[0] for b in b_d)),
+           "identical_params_and_losses": identical, "tolerance_used": tol.used}
+    log(f"phase train_chunks: device store vs host store on subtree {clade}: {json.dumps(out)}")
+    return out
+
+
+def compare_chunk_rebuilds(work: str) -> dict:
+    """A small chunk backbone: get_frequencies and get_chunks on the card, the
+    chunk .kf of CHUNK_CPU_GENOMES genomes again on the CPU (bytes equal),
+    then both chunk trainers at full width on the card and on the CPU from
+    the card's files; checkpoints, classes and exports within the dense
+    rebuild's tolerances."""
+    rng = np.random.default_rng(SEED + 60)
+    fna, nwk, _ = write_backbone(work, "cb", rng, CHUNK_RB_LEAVES, CHUNK_RB_GENOME)
+    tree_dir = os.path.join(work, "tree_cb")
+    os.makedirs(tree_dir)
+    tree = os.path.join(tree_dir, "tree.nwk")
+    with open(tree, "w") as f:
+        f.write(nwk)
+    cli_main(["divide_tree", "-tree", tree, "-size", str(CHUNK_RB_SIZE)])
+    cli_main(["get_distances", "-tree", tree, "-subtrees", os.path.join(tree_dir, "tree.subtrees"),
+              "-mode", "subtrees_only"])
+    full, chunk_dirs = os.path.join(work, "cb_full"), {}
+    os.makedirs(full)
+    cli_main(["get_frequencies", "-input_dir", fna, "-output_dir", full, "-k", str(K_MAIN)])
+    for dev in ("cuda", "cpu"):
+        chunk_dirs[dev] = os.path.join(work, f"cb_chunks_{dev}")
+        os.makedirs(chunk_dirs[dev])
+    cli_main(["get_chunks", "-input_dir", fna, "-output_dir", chunk_dirs["cuda"], "-k", str(K_MAIN)])
+    clades = read_subtree_rows(tree_dir)
+    few = link_genomes(fna, os.path.join(work, "cb_fna_few"), sorted(clades)[:CHUNK_CPU_GENOMES])
+    cli_main(["get_chunks", "-input_dir", few, "-output_dir", chunk_dirs["cpu"], "-k", str(K_MAIN),
+              "-device", "cpu"])
+    same = sorted(os.listdir(chunk_dirs["cpu"]))
+    kf = [f for f in same if f.endswith(".kf")]
+    check(len(kf) == CHUNK_CPU_GENOMES and all(
+        read_bytes(os.path.join(chunk_dirs["cuda"], f)) == read_bytes(os.path.join(chunk_dirs["cpu"], f))
+        for f in kf), "chunk .kf differs between cuda and cpu")
+    libs = {}
+    for dev in ("cuda", "cpu"):
+        libs[dev] = os.path.join(work, f"lib_cb_{dev}")
+        os.makedirs(libs[dev])
+        train_chunks_cli(chunk_dirs["cuda"], full, tree_dir, libs[dev], CHUNK_RB_EPOCHS, dev)
+    tol = Tolerances()
+    _, m_gpu, p_gpu = load_checkpoint(os.path.join(libs["cuda"], "classifier_model.ckpt"))
+    _, m_cpu, p_cpu = load_checkpoint(os.path.join(libs["cpu"], "classifier_model.ckpt"))
+    tol.compare("lowest_loss", np.array([m_gpu["lowest_loss"]]), np.array([m_cpu["lowest_loss"]]),
+                REBUILD_LOSS_RTOL, 0.0)
+    tol.params(p_gpu, p_cpu, adam_drift(-(-len(clades) // BATCH_SIZE), CHUNK_RB_EPOCHS))
+    tol.subtree_models(libs["cuda"], libs["cpu"], clade_batches(clades), CHUNK_RB_EPOCHS,
+                       REBUILD_RTOL)
+    _, cls_gpu = read_table(os.path.join(libs["cuda"], "backbone_classes.out"))
+    _, cls_cpu = read_table(os.path.join(libs["cpu"], "backbone_classes.out"))
+    for g in clades:
+        tol.compare("classes", cls_gpu[g][2:], cls_cpu[g][2:], REBUILD_CLASS_RTOL,
+                    REBUILD_CLASS_ATOL)
+    log(f"phase train_chunks: chunk rebuild of {CHUNK_RB_LEAVES} genomes, -size {CHUNK_RB_SIZE}, "
+        f"{CHUNK_RB_EPOCHS} epochs, cuda vs cpu: {len(kf)} chunk .kf identical; tolerance used "
+        f"(max |a-b| / (atol + rtol |b|), at most 1) and largest differences {json.dumps(tol.used)}")
+    tol.check_all("chunk rebuild cuda vs cpu")
+    return tol.used
+
+
+def phase_train_chunks(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict:
+    """The chunked pipeline on the card (see the module docstring, phase 4)."""
+    t_phase = time.perf_counter()
+    clades = read_subtree_rows(paths["tree_dir"])
+    subset = {g: c for c in sorted(set(clades.values()))
+              for g in sorted(g for g, cl in clades.items() if cl == c)[:CHUNK_PER_CLADE]}
+    fna = link_genomes(paths["fna"], os.path.join(work, "chunk_fna"), sorted(subset))
+    chunks_dir, lib = os.path.join(work, "chunks_k7"), os.path.join(work, "lib_chunks")
+    os.makedirs(chunks_dir)
+    os.makedirs(lib)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmer_hist.launches = sort_rows.launches = 0
+    t0 = time.perf_counter()
+    with GetChunksClock() as gc_clock:
+        cli_main(["get_chunks", "-input_dir", fna, "-output_dir", chunks_dir, "-k", str(K_MAIN)])
+    get_chunks_s = time.perf_counter() - t0
+    get_chunks_launches = kmer_hist.launches
+    rows = {}
+    for f in os.listdir(chunks_dir):
+        if f.endswith(".kf"):
+            with open(os.path.join(chunks_dir, f)) as fh:
+                rows[f[: -len(".kf")]] = sum(1 for _ in fh)
+    check(sorted(rows) == sorted(subset) and min(rows.values()) >= 10,
+          f"get_chunks wrote {len(rows)} files of {sorted(set(rows.values()))} rows")
+    check(get_chunks_launches >= 1, "get_chunks: kmer_hist was not launched")
+    kmer_hist.launches = sort_rows.launches = 0
+    with TrainerClock() as clock:
+        t1 = time.perf_counter()
+        train_chunks_cli(chunks_dir, paths["lib"], paths["tree_dir"], lib, CHUNK_EPOCHS, "cuda",
+                         ("classifier",))
+        t2 = time.perf_counter()
+        train_chunks_cli(chunks_dir, paths["lib"], paths["tree_dir"], lib, CHUNK_EPOCHS, "cuda",
+                         ("distance",))
+        t3 = time.perf_counter()
+    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}
+    peak = torch.cuda.max_memory_allocated()
+    lines = store_lines(lib)
+    check(len(lines) == 1 + len(set(subset.values())) and all("device-resident" in x for x in lines),
+          f"chunk store lines {lines}")
+    check_chunk_library(lib, subset)
+    epoch_s = {kind: sum(t for _, t in runs) for kind, runs in clock.epochs.items()}
+    out = {
+        "genomes": len(rows), "windows": sum(rows.values()), "get_chunks_s": get_chunks_s,
+        "get_chunks_count_s": gc_clock.count_s, "get_chunks_format_s": gc_clock.format_s,
+        "get_chunks_launches": get_chunks_launches, "launches": launches,
+        "classifier_s": t2 - t1, "distance_s": t3 - t2,
+        "steps_per_s": {kind: clock.steps_per_s(kind, CHUNK_EPOCHS) for kind in clock.epochs},
+        "outside_epochs_s": {"classifier": t2 - t1 - epoch_s["classifier"],
+                             "distance": t3 - t2 - epoch_s["distance"]},
+        "host_s": clock.host_s, "exports": clock.exports, "peak_mib": peak / 2**20,
+    }
+    log(f"phase train_chunks: cuda run ok, {json.dumps(out)}")
+    serve = serve_on_card("trained_chunks", work, lib, q_dir, q_names, DENSE_MODEL_BYTES, None,
+                          n_classes=len(set(subset.values())))
+    out["serve"] = {"stage_s": serve["stage_s"], "launches": serve["launches"]}
+    classes_out = os.path.join(serve["out_dir"], "classes.out")
+    cli_main(["get_secondary_classes", classes_out])
+    _, top = read_table(classes_out)
+    for rank in ("second", "third"):
+        _, ranked = read_table(os.path.join(serve["out_dir"], f"classes_{rank}Best.out"))
+        check(sorted(ranked) == sorted(top) and all(
+            int(ranked[g][0]) != int(top[g][0]) and ranked[g][1] <= top[g][1] for g in top),
+            f"classes_{rank}Best.out")
+    smallest = min(set(subset.values()), key=lambda c: sum(cl == c for cl in subset.values()))
+    out["stores"] = compare_stores(work, chunks_dir, paths["lib"], paths["tree_dir"], smallest)
+    out["rebuild_tolerance_used"] = compare_chunk_rebuilds(work)
+    out["sampler"] = sampler_timings(chunks_dir, subset, torch.device("cuda"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def sampler_timings(chunks_dir: str, subset: dict[str, int], dev) -> dict:
+    """The distance trainer's batch (2 x 16 span rows) from the device store
+    of the largest subtree of the phase and from its host store, with CUDA
+    events; bound: the gathered prefix rows read and the batch written."""
+    clade = max(set(subset.values()), key=lambda c: sum(cl == c for cl in subset.values()))
+    paths = [os.path.join(chunks_dir, f"{g}.kf") for g, c in sorted(subset.items()) if c == clade]
+    host = train_chunks.ChunkStore(paths)
+    store = train_chunks.DeviceChunkStore(host.matrices, dev)
+    _, spans = train_chunks.epoch_plan(SEED, 0, host.counts, 2)
+    rows = spans[:, : 2 * BATCH_SIZE]
+    spans_dev = torch.from_numpy(rows).to(dev)
+    ms = cuda_ms(lambda: store.batch(spans_dev), reps=200)
+    host_ms = cuda_ms(lambda: host.batch(rows, dev), reps=20)
+    n_bytes = 2 * rows.shape[1] * V_MAIN * 4 + rows.shape[1] * V_MAIN * 4
+    out = {"shape": f"{rows.shape[1]} span rows of V={V_MAIN} from {len(paths)} genomes",
+           "ms": ms, "host_store_ms": host_ms, "bound_ms": n_bytes / H100_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "store_mib": store.prefix.numel() * 4 / 2**20}
+    log(f"phase timings: chunk sampler {json.dumps(out)}")
+    return out
+
+
+def phase_long_genome(dev) -> dict:
+    """One genome of LONG_BLOCK x LONG_REPEATS > 2^31 bases counted on the
+    card through KmerCounter (in pieces of 2^31 - 1 bases), exact against
+    R x the block's counts + (R - 1) x the counts of the 2(k-1)-base junction
+    between two copies."""
+    k = K_MAIN
+    rng = np.random.default_rng(SEED + 70)
+    block = random_codes(rng, LONG_BLOCK)
+    genome = np.tile(block, LONG_REPEATS)
+    check(genome.size > counter_mod.PIECE_BASES, f"{genome.size} bases: one piece")
+    junction = np.concatenate([block[-(k - 1):], block[: k - 1]])
+    want = (LONG_REPEATS * count_canonical_numpy(block, k)
+            + (LONG_REPEATS - 1) * count_canonical_numpy(junction, k))[canonical_vocab_codes(k)]
+    before = kmer_hist.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = KmerCounter(k, device=dev).count_batch([[genome]])
+    seconds = time.perf_counter() - t0
+    check(np.array_equal(got[0], want), "long genome: counts != R x block + (R - 1) x junction")
+    out = {"bases": int(genome.size), "windows_counted": int(got.sum()),
+           "launches": kmer_hist.launches - before, "seconds": seconds}
+    check(out["launches"] >= 1, "long genome: kmer_hist was not launched")
+    log(f"phase long_genome: exact, {json.dumps(out)}")
+    return out
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 
@@ -1165,6 +1523,33 @@ def phase_timings(dev) -> dict:
         check(torch.equal(kmer_hist(rb, ro, k), kmer_hist_reference(rb, ro, k)),
               f"{name} batch: kernel != plain version")
     log(f"phase timings: kmer_hist {json.dumps(out)}")
+    return out
+
+
+def phase_chunk_hist_timings(dev) -> dict:
+    """``kmer_hist`` at the get_chunks shape: PHASE5_CHUNK_WINDOWS windows of
+    a genome's 10 kb tiling as the genomes of one launch, k=7. The (G, 4^k)
+    int32 output dominates the bytes."""
+    rng = np.random.default_rng(SEED + 5)
+    k, n = K_MAIN, PHASE5_CHUNK_WINDOWS
+    seq = random_codes(rng, n * 10_000 - 5_000)
+    spans = ingest_chunks.window_spans(seq.size, 10_000)
+    check(len(spans) == n, f"{len(spans)} windows")
+    bases, offsets = to_batch([seq[a:b] for a, b in spans], dev)
+    kernel_ms = cuda_ms(lambda: kmer_hist(bases, offsets, k), reps=50)
+    plain_ms = cuda_ms(lambda: kmer_hist_reference(bases, offsets, k), reps=5, warmup=1)
+    library_ms = cuda_ms(lambda: library_hist(bases, offsets, k), reps=5, warmup=1)
+    got = kmer_hist(bases, offsets, k)
+    check(torch.equal(got, kmer_hist_reference(bases, offsets, k)), "get_chunks shape: kernel != plain")
+    check(torch.equal(got.long(), library_hist(bases, offsets, k)), "get_chunks shape: yardstick")
+    n_bytes = bases.numel() + offsets.numel() * 8 + n * 4**k * 4
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = n * (10_000 - k + 1) * 10 / H100_INT_OPS_PER_S * 1e3
+    out = {"shape": f"G={n} windows x 10,000 bases, k={k}", "ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": n_bytes,
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    log(f"phase timings: kmer_hist at the get_chunks shape {json.dumps(out)}")
     return out
 
 
@@ -1225,15 +1610,18 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     max_err = phase_kernel_vs_plain(dev)
+    long_genome = phase_long_genome(dev)
     sort_err = phase_sort_vs_plain(dev)
     work = tempfile.mkdtemp(prefix="kf2vec_chip_smoke_")
     try:
         paths, q_dir, q_names = phase_main_paths(work, dev)
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
+        chunk = phase_train_chunks(work, built, q_dir, q_names)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timing = phase_timings(dev)
+    chunk_timing = phase_chunk_hist_timings(dev)
     sort_timing = phase_sort_timings(dev, PHASE5_SORT, reps=10)
     train_sort_timing = phase_sort_timings(dev, PHASE5_TRAIN_SORT, reps=50)
     long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
@@ -1249,6 +1637,14 @@ def main() -> int:
             {route: [run["seconds"], run["steps_per_s"], run["steps_per_s_without_refresh"],
                      run["refresh_s"], run["peak_mib"]] for route, run in fsw["routes"].items()})
         + f"; trained FSW library served in (s) {json.dumps(fsw['serve']['stage_s'])}")
+    log(f"phase timings: train_chunks get_chunks {chunk['get_chunks_s']} s (counting "
+        f"{chunk['get_chunks_count_s']} s, formatting {chunk['get_chunks_format_s']} s) over "
+        f"{chunk['genomes']} genomes, {chunk['windows']} windows; classifier "
+        f"{chunk['classifier_s']} s, distance {chunk['distance_s']} s; steps/s over epochs "
+        f"2-{CHUNK_EPOCHS} {json.dumps(chunk['steps_per_s'])}; outside the epochs (s) "
+        f"{json.dumps(chunk['outside_epochs_s'])}; peak device memory {chunk['peak_mib']:.0f} MiB; "
+        f"sampler {chunk['sampler']['ms']} ms a batch; chunk library served in (s) "
+        f"{json.dumps(chunk['serve']['stage_s'])}; the whole phase {chunk['phase_s']} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
@@ -1258,6 +1654,9 @@ def main() -> int:
         run["launches"]["kmer_hist"] for run in fsw["routes"].values())
     by_path["sort_rows"]["train_fsw"] = sum(
         run["launches"]["sort_rows"] for run in fsw["routes"].values())
+    by_path["kmer_hist"]["get_chunks"] = chunk["get_chunks_launches"]
+    by_path["kmer_hist"]["train_chunks"] = chunk["launches"]["kmer_hist"]
+    by_path["sort_rows"]["train_chunks"] = chunk["launches"]["sort_rows"]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],
@@ -1266,6 +1665,9 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "repeats_ms": {name: timing[f"ms_{name}"] for name in ("homopolymer", "dinucleotide")},
+        "get_chunks_shape": {key: chunk_timing[key] for key in
+                             ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "long_genome": long_genome,
     }, {
         "name": "sort_rows", "route": "cuda", "source": SORT_SOURCE, "replaces": SORT_REPLACES,
         "tpu_kernels": ["B3"], "launches": by_path["sort_rows"]["fsw"],

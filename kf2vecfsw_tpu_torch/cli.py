@@ -15,11 +15,17 @@ Commands:
   query                    Query distance models -> APPLES inputs
   build_library            Wrapper: frequencies+divide+distances+train both
   process_query_data       Wrapper: frequencies+classify+kmers+query
+  get_chunks               Genome -> 10kb-window chunk .kf matrices
+  train_model_set_chunks   Chunk-streaming distance trainer
+  train_classifier_chunks  Chunk-streaming classifier trainer
+  get_secondary_classes    2nd/3rd/4th-best classes post-processor
 
 Libraries of dense and of FSW subtree models are served. ``train_model_set``
 trains FSW models on get_kmers' ``.npy`` point sets by default and dense
 models on ``.kf`` vectors with ``-no_fsw``; ``build_library`` builds dense
-libraries, as in the JAX package.
+libraries, as in the JAX package, and so do the chunk trainers, from the
+per-window rows of ``get_chunks``. The JAX package's ``serve`` daemon is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -112,6 +118,45 @@ def _cmd_query(args):
         args.input_dir, files, args.model, args.classes, args.seed, args.o,
         remap_path=args.remap, block_size=args.block, device=args.device,
     )
+
+
+def _cmd_get_chunks(args):
+    from .ingest.chunks import get_chunks
+
+    get_chunks(
+        args.input_dir, args.output_dir, k=args.k, threads=args.p,
+        pseudocount=args.pseudocount, device=args.device,
+    )
+
+
+def _cmd_train_model_set_chunks(args):
+    from .train.chunks import train_model_set_chunks_func
+
+    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    train_model_set_chunks_func(
+        args.input_dir, args.input_dir_fullgenomes, files, args.subtrees,
+        args.true_dist, args.e, args.hidden_sz, args.embed_sz, args.batch_sz,
+        args.lr, args.lr_min, args.lr_decay, args.clade, args.seed, args.cap, args.o,
+        resume=args.resume, device=args.device,
+    )
+
+
+def _cmd_train_classifier_chunks(args):
+    from .train.chunks import train_classifier_chunks_func
+
+    files = sorted(glob.glob(os.path.join(args.input_dir, "*.kf")))
+    train_classifier_chunks_func(
+        args.input_dir, args.input_dir_fullgenomes, files, args.subtrees, args.e,
+        args.hidden_sz, args.batch_sz, args.lr, args.lr_min, args.lr_decay,
+        args.seed, args.mask, args.cap, args.o,
+        resume=args.resume, device=args.device,
+    )
+
+
+def _cmd_get_secondary_classes(args):
+    from .infer.secondary import write_secondary_classes
+
+    write_secondary_classes(args.classes)
 
 
 def _fsw_ks(distance_model: str) -> list[int]:
@@ -412,6 +457,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-di_seed", type=int, default=D.SEED)
     _add_device(p)
     p.set_defaults(func=_cmd_process_query_data)
+
+    p = sub.add_parser("get_chunks", description="Process a library of reference genome-skims or assemblies")
+    p.add_argument("-input_dir")
+    p.add_argument("-output_dir")
+    _add_k(p)
+    _add_p(p)
+    p.add_argument("-pseudocount", action="store_true")
+    _add_device(p)
+    p.set_defaults(func=_cmd_get_chunks)
+
+    p = sub.add_parser("train_model_set_chunks", description="Trains individual models for each subtree using chunked genomes as input")
+    p.add_argument("-input_dir")
+    p.add_argument("-input_dir_fullgenomes")
+    p.add_argument("-true_dist")
+    p.add_argument("-subtrees")
+    _add_train_common(p, D.DEFAULT_DI_EPOCHS)
+    p.add_argument("-embed_sz", type=int, default=D.EMBEDDING_SIZE)
+    p.add_argument("-clade", type=int, nargs="*")
+    p.add_argument("-cap", action="store_true",
+                   help="Reduces memory consuption for input dataset (caps k-mer frequences at maximum of 255)")
+    p.add_argument("-o", help="Model output path")
+    _add_resume(p)
+    _add_device(p)
+    p.set_defaults(func=_cmd_train_model_set_chunks)
+
+    p = sub.add_parser("train_classifier_chunks", description="Train classifier model based on backbone subtrees (genomes split into chunks)")
+    p.add_argument("-input_dir")
+    p.add_argument("-input_dir_fullgenomes")
+    p.add_argument("-subtrees")
+    _add_train_common(p, D.DEFAULT_CL_EPOCHS)
+    p.add_argument("-mask", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("-cap", action="store_true")
+    p.add_argument("-o", help="Model output path")
+    _add_resume(p)
+    _add_device(p)
+    p.set_defaults(func=_cmd_train_classifier_chunks)
+
+    p = sub.add_parser("get_secondary_classes", description="Emit 2nd/3rd/4th-best classification outputs")
+    p.add_argument("classes", help="Path to classes.out")
+    p.set_defaults(func=_cmd_get_secondary_classes)
 
     return parser
 

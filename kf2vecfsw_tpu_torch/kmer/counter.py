@@ -27,6 +27,9 @@ from ..kernels.histogram import MAX_BASES, MAX_K, MIN_K, kmer_hist
 from .vocab import MAX_DENSE_K, canonical_vocab_codes
 
 MAX_SPARSE_K = 31  # int64 window codes hold 2k bits
+# bases per piece of a long genome: a genome longer than this is counted in
+# pieces that overlap by k - 1 bases (read at call time, so a test can lower it)
+PIECE_BASES = MAX_BASES - 1
 
 
 def window_codes_numpy(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -80,6 +83,23 @@ def concat_with_separators(seqs: list[np.ndarray], k: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def genome_pieces(genome: np.ndarray, k: int, piece: int) -> list[np.ndarray]:
+    """``genome`` as views of at most ``piece`` bases that overlap by k - 1:
+    piece j starts at j * (piece - k + 1), and the last one ends at the
+    genome's end. One piece (the genome) when it is no longer than ``piece``."""
+    if genome.size <= piece:
+        return [genome]
+    if piece < k:
+        raise ValueError(f"pieces of {piece} bases cannot hold a window of k={k}")
+    step = piece - (k - 1)
+    out, start = [], 0
+    while True:
+        out.append(genome[start : start + piece])
+        if start + piece >= genome.size:
+            return out
+        start += step
+
+
 class KmerCounter:
     """Counts canonical k-mers of genome batches on one device and folds
     them to the `.kf` column order (the canonical vocabulary).
@@ -98,28 +118,34 @@ class KmerCounter:
     def count_batch(self, seqs_batch: list[list[np.ndarray]]) -> np.ndarray:
         """int64 (G, V) vocab-ordered counts of G genomes, each a list of
         encoded records. One kernel launch and one device->host copy per
-        run of consecutive genomes that together hold fewer than MAX_BASES
-        bases (one run for any realistic batch); a genome of MAX_BASES or
-        more raises."""
+        run of consecutive pieces that together hold fewer than MAX_BASES
+        bases (one run for any realistic batch).
+
+        A genome longer than PIECE_BASES (a skim of a few Gbp of reads) is
+        cut into pieces of PIECE_BASES that overlap by k - 1 bases, the seam
+        rule of the JAX package's single-genome kernel B2: each window lies
+        whole in exactly one piece, so none is lost or counted twice. Each
+        piece is a row of the kernel's int32 output (fewer than 2^31
+        windows), and a genome's rows are summed in int64 (after the vocab
+        fold, which only selects columns)."""
         if self.vocab is None:
             raise ValueError(f"dense k-mer counting supports {MIN_K} <= k <= {MAX_K}, got {self.k}")
-        genomes = [concat_with_separators(seqs, self.k) for seqs in seqs_batch]
+        pieces, first = [], []
+        for seqs in seqs_batch:
+            first.append(len(pieces))
+            pieces += genome_pieces(concat_with_separators(seqs, self.k), self.k, PIECE_BASES)
         parts, start = [], 0
-        while start < len(genomes):
-            stop, total = start, 0
-            while stop < len(genomes) and total + genomes[stop].size < MAX_BASES:
-                total += genomes[stop].size
+        while start < len(pieces):
+            stop, total = start + 1, pieces[start].size
+            while stop < len(pieces) and total + pieces[stop].size < MAX_BASES:
+                total += pieces[stop].size
                 stop += 1
-            if stop == start:
-                raise ValueError(
-                    f"genome {start} holds {genomes[start].size} bases; k-mer counting "
-                    f"takes fewer than {MAX_BASES} per genome (int32 bins)"
-                )
-            parts.append(self._count(genomes[start:stop]))
+            parts.append(self._count(pieces[start:stop]))
             start = stop
         if not parts:
             return np.zeros((0, self.vocab.size), dtype=np.int64)
-        return np.concatenate(parts)
+        rows = np.concatenate(parts)
+        return rows if len(pieces) == len(first) else np.add.reduceat(rows, first, axis=0)
 
     def sparse_batch(self, seqs_batch: list[list[np.ndarray]]) -> list[tuple[np.ndarray, np.ndarray]]:
         """Per genome, (distinct canonical codes ascending, int64 counts):

@@ -1,8 +1,10 @@
 """Training losses (the port's copy of the JAX package's ``ops/losses.py``,
-limited to the two the dense trainers use; reference: losses.py).
+limited to the three the trainers use; reference: losses.py).
 
 - weighted_sqrt_mse: Loss.my_mse_loss (losses.py:13-49):
   mean( (d_model - sqrt(d_true))^2 / (d_true + 1e-6) )
+- chunks_weighted_sqrt_mse: Loss_chunks (losses.py:58-117), the same with
+  a weight of 1 / (d_true + 1000), for the chunk distance trainer
 - nll_loss: torch nn.NLLLoss over log_softmax outputs
   (train_classifier_model.py:278)
 
@@ -28,6 +30,11 @@ def weighted_sqrt_mse(model_dist: torch.Tensor, true_dist: torch.Tensor,
     weight = 1.0 / (true_dist + weight_offset)
     v = (model_dist - torch.sqrt(true_dist)) ** 2 * weight
     return _masked_mean(v, pair_mask)
+
+
+def chunks_weighted_sqrt_mse(model_dist: torch.Tensor, true_dist: torch.Tensor,
+                             pair_mask: torch.Tensor | None = None) -> torch.Tensor:
+    return weighted_sqrt_mse(model_dist, true_dist, pair_mask, weight_offset=1000.0)
 
 
 def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,

@@ -11,13 +11,30 @@ Between refreshes the model trains on the exact FSW of a slightly stale
 order; at a refresh step value and gradient are the exact forward's, so
 refresh_steps=1 is the exact route.
 
-Cadence (the JAX package's span path, which default flags run): with R
-refresh steps and n_batches steps an epoch, a run refreshes before its
-first step (a resumed run too), then every R steps when R < n_batches, else
-before every max(1, R // n_batches)-th epoch; the steps are counted from the
-start of the run. A run with a ``-test_set`` keeps the same cadence. The
-JAX package snaps the epoch interval to a divisor of each device span, to
-bound XLA recompiles; the port has no spans and does not.
+Cadence. With R refresh steps and n_batches = ceil(n/B) real batch steps
+an epoch, a run refreshes before its first step (a resumed run too), then
+every R steps when R < n_batches, else every R // n_batches epochs; the
+steps are counted from the start of the run, and nothing else (a
+``-test_set``, ``-save_interval``, an autosave) moves a refresh. That is the
+flag's promise, "re-sort ... every N steps". The JAX runner refreshes on
+another cadence in three cases, each an effect of its bucket padding or of
+its device spans, TPU artefacts that the port does not port; so the port
+keeps the real-step cadence rather than imitate them:
+1. it counts the bucket's padded batches, ceil(bucket_items(n) / B)
+   (kf2vecfsw_tpu/train/step.py:225-228): at n = 670 and B = 16 its epoch
+   is 47 steps and the port's 42, so at R = 128 it refreshes every 2
+   epochs and the port every 3;
+2. with a ``-test_set`` it runs one epoch a call and refreshes once the
+   plane has aged R steps, every ceil(R / n_batches) epochs, and for
+   R < n_batches it counts the steps from each epoch's start
+   (kf2vecfsw_tpu/train/fsw_lazy.py:333-368);
+3. it refreshes at the start of every device span, and snaps the epoch
+   interval to a divisor of the span (kf2vecfsw_tpu/train/fsw_lazy.py:
+   410-417); spans are 512, 64, 8 or 1 epochs long and end at autosave and
+   ``-save_interval`` epochs (kf2vecfsw_tpu/train/distance.py:513-518,
+   kf2vecfsw_tpu/train/step.py:181-197).
+``tests/test_torch_fsw_epochs.py`` pins the port's count beside the JAX
+runner's in each case.
 
 Memory: S is a few MB at any k, so the gate is the refresh's transients,
 (3G + 4) f32 buffers of (C, V) for a group of G items; ``pick_refresh_group``
@@ -75,8 +92,11 @@ def lazy_applicable(d_out: int, vocab: int, device: str | torch.device) -> bool:
 
 class LazyPlanes:
     """S and g2 of every training item, refreshed on the model's current
-    params on the cadence of the module docstring. ``feats`` are the train
-    rows: (n, V) vocab weights when ``shared``, else (n, N, k+1) point sets."""
+    params before every ``interval``-th batch step of the run (see the
+    module docstring): ``interval`` is R when R < n_batches, else
+    (R // n_batches) * n_batches, so a refresh falls on an epoch's first
+    step. ``feats`` are the train rows: (n, V) vocab weights when
+    ``shared``, else (n, N, k+1) point sets."""
 
     def __init__(self, feats: torch.Tensor, shared: bool, refresh_steps: int, n_batches: int,
                  group: int):

@@ -12,7 +12,7 @@ from kf2vecfsw_tpu.kernels import histogram as H
 from kf2vecfsw_tpu.kmer.counter import KmerCounter as JaxKmerCounter
 from kf2vecfsw_tpu.kmer.counter import concat_with_separators as jax_concat
 from kf2vecfsw_tpu.kmer.counter import count_canonical_numpy
-from kf2vecfsw_tpu_torch.io.fasta import encode_bases
+from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators
 
@@ -119,11 +119,18 @@ def test_kmer_counter_splits_batches_at_the_int32_limit(monkeypatch):
     real = counter_mod.kmer_hist
     monkeypatch.setattr(counter_mod, "kmer_hist", lambda b, o, k: calls.append(o.numel() - 1) or real(b, o, k))
     monkeypatch.setattr(counter_mod, "MAX_BASES", 100)
+    monkeypatch.setattr(counter_mod, "PIECE_BASES", 99)
     np.testing.assert_array_equal(counter.count_batch(seqs_batch), whole)
     assert calls == [3, 1, 1, 1]  # 60+30+0 | 50 | 99 | 7: each join would reach 100
     assert counter.count_batch([]).shape == (0, whole.shape[1])
-    with pytest.raises(ValueError, match="genome 1 holds 100 bases"):
-        counter.count_batch([[encode_bases(b"ACGT")], [encode_bases(b"A" * 100)]])
+    # a genome of MAX_BASES bases no longer raises: it is counted in pieces
+    calls.clear()
+    long_batch = [[encode_bases(b"ACGT")], [encode_bases(_random_bytes(rng, 100))]]
+    got = counter.count_batch(long_batch)
+    assert calls == [1, 1, 1]  # ACGT | the first piece, 99 bases | the last, 3 bases
+    monkeypatch.setattr(counter_mod, "MAX_BASES", 1 << 31)
+    monkeypatch.setattr(counter_mod, "PIECE_BASES", (1 << 31) - 1)
+    np.testing.assert_array_equal(got, counter.count_batch(long_batch))
 
 
 @pytest.mark.parametrize("k", [5, 7])
@@ -136,3 +143,42 @@ def test_kmer_counter_cpu_equals_jax_feature_vector(k):
     for recs, row in zip(genomes, counts):
         ref = jax_counter.feature_vector([jax_encode_bases(r) for r in recs])
         np.testing.assert_array_equal(row.astype(np.float64), ref)
+
+
+def _long_genome(rng, n, seams, k):
+    """Two records (n and 301 bases, 1% N) with a run of N across every
+    other seam of the pieces: windows that touch it must stay uncounted on
+    both sides of the seam."""
+    codes = encode_bases(_random_bytes(rng, n))
+    for i, s in enumerate(seams):
+        if i % 2:
+            codes[max(s - 2, 0) : s + 1] = INVALID
+    return concat_with_separators([codes, encode_bases(_random_bytes(rng, 301))], k)
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_kmer_counter_counts_a_genome_beyond_its_piece_length(monkeypatch, k):
+    """A genome of 3-4 pieces, with the piece length lowered by monkeypatch
+    from 2^31 - 1 bases: over k consecutive piece lengths the seams fall at
+    every offset mod k. count_batch and sparse_batch equal the numpy ground
+    truth exactly, with short genomes before and after the long one."""
+    from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
+
+    rng = np.random.default_rng(300 + k)
+    counter = KmerCounter(k, device="cpu")
+    for piece in range(2_000, 2_000 + k):
+        step = piece - k + 1
+        seams = [j * step for j in range(1, 4)]
+        genome = _long_genome(rng, 3 * step + piece // 4, seams, k)
+        assert 3 * step < genome.size - k + 1 <= 4 * step  # 4 pieces: the last one partial
+        batch = [[encode_bases(b"ACGTTGCA")], [genome], [], [encode_bases(_random_bytes(rng, 900))]]
+        want = [count_canonical_numpy(concat_with_separators(seqs, k), k) for seqs in batch]
+        monkeypatch.setattr(counter_mod, "PIECE_BASES", piece)
+        pieces = counter_mod.genome_pieces(genome, k, piece)
+        assert len(pieces) == 4 and sum(p.size for p in pieces) == genome.size + 3 * (k - 1)
+        got = counter.count_batch(batch)
+        np.testing.assert_array_equal(got, np.stack(want)[:, counter.vocab])
+        for (codes, counts), row in zip(counter.sparse_batch(batch), want):
+            nz = np.nonzero(row)[0]
+            np.testing.assert_array_equal(codes, nz)
+            np.testing.assert_array_equal(counts, row[nz])

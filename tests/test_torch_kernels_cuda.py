@@ -13,9 +13,13 @@ extremes; ``perm`` equal to the plain (stable) version's on every row; and
 the FSW model on the card against the CPU at d_out 512; the sort under
 autograd (``SortPW``, ``SortShared``) forward and backward against the CPU.
 Trainers: two epochs of ``train_classifier``, of the dense
-``train_model_set`` and of each FSW training route (shared-vocab and
-per-genome, lazy and exact) on the card against the CPU, from one CPU
-generator.
+``train_model_set``, of each FSW training route (shared-vocab and
+per-genome, lazy and exact) and of each chunk trainer on the card against
+the CPU, from one CPU generator.
+Counting beyond the piece length: a genome of 3-4 pieces (the piece length
+lowered) with seams at every offset mod k, against the numpy ground truth.
+Chunks: ``get_chunks`` on the card writes the CPU's bytes, and the device
+chunk store's batches equal the host store's bit for bit.
 
 The kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc, and skips without them. On the card (where JAX is not installed, so the
@@ -404,3 +408,147 @@ def test_fsw_training_routes_on_the_card_equal_cpu(card, tmp_path, route):
                                atol=1.1e-3)
     np.testing.assert_allclose(_csv(gpu / "distortions_subtree_0.csv", True),
                                _csv(cpu / "distortions_subtree_0.csv", True), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [3, 7, 13])
+def test_kmer_counter_counts_a_genome_beyond_its_piece_length(card, monkeypatch, k):
+    """The CPU test of the same name on the card: one genome of 4 pieces,
+    with N runs across every other seam, between two short genomes."""
+    from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
+    from kf2vecfsw_tpu_torch.kmer.counter import concat_with_separators
+
+    rng = np.random.default_rng(400 + k)
+    counter = KmerCounter(k, device=card)
+    for piece in range(200_000, 200_000 + k):
+        step = piece - k + 1
+        genome = _codes(rng, 3 * step + piece // 4)
+        for j in range(1, 4, 2):
+            genome[j * step - 2 : j * step + 1] = INVALID
+        batch = [[_codes(rng, 500)], [genome, _codes(rng, 301)], [_codes(rng, 9_000)]]
+        want = np.stack([count_canonical_numpy(concat_with_separators(seqs, k), k)
+                         for seqs in batch])[:, counter.vocab]
+        monkeypatch.setattr(counter_mod, "PIECE_BASES", piece)
+        before = kmer_hist.launches
+        np.testing.assert_array_equal(counter.count_batch(batch), want)
+        assert kmer_hist.launches == before + 1  # 6 rows of one launch
+
+
+def _chunk_fasta(root, n=4):
+    rng = np.random.default_rng(13)
+    fna = root / "fna"
+    fna.mkdir()
+    for i in range(n):
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=int(rng.integers(50_000, 120_001)),
+                         p=[0.2475, 0.2525, 0.25, 0.24, 0.01])
+        (fna / f"g{i}.fna").write_bytes(b">a\n%s\n>b\n%s\n" % (seq[:30_000].tobytes(),
+                                                                seq[30_000:].tobytes()))
+    return fna
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_get_chunks_on_the_card_equals_cpu(card, tmp_path, k):
+    from kf2vecfsw_tpu_torch.ingest.chunks import get_chunks
+
+    fna = _chunk_fasta(tmp_path)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = tmp_path / dev
+        outs[dev].mkdir()
+        before = kmer_hist.launches
+        written = get_chunks(str(fna), str(outs[dev]), k=k, device=dev)
+        assert len(written) == 4
+        assert (kmer_hist.launches > before) == (dev == "cuda")
+    for path in outs["cpu"].glob("*.kf"):
+        assert (outs["cuda"] / path.name).read_bytes() == path.read_bytes()
+
+
+def _chunk_backbone(root):
+    """Chunk .kf rows of two clades (8-30 windows of raw counts at k=3),
+    full-genome .kf vectors, .subtrees and .di_mtrx."""
+    from kf2vecfsw_tpu_torch.io.kf import write_kf
+    from kf2vecfsw_tpu_torch.tree.distance import write_di_mtrx
+
+    rng = np.random.default_rng(14)
+    chunks_dir, full_dir = root / "chunks", root / "full"
+    chunks_dir.mkdir()
+    full_dir.mkdir()
+    rows = []
+    for c, n in enumerate((6, 5)):
+        names = [f"c{c}g{i}" for i in range(n)]
+        rows += [(g, c) for g in names]
+        for g in names:
+            mat = rng.integers(0, 60, size=(int(rng.integers(8, 31)), 32)).astype(np.float64)
+            mat[:, c::2] += 20
+            write_kf(str(chunks_dir / f"{g}.kf"), [(f"{g}.w{i}", r) for i, r in enumerate(mat)])
+            total = mat.sum(axis=0)
+            write_kf(str(full_dir / f"{g}.kf"), [(g, total / total.sum())])
+        d = np.abs(rng.normal(size=(n, n))) * 0.1
+        d = d + d.T
+        np.fill_diagonal(d, 0)
+        write_di_mtrx(str(root / f"t_subtree_{c}.di_mtrx"), names, d)
+    (root / "t.subtrees").write_text("genome clade\n" + "".join(f"{g} {c}\n" for g, c in rows))
+    return str(chunks_dir), str(full_dir), sorted(str(p) for p in chunks_dir.glob("*.kf")), str(root / "t.subtrees")
+
+
+def test_device_chunk_store_batches_equal_the_host_store(card, tmp_path):
+    """Bit for bit: int32 prefix sums gathered on the card against int64 sums
+    on the host, both normalised in float64 and cast to float32 last."""
+    from kf2vecfsw_tpu_torch.train.chunks import ChunkStore, DeviceChunkStore, batch_source, epoch_plan
+
+    _, _, files, _ = _chunk_backbone(tmp_path)
+    host = ChunkStore(files)
+    dev = DeviceChunkStore(host.matrices, card)
+    assert dev.prefix.is_cuda
+    for seed, epoch, draws in ((28, 0, 2), (28, 9, 1), (3, 500, 2)):
+        _, spans = epoch_plan(seed, epoch, host.counts, draws)
+        rows = 4 * draws
+        on_card = batch_source(host, dev, spans, rows, card)
+        on_host = batch_source(host, None, spans, rows, card)
+        for bi in range(-(-len(files) // 4)):
+            a, b = on_card(bi), on_host(bi)
+            assert a.is_cuda and b.is_cuda
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_chunk_trainers_on_the_card_equal_cpu(card, tmp_path):
+    """Two epochs of each chunk trainer (batch 4, H 64, E 16, lr 1e-5) on the
+    card and on the CPU from one CPU generator and one span stream: params
+    within the Adam sign-flip bound of ``test_trainers_on_the_card_equal_cpu``
+    (2 * 1.02 * the lr summed over the steps, lr_min + lr from the second
+    epoch, + rtol 1e-4), best losses within rtol 1e-4; class probabilities,
+    embeddings and distortions as there."""
+    from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint
+    from kf2vecfsw_tpu_torch.train.chunks import train_classifier_chunks_func, train_model_set_chunks_func
+    from kf2vecfsw_tpu_torch.train.schedule import step_lr
+
+    chunks_dir, full_dir, files, sub = _chunk_backbone(tmp_path)
+    lr, lr_min, epochs, batch = 1e-5, 3e-6, 2, 4
+    per_step = 2 * 1.02 * sum(step_lr(e, lr, lr_min, 2000) for e in range(epochs))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        train_classifier_chunks_func(chunks_dir, full_dir, files, sub, epochs, 64, batch, lr, lr_min,
+                                     2000, 28, False, False, str(out), device=dev)
+        train_model_set_chunks_func(chunks_dir, full_dir, files, sub, str(tmp_path), epochs, 64, 16,
+                                    batch, lr, lr_min, 2000, None, 28, False, str(out), device=dev)
+        log = "".join(p.read_text() for p in out.glob("*.log"))
+        assert log.count("Chunk store: device-resident prefix sums") == 3
+        runs[dev] = out
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    for name, steps in (("classifier_model", 3), ("model_subtree_0", 2), ("model_subtree_1", 2)):
+        _, m_cpu, p_cpu = load_checkpoint(str(cpu / f"{name}.ckpt"))
+        _, m_gpu, p_gpu = load_checkpoint(str(gpu / f"{name}.ckpt"))
+        assert np.isfinite(m_gpu["lowest_loss"]) and m_gpu["best_epoch"] == m_cpu["best_epoch"]
+        np.testing.assert_allclose(m_gpu["lowest_loss"], m_cpu["lowest_loss"], rtol=1e-4)
+        for layer in p_cpu:
+            for leaf in p_cpu[layer]:
+                np.testing.assert_allclose(p_gpu[layer][leaf], p_cpu[layer][leaf], rtol=1e-4,
+                                           atol=per_step * steps, err_msg=f"{name} {layer}/{leaf}")
+    np.testing.assert_allclose(_csv(gpu / "backbone_classes.out", True)[:, 2:],
+                               _csv(cpu / "backbone_classes.out", True)[:, 2:], rtol=1e-3, atol=1e-5)
+    for c in range(2):
+        np.testing.assert_allclose(_csv(gpu / f"embeddings_subtree_{c}.csv", False),
+                                   _csv(cpu / f"embeddings_subtree_{c}.csv", False), atol=1e-3)
+        np.testing.assert_allclose(_csv(gpu / f"distortions_subtree_{c}.csv", True),
+                                   _csv(cpu / f"distortions_subtree_{c}.csv", True),
+                                   rtol=1e-3, atol=1e-5)

@@ -1,5 +1,5 @@
 """The training ops of the port against the JAX package's: the exact pairwise
-L2 (values and gradients, duplicate rows included), the two losses with
+L2 (values and gradients, duplicate rows included), the three losses with
 and without masks, and the step learning-rate schedule.
 
 Values compare at rtol 1e-6 (fp32 elementwise work in another order);
@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from kf2vecfsw_tpu.ops.losses import chunks_weighted_sqrt_mse as jax_chunks_weighted_sqrt_mse
 from kf2vecfsw_tpu.ops.losses import nll_loss as jax_nll_loss
 from kf2vecfsw_tpu.ops.losses import weighted_sqrt_mse as jax_weighted_sqrt_mse
 from kf2vecfsw_tpu.ops.pairwise import pairwise_l2_exact as jax_pairwise_l2_exact
 from kf2vecfsw_tpu.train.schedule import step_lr as jax_step_lr
-from kf2vecfsw_tpu_torch.ops.losses import nll_loss, weighted_sqrt_mse
+from kf2vecfsw_tpu_torch.ops.losses import chunks_weighted_sqrt_mse, nll_loss, weighted_sqrt_mse
 from kf2vecfsw_tpu_torch.ops.pairwise import pairwise_l2_exact
 from kf2vecfsw_tpu_torch.train.schedule import step_lr
 
@@ -79,6 +80,9 @@ def test_losses_match_jax(masked):
 
     got = weighted_sqrt_mse(t(md), t(d), t(pair_mask))
     ref = jax_weighted_sqrt_mse(j(md), j(d), j(pair_mask))
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+    got = chunks_weighted_sqrt_mse(t(md), t(d), t(pair_mask))
+    ref = jax_chunks_weighted_sqrt_mse(j(md), j(d), j(pair_mask))
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
     got = nll_loss(t(log_probs), t(labels), t(item_mask))
     ref = jax_nll_loss(j(log_probs), j(labels), j(item_mask))
