@@ -6,7 +6,8 @@ non-zero without one. Phases, each of which fails the run if it fails:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: every CUDA source of the port compiled from the checkout, one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and the host text library
+   (``io/native/textio.cpp``) with g++;
 3. kernels vs plain versions, on the card:
    - ``kmer_hist`` against ``kmer_hist_reference`` (exact), and against the
      numpy ground truth at k=7, on edge-case genomes (N, lowercase,
@@ -27,6 +28,18 @@ non-zero without one. Phases, each of which fails the run if it fails:
      forward run too;
    random weights from a seeded torch.Generator, on 32 query genomes on the
    card, then 4 of them again with ``-device cpu``;
+   - serve: for each of those two libraries, an in-process ``ServeDaemon``
+     on the card, from empty serving caches, fed one request at a time
+     through a pipe with the launch counts set to 0 before each: ping, warm
+     (13 models, at least the library's parameter bytes resident), place on
+     the 32 raw genomes (``kmer_hist`` launches, and ``sort_rows`` for the
+     FSW library), place_features on phase 4's features twice (the second
+     adds no checkpoint or anchor miss and adds hits) and quit; every reply
+     is JSON, `.kf`, `.npy` and classes.out equal process_query_data's
+     bytes, APPLES and `.emb` its bytes or its cuda-vs-cpu tolerances (the
+     log says which held); then ``python -m kf2vecfsw_tpu_torch serve
+     -warm`` as a subprocess on the dense library (ping, place, quit), whose
+     stdout must hold only JSON lines and which must exit with 0;
    - build_library: ``build_library`` on the card at full width (k=7,
      classifier 8192->2048->C, subtree models 8192->2048->1024, batch 16,
      default learning rates, ``-size 850``) over a seeded random backbone of
@@ -79,7 +92,11 @@ non-zero without one. Phases, each of which fails the run if it fails:
    the chunk sampler's batch of 2 x 16 span rows from the device store and
    from the host store; get_chunks' seconds (counting and formatting
    apart) and both chunk trainers' steps per second and seconds outside
-   the epochs.
+   the epochs; the serve daemon's seconds to ready, for warm and for each
+   placement, with their phases and peak device memory, beside
+   process_query_data's; host text I/O, plain Python against the C++
+   library, formatting and parsing 1,700 `.kf` rows of 8,192 frequencies
+   and 850 rows of 1,024 float32, the bytes and values equal.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -88,6 +105,7 @@ card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -96,11 +114,13 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from kf2vecfsw_tpu_torch.cli import build_parser
 from kf2vecfsw_tpu_torch.cli import main as cli_main
 from kf2vecfsw_tpu_torch.defaults import (
     BATCH_SIZE,
@@ -113,8 +133,13 @@ from kf2vecfsw_tpu_torch.defaults import (
     LEARNING_RATE_DECAY,
     LEARNING_RATE_MIN,
 )
+from kf2vecfsw_tpu_torch.infer.cache import clear_all as clear_serving_caches
+from kf2vecfsw_tpu_torch.infer.query import read_embeddings_csv, read_embeddings_csv_plain
+from kf2vecfsw_tpu_torch.infer.serve import ServeDaemon
 from kf2vecfsw_tpu_torch.ingest import chunks as ingest_chunks
+from kf2vecfsw_tpu_torch.io import kf as kf_io
 from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
+from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
 from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, tile_elems
@@ -225,10 +250,25 @@ CHUNK_RB_GENOME = (50_000, 80_000)
 # more than 2^31 bases in one genome: a block repeated, counted in pieces
 LONG_BLOCK, LONG_REPEATS = 1_000_000, 2_150
 PHASE5_CHUNK_WINDOWS = 512  # one genome's 10 kb windows in one get_chunks launch
+# host text: a build's .kf rows (1,700 genomes, V = 8,192) and a subtree's
+# exported float32 rows (850 anchors, embedding 1,024)
+TEXT_KF_ROWS, TEXT_F32_ROWS = 1700, 850
+CLASSIFIER_BYTES = 4 * ((V_MAIN + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * N_CLASSES)
+DENSE_SUBTREE_BYTES = 4 * ((V_MAIN + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * EMBEDDING_SIZE)
+SERVE_TIMEOUT_S = 600  # the daemon's watchdog: a wedged request is answered, not waited on
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def release_serving_caches() -> None:
+    """Drop the models and anchors the serving caches keep on the card, so
+    each phase's peak device memory and each process_query_data run start
+    cold, as a one-shot process does."""
+    clear_serving_caches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def check(cond: bool, what: str) -> None:
@@ -288,6 +328,11 @@ def phase_build() -> float:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"phase build: {', '.join(n + '.cu' for n in names)} with nvcc for sm_90a in "
         f"{seconds:.2f} s")
+    t0 = time.perf_counter()
+    how = "loaded, already built" if textio_lib.library_path().exists() else "built with g++"
+    textio_lib.load()
+    log(f"phase build: {textio_lib.SOURCE.name} (host text I/O) {how} in "
+        f"{time.perf_counter() - t0:.2f} s")
     return seconds
 
 
@@ -533,7 +578,7 @@ def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str
     os.makedirs(out_dir)
     argv = ["process_query_data", "-input_dir", q_dir, "-output_dir", out_dir,
             "-k", str(K_MAIN), "-classifier_model", lib_dir, "-distance_model", lib_dir]
-    torch.cuda.synchronize()
+    release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = 0
     stage_s = cli_main(argv)  # default device: the card
@@ -616,9 +661,204 @@ def phase_main_paths(work: str, dev) -> tuple[dict[str, dict], str, list[str]]:
     log(f"phase main_path: libraries + {len(names)} queries ({total_bases} bases) written in "
         f"{time.perf_counter() - t0:.1f} s")
     return {
-        "dense": drive_path("dense", work, lib_dir, q_dir, names, DENSE_MODEL_BYTES, None),
-        "fsw": drive_path("fsw", work, fsw_dir, q_dir, names, fsw_bytes, K_MAIN),
+        "dense": {**drive_path("dense", work, lib_dir, q_dir, names, DENSE_MODEL_BYTES, None),
+                  "lib_dir": lib_dir, "subtree_bytes": DENSE_SUBTREE_BYTES},
+        "fsw": {**drive_path("fsw", work, fsw_dir, q_dir, names, fsw_bytes, K_MAIN),
+                "lib_dir": fsw_dir, "subtree_bytes": fsw_bytes},
     }, q_dir, names
+
+
+# -- phase 4e: the serve daemon ---------------------------------------------------
+
+
+class PipedDaemon:
+    """An in-process ``ServeDaemon`` on the card, fed one JSON request at a
+    time through an OS pipe, its replies read back through another. While
+    its loop runs the daemon sends sys.stdout to stderr, so the caller logs
+    nothing until ``close``."""
+
+    def __init__(self, lib: str):
+        self.daemon = ServeDaemon(build_parser().parse_args([
+            "serve", "-classifier_model", lib, "-distance_model", lib, "-k", str(K_MAIN),
+            "-request_timeout", str(SERVE_TIMEOUT_S)]))
+        r_in, w_in = os.pipe()
+        r_out, w_out = os.pipe()
+        self._send, self._recv = os.fdopen(w_in, "w"), os.fdopen(r_out)
+        self._thread = threading.Thread(
+            target=self._loop, args=(os.fdopen(r_in), os.fdopen(w_out, "w")), daemon=True)
+        self._thread.start()
+        self.ready = self._reply()
+
+    def _loop(self, stdin, stdout) -> None:
+        with stdin, stdout:
+            self.daemon.serve(stdin=stdin, stdout=stdout)
+
+    def _reply(self) -> dict:
+        line = self._recv.readline()
+        check(line.endswith("\n"), "the daemon closed its reply pipe")
+        return json.loads(line)  # every reply line is JSON
+
+    def request(self, req: dict) -> dict:
+        """One request, the launch counts set to 0 just before it: its reply,
+        wall seconds and launches."""
+        torch.cuda.synchronize()
+        kmer_hist.launches = sort_rows.launches = 0
+        t0 = time.perf_counter()
+        self._send.write(json.dumps(req) + "\n")
+        self._send.flush()
+        reply = self._reply()
+        return {"reply": reply, "wall_s": time.perf_counter() - t0,
+                "launches": {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}}
+
+    def close(self) -> dict:
+        bye = self.request({"cmd": "quit"})
+        self._thread.join(timeout=60)
+        check(not self._thread.is_alive(), "the daemon did not stop after quit")
+        self._send.close()
+        self._recv.close()
+        return bye
+
+
+def same_or_close(d_serve: str, d_ref: str, rtol: float, atol: float) -> str:
+    """APPLES and .emb files of a daemon run against process_query_data's:
+    'identical' if every file's bytes are, else checked within rtol / atol
+    and 'within tolerance'."""
+    files = sorted(f for f in os.listdir(d_ref) if f.startswith(("apples_input", "embedding_subtree")))
+    check(files and files == sorted(f for f in os.listdir(d_serve)
+                                    if f.startswith(("apples_input", "embedding_subtree"))),
+          f"{d_serve}: APPLES / .emb files differ from {d_ref}")
+    if all(read_bytes(os.path.join(d_serve, f)) == read_bytes(os.path.join(d_ref, f)) for f in files):
+        return "identical"
+    for f in files:
+        header = f.startswith("apples_input")
+        h_a, a = read_table(os.path.join(d_serve, f), header)
+        h_b, b = read_table(os.path.join(d_ref, f), header)
+        check(h_a == h_b and list(a) == list(b), f"{f}: headers or rows differ")
+        for g in a:
+            np.testing.assert_allclose(a[g], b[g], rtol=rtol, atol=atol)
+    return "within tolerance"
+
+
+def serve_library(tag: str, work: str, run: dict, q_dir: str, names: list[str]) -> dict:
+    """ping, warm, place on the 32 raw genomes, place_features on phase 4's
+    features twice (stats around the second) and quit, through an
+    in-process daemon on the card, from empty serving caches."""
+    lib, fsw_k = run["lib_dir"], (K_MAIN if tag == "fsw" else None)
+    release_serving_caches()
+    torch.cuda.reset_peak_memory_stats()
+    dirs = {step: os.path.join(work, f"serve_{tag}_{step}")
+            for step in ("place", "place_features_1", "place_features_2")}
+    t0 = time.perf_counter()
+    daemon = PipedDaemon(lib)
+    ready_s = time.perf_counter() - t0
+    steps = {}
+    try:
+        steps["ping"] = daemon.request({"cmd": "ping"})
+        steps["warm"] = daemon.request({"cmd": "warm"})
+        steps["place"] = daemon.request({"cmd": "place", "input_dir": q_dir, "output_dir": dirs["place"]})
+        for i in (1, 2):
+            steps[f"stats_{i}"] = daemon.request({"cmd": "stats"})
+            steps[f"place_features_{i}"] = daemon.request({
+                "cmd": "place_features", "features_dir": run["out_dir"],
+                "output_dir": dirs[f"place_features_{i}"]})
+        steps["stats_3"] = daemon.request({"cmd": "stats"})
+    finally:
+        steps["quit"] = daemon.close()
+    peak = torch.cuda.max_memory_allocated()
+    replies = {step: r["reply"] for step, r in steps.items()}
+    bad = {step: r for step, r in replies.items() if not r.get("ok")}
+    check(not bad, f"serve {tag}: failed requests {bad}")
+    check(daemon.ready.get("event") == "ready" and replies["ping"]["pong"] and replies["quit"]["bye"],
+          f"serve {tag}: ready / ping / quit replies")
+    library_bytes = CLASSIFIER_BYTES + N_CLASSES * run["subtree_bytes"]
+    warm = replies["warm"]
+    check(warm["models"] == 1 + N_CLASSES and warm["device_bytes"] >= library_bytes,
+          f"serve {tag}: warm {warm} against {library_bytes} parameter bytes")
+    launches = steps["place"]["launches"]
+    check(launches["kmer_hist"] >= 1, f"serve {tag}: kmer_hist was not launched by place")
+    if fsw_k:
+        check(launches["sort_rows"] >= 1, f"serve {tag}: sort_rows was not launched by place")
+    for kind in ("checkpoints", "anchors"):
+        before, after = replies["stats_2"]["caches"][kind], replies["stats_3"]["caches"][kind]
+        check(after["misses"] == before["misses"] and after["hits"] > before["hits"],
+              f"serve {tag}: the second place_features' {kind}: {before} -> {after}")
+    exts = (".kf",) + ((f"_k{fsw_k}.npy",) if fsw_k else ())
+    for n in names:
+        for f in [f"{n}{e}" for e in exts]:
+            check(read_bytes(os.path.join(dirs["place"], f)) == read_bytes(os.path.join(run["out_dir"], f)),
+                  f"serve {tag}: {f} differs from process_query_data's")
+    rtol, atol = (FSW_RTOL, FSW_ATOL) if fsw_k else (1e-4, 1e-5)
+    held = {}
+    for step, d in dirs.items():
+        check(read_bytes(os.path.join(d, "classes.out")) == read_bytes(os.path.join(run["out_dir"], "classes.out")),
+              f"serve {tag} {step}: classes.out differs from process_query_data's")
+        held[step] = same_or_close(d, run["out_dir"], rtol, atol)
+    out = {"ready_s": ready_s, "peak_mib": peak / 2**20, "apples_emb": held,
+           "cold_process_query_data_s": run["stage_s"]}
+    for step in ("warm", "place", "place_features_1", "place_features_2"):
+        r = replies[step]
+        out[step] = {"wall_s": steps[step]["wall_s"], "launches": steps[step]["launches"],
+                     **{key: r[key] for key in ("seconds", "phases_ms", "dispatches", "models",
+                                                "compiled", "device_bytes") if key in r}}
+    out["launches"] = {name: sum(steps[step]["launches"][name] for step in
+                                 ("place", "place_features_1", "place_features_2"))
+                       for name in ("kmer_hist", "sort_rows")}
+    return out
+
+
+def serve_cli(work: str, run: dict, q_dir: str) -> dict:
+    """``python -m kf2vecfsw_tpu_torch serve ... -warm`` as a subprocess on
+    the dense library: ping, place on the 32 raw genomes, quit. Its stdout
+    must hold only JSON lines, and it must exit with 0."""
+    lib, out_dir = run["lib_dir"], os.path.join(work, "serve_cli_place")
+    err_path = os.path.join(work, "serve_cli.stderr")
+    cmd = [sys.executable, "-m", "kf2vecfsw_tpu_torch", "serve", "-classifier_model", lib,
+           "-distance_model", lib, "-k", str(K_MAIN), "-warm",
+           "-request_timeout", str(SERVE_TIMEOUT_S)]
+    replies, seconds = [], []
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
+        try:
+            ready = json.loads(proc.stdout.readline())
+            ready_s = time.perf_counter() - t0
+            for req in ({"cmd": "ping"}, {"cmd": "place", "input_dir": q_dir, "output_dir": out_dir},
+                        {"cmd": "quit"}):
+                t1 = time.perf_counter()
+                proc.stdin.write(json.dumps(req) + "\n")
+                proc.stdin.flush()
+                replies.append(json.loads(proc.stdout.readline()))
+                seconds.append(time.perf_counter() - t1)
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(err_path) as f:
+        err_tail = f.read()[-2000:]
+    check(proc.returncode == 0, f"serve CLI exit {proc.returncode}: {err_tail}")
+    for line in rest.splitlines():
+        json.loads(line)  # nothing but JSON on stdout
+    check(ready.get("event") == "ready" and all(r.get("ok") for r in replies),
+          f"serve CLI replies {ready} {replies}: {err_tail}")
+    check(read_bytes(os.path.join(out_dir, "classes.out"))
+          == read_bytes(os.path.join(run["out_dir"], "classes.out")),
+          "serve CLI: classes.out differs from process_query_data's")
+    return {"ready_s": ready_s, "ping_s": seconds[0], "place_s": seconds[1],
+            "place_phases_ms": replies[1]["phases_ms"], "quit_s": seconds[2]}
+
+
+def phase_serve(work: str, paths: dict, q_dir: str, names: list[str]) -> dict:
+    """The serve daemon on phase 4's libraries and queries (see the module
+    docstring, phase 4)."""
+    out = {tag: serve_library(tag, work, run, q_dir, names) for tag, run in paths.items()}
+    for tag, res in out.items():
+        log(f"phase serve {tag}: {json.dumps(res)}")
+    out["cli"] = serve_cli(work, paths["dense"], q_dir)
+    log(f"phase serve cli: {json.dumps(out['cli'])}")
+    release_serving_caches()
+    return out
 
 
 # -- phase 4b: build_library ------------------------------------------------------
@@ -966,7 +1206,7 @@ def phase_build_library(work: str, q_dir: str, q_names: list[str]) -> tuple[dict
     fna, nwk, total = write_backbone(work, "bb", rng, BUILD_LEAVES, BUILD_GENOME)
     log(f"phase build_library: backbone of {BUILD_LEAVES} genomes ({total} bases) written in "
         f"{time.perf_counter() - t0:.1f} s")
-    torch.cuda.synchronize()
+    release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = 0
     with TrainerClock() as clock:
@@ -1014,7 +1254,7 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     that sort_rows launched outside the exports; returns its launches,
     seconds, steps/s, refreshes and peak device memory."""
     os.makedirs(out_dir)
-    torch.cuda.synchronize()
+    release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = 0
     t0 = time.perf_counter()
@@ -1359,7 +1599,7 @@ def phase_train_chunks(work: str, paths: dict, q_dir: str, q_names: list[str]) -
     chunks_dir, lib = os.path.join(work, "chunks_k7"), os.path.join(work, "lib_chunks")
     os.makedirs(chunks_dir)
     os.makedirs(lib)
-    torch.cuda.synchronize()
+    release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = 0
     t0 = time.perf_counter()
@@ -1553,6 +1793,57 @@ def phase_chunk_hist_timings(dev) -> dict:
     return out
 
 
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def phase_host_text(work: str) -> dict:
+    """Host text I/O, plain Python against the C++ library, on one run's
+    data: TEXT_KF_ROWS `.kf` rows of V_MAIN frequencies (append_kf, read_kf)
+    and TEXT_F32_ROWS rows of EMBEDDING_SIZE float32 (f32_row,
+    read_embeddings_csv); the bytes and the values must be equal."""
+    rng = np.random.default_rng(SEED + 90)
+    counts = rng.integers(0, 200, (TEXT_KF_ROWS, V_MAIN)).astype(np.float64)
+    freqs = counts / counts.sum(axis=1, keepdims=True)
+    emb = rng.normal(size=(TEXT_F32_ROWS, EMBEDDING_SIZE)).astype(np.float32)
+
+    def kf_text(append):
+        f = io.StringIO()
+        for i, row in enumerate(freqs):
+            append(f, f"g{i}", row)
+        return f.getvalue()
+
+    def f32_text(row_fn):
+        return "".join(f"a{i}\t" + row_fn(row) for i, row in enumerate(emb))
+
+    out = {"kf": f"{TEXT_KF_ROWS} rows of {V_MAIN} frequencies",
+           "f32": f"{TEXT_F32_ROWS} rows of {EMBEDDING_SIZE} float32"}
+    plain_kf, out["kf_format_plain_s"] = timed(kf_text, kf_io.append_kf_plain)
+    fast_kf, out["kf_format_cpp_s"] = timed(kf_text, kf_io.append_kf)
+    check(fast_kf == plain_kf, "host text: .kf bytes differ between plain and C++")
+    kf_path = os.path.join(work, "host_text.kf")
+    with open(kf_path, "w") as f:
+        f.write(fast_kf)
+    (n_plain, m_plain), out["kf_parse_plain_s"] = timed(kf_io.read_kf_plain, kf_path)
+    (n_fast, m_fast), out["kf_parse_cpp_s"] = timed(kf_io.read_kf, kf_path)
+    check(n_fast == n_plain and np.array_equal(m_fast, m_plain) and np.array_equal(m_fast, freqs),
+          "host text: .kf values differ between plain and C++")
+    plain_f32, out["f32_format_plain_s"] = timed(f32_text, train_distance.f32_row_plain)
+    fast_f32, out["f32_format_cpp_s"] = timed(f32_text, train_distance.f32_row)
+    check(fast_f32 == plain_f32, "host text: f32_row bytes differ between plain and C++")
+    emb_path = os.path.join(work, "host_text_embeddings.csv")
+    with open(emb_path, "w") as f:
+        f.write(fast_f32)
+    (e_plain_names, e_plain), out["f32_parse_plain_s"] = timed(read_embeddings_csv_plain, emb_path)
+    (e_fast_names, e_fast), out["f32_parse_cpp_s"] = timed(read_embeddings_csv, emb_path)
+    check(e_fast_names == e_plain_names and np.array_equal(e_fast, e_plain) and np.array_equal(e_fast, emb),
+          "host text: float32 rows differ between plain and C++")
+    log(f"phase timings: host text {json.dumps(out)}")
+    return out
+
+
 def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1615,9 +1906,11 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="kf2vec_chip_smoke_")
     try:
         paths, q_dir, q_names = phase_main_paths(work, dev)
+        serve = phase_serve(work, paths, q_dir, q_names)
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
         chunk = phase_train_chunks(work, built, q_dir, q_names)
+        phase_host_text(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timing = phase_timings(dev)
@@ -1628,6 +1921,12 @@ def main() -> int:
     unsort_timing = phase_unsort_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
+        res = serve[tag]
+        log(f"phase timings: serve {tag}: ready {res['ready_s']} s, warm {res['warm']['wall_s']} s, "
+            f"place {res['place']['wall_s']} s, place_features {res['place_features_1']['wall_s']} "
+            f"and {res['place_features_2']['wall_s']} s; peak device memory {res['peak_mib']:.0f} MiB")
+    log(f"phase timings: serve CLI to ready (-warm) {serve['cli']['ready_s']} s, place "
+        f"{serve['cli']['place_s']} s")
     log(f"phase timings: build_library stages (s) {json.dumps(build['stage_s'])}; steps/s over "
         f"epochs 2-{BUILD_EPOCHS} {json.dumps(build['steps_per_s'])}; peak device memory "
         f"{build['peak_mib']:.0f} MiB; exports {json.dumps(build['exports'])}; host work in "
@@ -1654,6 +1953,8 @@ def main() -> int:
         run["launches"]["kmer_hist"] for run in fsw["routes"].values())
     by_path["sort_rows"]["train_fsw"] = sum(
         run["launches"]["sort_rows"] for run in fsw["routes"].values())
+    for name in by_path:
+        by_path[name]["serve"] = serve["dense"]["launches"][name] + serve["fsw"]["launches"][name]
     by_path["kmer_hist"]["get_chunks"] = chunk["get_chunks_launches"]
     by_path["kmer_hist"]["train_chunks"] = chunk["launches"]["kmer_hist"]
     by_path["sort_rows"]["train_chunks"] = chunk["launches"]["sort_rows"]

@@ -19,13 +19,15 @@ Commands:
   train_model_set_chunks   Chunk-streaming distance trainer
   train_classifier_chunks  Chunk-streaming classifier trainer
   get_secondary_classes    2nd/3rd/4th-best classes post-processor
+  serve                    Persistent placement daemon (JSON lines on stdin/stdout)
 
-Libraries of dense and of FSW subtree models are served. ``train_model_set``
-trains FSW models on get_kmers' ``.npy`` point sets by default and dense
-models on ``.kf`` vectors with ``-no_fsw``; ``build_library`` builds dense
-libraries, as in the JAX package, and so do the chunk trainers, from the
-per-window rows of ``get_chunks``. The JAX package's ``serve`` daemon is
-not ported yet.
+Libraries of dense and of FSW subtree models are served, by
+``process_query_data`` once or by the ``serve`` daemon, which keeps the
+models on the device between requests. ``train_model_set`` trains FSW
+models on get_kmers' ``.npy`` point sets by default and dense models on
+``.kf`` vectors with ``-no_fsw``; ``build_library`` builds dense libraries,
+as in the JAX package, and so do the chunk trainers, from the per-window
+rows of ``get_chunks``.
 """
 
 from __future__ import annotations
@@ -159,22 +161,19 @@ def _cmd_get_secondary_classes(args):
     write_secondary_classes(args.classes)
 
 
-def _fsw_ks(distance_model: str) -> list[int]:
-    """The k of every FSW subtree model of a library, from checkpoint meta
-    only (the weights are not read)."""
-    from .train.checkpoint import fsw_k_from_meta, load_checkpoint_meta
+def _cmd_serve(args):
+    import contextlib
+    import sys
 
-    ks = set()
-    for ckpt in sorted(glob.glob(os.path.join(distance_model, "model_subtree_*.ckpt"))):
-        try:
-            model_name, meta = load_checkpoint_meta(ckpt)
-            if model_name == "NeuralNetFSW":
-                ks.add(fsw_k_from_meta(meta))
-        except (OSError, ValueError, KeyError) as e:
-            # as the JAX package: an unreadable model fails the query only
-            # if a genome is classified into its subtree
-            print(f"WARNING: could not inspect {ckpt}: {e}")
-    return sorted(ks)
+    from .infer.serve import ServeDaemon, _exit_daemon
+
+    daemon = ServeDaemon(args)
+    if args.warm:
+        with contextlib.redirect_stdout(sys.stderr):  # stdout carries only the protocol
+            daemon.handle_warm({})
+    rc = daemon.serve()
+    _exit_daemon(daemon, rc)  # hard exit if wedged workers were abandoned
+    raise SystemExit(rc)
 
 
 def _cmd_build_library(args) -> dict[str, float]:
@@ -243,6 +242,7 @@ def _cmd_process_query_data(args) -> dict[str, float]:
     from .infer.query import query_func
     from .ingest.frequencies import get_frequencies
     from .ingest.kmers import get_kmers
+    from .train.checkpoint import fsw_ks
 
     resolve_device(args.device)
     seconds = {}
@@ -263,7 +263,7 @@ def _cmd_process_query_data(args) -> dict[str, float]:
     t2 = time.perf_counter()
     seconds["classify"] = t2 - t1
     # FSW subtree models read {name}_k{k}.npy point sets, not .kf vectors
-    for fk in _fsw_ks(args.distance_model):
+    for fk in fsw_ks(args.distance_model):
         print(f"\n==> Computing k-mer point sets for FSW models (k={fk})\n")
         get_kmers(args.input_dir, args.output_dir, k=fk, threads=args.p, device=args.device)
     t3 = time.perf_counter()
@@ -497,6 +497,32 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("get_secondary_classes", description="Emit 2nd/3rd/4th-best classification outputs")
     p.add_argument("classes", help="Path to classes.out")
     p.set_defaults(func=_cmd_get_secondary_classes)
+
+    p = sub.add_parser(
+        "serve",
+        description=(
+            "Persistent placement server: JSON-lines requests on stdin, one "
+            "JSON response per line on stdout; models stay device-resident "
+            "between requests (commands: ping, warm, stats, place, "
+            "place_features, quit)"
+        ),
+    )
+    p.add_argument("-classifier_model", required=True)
+    p.add_argument("-distance_model", required=True)
+    _add_k(p)
+    _add_p(p)
+    p.add_argument("-pseudocount", action="store_true")
+    p.add_argument("-cl_seed", type=int, default=D.SEED)
+    p.add_argument("-di_seed", type=int, default=D.SEED)
+    p.add_argument("-warm", action="store_true",
+                   help="Preload every model to the device before accepting requests")
+    p.add_argument("-request_timeout", type=float, default=0.0,
+                   help="Per-request watchdog seconds: a request that wedges "
+                        "(e.g. a stalled device call) is answered with "
+                        "{ok: false} after this long and the daemon keeps "
+                        "serving. 0 disables. Env: KF2VEC_SERVE_REQUEST_TIMEOUT_S")
+    _add_device(p)
+    p.set_defaults(func=_cmd_serve)
 
     return parser
 

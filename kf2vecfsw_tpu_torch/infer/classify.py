@@ -1,9 +1,17 @@
 """Query classification (reference: classify.py:57-129).
 
-Loads the classifier checkpoint onto the device, reads query `.kf` files in
-blocks, scales them by FEATURES_SCALER, applies the checkpoint's column
-mask, runs the forward pass on the device and appends one row per query to
-classes.out in the JAX package's format.
+Takes the classifier from the device-resident cache (``infer/cache.py``),
+reads the query features from the cached device matrix (or, when it is off
+or over budget, block by block from `.kf` files: scaled by
+FEATURES_SCALER, with the checkpoint's column mask), runs the forward pass
+on the device and appends one row per query to classes.out in the JAX
+package's format.
+
+The blocks run as a pipeline, as in the JAX package: a thread parses block
+z+1, and block z-1 is formatted and written while the device runs block z.
+Each block's result comes back with a non-blocking copy into pinned host
+memory behind a CUDA event. Phases (``utils/phases``): model_load, parse,
+transfer, dispatch, fetch, format; one ``dispatches`` count per forward.
 """
 
 from __future__ import annotations
@@ -16,25 +24,43 @@ import torch
 
 from .. import defaults
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..io.kf import float_repr, read_kf_files
-from ..models.mlp import params_from_jax
-from ..train.checkpoint import load_checkpoint
+from ..io.kf import float_repr
+from ..utils import phases
+from ..utils.cancel import CancelFlag, writing
 from ..utils.logging import close_logger, make_run_logger
+from ..utils.prefetch import prefetch_iter
 from ..utils.timing import hms
+from .cache import cached_checkpoint, cached_query_matrix, read_kf_files_cached
 
 
-def load_features(paths: list[str], column_mask: np.ndarray | None, input_size: int,
-                  device: torch.device) -> tuple[list[str], torch.Tensor]:
-    """`.kf` rows -> (names, float32 (rows, input_size) device tensor scaled by
-    FEATURES_SCALER). Rows are parsed as float64 and scaled in float32, as
-    the JAX package does."""
-    names, mat = read_kf_files(paths, dtype=np.float32)
-    if column_mask is not None and mat.shape[1] == column_mask.size:
-        mat = mat[:, column_mask]
-    if mat.shape[1] != input_size:
-        raise ValueError(f"feature width {mat.shape[1]} != model input {input_size}")
-    x = torch.from_numpy(np.ascontiguousarray(mat)).to(device)
-    return names, x * np.float32(defaults.FEATURES_SCALER)
+def to_host_async(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+    """Start copying a device result to host memory: a CUDA tensor goes with
+    a non-blocking copy into pinned memory, behind an event recorded on its
+    stream; a CPU tensor is already there."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
+def host_result(pending: tuple[torch.Tensor, torch.cuda.Event | None]) -> np.ndarray:
+    """The numpy view of a ``to_host_async`` result, once its copy ended."""
+    host, event = pending
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """A block as a tensor on ``dev`` (the cached matrix's blocks are
+    there already)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    with phases.phase("transfer"):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
 def classify_func(
@@ -45,10 +71,11 @@ def classify_func(
     output_dir: str,
     block_size: int = defaults.DEFAULT_BLOCK_SZ,
     device: str = DEFAULT_DEVICE,
+    cancel: CancelFlag | None = None,
 ) -> str:
     dev = resolve_device(device)
     since = time.time()
-    log = make_run_logger(output_dir, "classification.log")
+    log = make_run_logger(output_dir, "classification.log", cancel)
     try:
         log.info("\n==> Input arguments...\n")
         log.info(f"Feature directory: {features_folder}")
@@ -57,9 +84,10 @@ def classify_func(
         log.info(f"Device: {dev}")
         log.info("\n==> Building model...\n")
 
-        model_name, meta, params = load_checkpoint(
-            os.path.join(model_dir, "classifier_model.ckpt")
-        )
+        with phases.phase("model_load"):
+            model_name, meta, model = cached_checkpoint(
+                os.path.join(model_dir, "classifier_model.ckpt"), dev
+            )
         if model_name != "NeuralNetClassifierOnly":
             raise ValueError(f"unexpected classifier model {model_name!r}")
         input_size = int(meta["model_input_size"])
@@ -69,25 +97,67 @@ def classify_func(
             from ..kmer.vocab import low_complexity_mask
 
             column_mask = low_complexity_mask(int(meta["low_complexity_mask_k"]))
-        model = params_from_jax(params).to(dev).eval()
+
+        # the features cross to the device once for classify and query
+        qmat = cached_query_matrix(feature_files, dev)
+
+        def _matrix_blocks():
+            all_names, _, mat = qmat
+            if column_mask is not None and mat.shape[1] == column_mask.size:
+                mat = mat[:, torch.from_numpy(np.nonzero(column_mask)[0]).to(dev)]
+            if mat.shape[1] != input_size:
+                raise ValueError(f"feature width {mat.shape[1]} != model input {input_size}")
+            for z in range(0, len(all_names), block_size):  # blocks of rows
+                yield all_names[z : z + block_size], mat[z : z + block_size]
+
+        def _file_blocks():
+            for z in range(0, len(feature_files), block_size):  # blocks of files
+                with phases.phase("parse"):
+                    names, mat = read_kf_files_cached(feature_files[z : z + block_size])
+                    if column_mask is not None and mat.shape[1] == column_mask.size:
+                        mat = mat[:, column_mask]
+                    if mat.shape[1] != input_size:
+                        raise ValueError(
+                            f"feature width {mat.shape[1]} != model input {input_size}"
+                        )
+                    x = mat * np.float32(defaults.FEATURES_SCALER)
+                yield names, x
 
         classes_path = os.path.join(output_dir, "classes.out")
         header = ["genome", "top_class", "top_p"] + [str(x) for x in range(class_count)]
-        with open(classes_path, "w") as f, torch.no_grad():
-            f.write("\t".join(header) + "\n")
-            for z in range(0, len(feature_files), block_size):
-                names, x = load_features(
-                    feature_files[z : z + block_size], column_mask, input_size, dev
-                )
-                probs = np.exp(model(x).cpu().numpy())
+
+        def _write_out(f, pending):
+            names, out = pending
+            with phases.phase("fetch"):
+                probs = np.exp(host_result(out))
+            with phases.phase("format"):
                 top = probs.argmax(axis=1)
-                for i, name in enumerate(names):
-                    row = [
-                        name,
-                        float_repr(float(top[i])),
-                        float_repr(float(probs[i, top[i]])),
-                    ] + [float_repr(float(p)) for p in probs[i]]
-                    f.write("\t".join(row) + "\n")
+                text = "".join(
+                    "\t".join([name, float_repr(float(top[i])), float_repr(float(probs[i, top[i]]))]
+                              + [float_repr(float(p)) for p in probs[i]]) + "\n"
+                    for i, name in enumerate(names)
+                )
+            with writing(cancel, classes_path):
+                f.write(text)
+                f.flush()
+
+        with writing(cancel, classes_path):
+            f = open(classes_path, "w")
+            f.write("\t".join(header) + "\n")
+            f.flush()
+        with f, torch.no_grad():
+            pending = None
+            blocks = _matrix_blocks() if qmat is not None else _file_blocks()
+            for names, x in prefetch_iter(blocks):
+                x = to_device(x, dev)
+                with phases.phase("dispatch"):
+                    out = to_host_async(model(x))
+                phases.count("dispatches")
+                if pending is not None:
+                    _write_out(f, pending)
+                pending = (names, out)
+            if pending is not None:
+                _write_out(f, pending)
 
         log.info("\n==> Classification Completed!\n")
         hrs, m, s = hms(time.time() - since)

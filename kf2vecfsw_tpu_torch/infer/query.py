@@ -1,44 +1,57 @@
 """Query -> backbone placement distance matrices (reference: query.py:53-200).
 
-For each predicted subtree: load that subtree's distance model and backbone
-embeddings onto the device, embed the queries in blocks, and write the
-squared+clamped query-to-backbone distances to
-apples_input_di_mtrx_subtree_{c}.csv and the raw embeddings to
+For each predicted subtree: take that subtree's distance model and backbone
+embeddings from the device-resident cache (``infer/cache.py``), embed the
+queries in blocks, and write the squared+clamped query-to-backbone distances
+to apples_input_di_mtrx_subtree_{c}.csv and the raw embeddings to
 embedding_subtree_{c}.emb, in the JAX package's formats.
 
 The model is chosen per subtree from the checkpoint's model_name, as in the
-JAX package: a dense model (NeuralNet) reads the queries' `.kf` vectors, an
-FSW model (NeuralNetFSW) their {name}_k{k}.npy point sets from get_kmers.
+JAX package: a dense model (NeuralNet) reads the queries' `.kf` vectors
+(gathered from the cached device matrix when there is one), an FSW model
+(NeuralNetFSW) their {name}_k{k}.npy point sets from get_kmers.
 
-Two faults of the JAX version are not carried over: the embedding width is
-taken from the ``fc2`` weights, not from checkpoint meta, and every block is
-written before the next one is computed, so an error in a later subtree
-never truncates the files of an earlier one.
+The pipeline is the JAX package's: a thread loads block z+1 while the device
+runs block z; each block's embeddings and distances come back as one fused
+result, copied without blocking into pinned host memory behind a CUDA event,
+and are written PIPE_DEPTH dispatches later, across subtrees. Two faults of
+the JAX version are not carried over: the embedding width is taken from the
+``fc2`` weights, not from checkpoint meta, and on any error every pending
+block whose result is ready is written, in order, before the files are
+closed and the error is raised again, so an error in a later subtree never
+truncates the files of an earlier one.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from .. import defaults
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..io.native.lib import load as load_textio
 from ..kmer.vocab import canonical_vocab_size
-from ..models.mlp import params_from_jax
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
-from ..train.checkpoint import fsw_k_from_meta, load_checkpoint
+from ..train.checkpoint import fsw_k_from_meta
 from ..train.distance import _strip_npy_suffix, f32_row, pad_point_sets
 from ..train.step import bucket_items
+from ..utils import phases
+from ..utils.cancel import CancelFlag, writing
 from ..utils.logging import close_logger, make_run_logger
+from ..utils.prefetch import prefetch_iter
 from ..utils.timing import hms
-from .classify import load_features, read_classes_out
+from .cache import cached_checkpoint, cached_embeddings, cached_query_matrix, read_kf_files_cached
+from .classify import host_result, read_classes_out, to_device, to_host_async
 
 # a padded FSW query block above this many bytes pads to geometric buckets
 # instead of the vocab size (the JAX package's limit)
 NPY_BLOCK_BYTES = 2 << 30
+# dispatched blocks in flight before the oldest is written
+PIPE_DEPTH = 4
 
 
 def read_remap(path: str | None, log) -> dict[str, str] | None:
@@ -62,6 +75,22 @@ def read_remap(path: str | None, log) -> dict[str, str] | None:
 
 
 def read_embeddings_csv(path: str) -> tuple[list[str], np.ndarray]:
+    """Backbone embeddings (``name\\tv1\\t...`` rows) -> (names, float32
+    (rows, E)), parsed as one table (float64, then rounded, as numpy rounds
+    a string to float32). Text with a ',' or ' ', which the table parser
+    reads as a separator where the JAX package's tab split does not, and
+    text the parser refuses, take that split."""
+    with open(path, "rb") as fb:
+        data = fb.read()
+    if b"," not in data and b" " not in data:
+        res = load_textio().parse_table(data)
+        if res is not None and res[0]:
+            return res[0], res[1].astype(np.float32)
+    return read_embeddings_csv_plain(path)
+
+
+def read_embeddings_csv_plain(path: str) -> tuple[list[str], np.ndarray]:
+    """``read_embeddings_csv`` in pure Python (the JAX package's parser)."""
     names: list[str] = []
     rows: list[np.ndarray] = []
     with open(path) as f:
@@ -74,6 +103,13 @@ def read_embeddings_csv(path: str) -> tuple[list[str], np.ndarray]:
     return names, np.vstack(rows)
 
 
+def fused_forward(model: torch.nn.Module, x: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """(rows, E + anchors): a block's embeddings and their squared, clamped
+    distances to the anchors, fused so that one copy fetches both."""
+    emb = model(x)
+    return torch.cat([emb, squared_clamped(cdist_exact_blocked(emb, anchors))], dim=1)
+
+
 def query_func(
     features_folder: str,
     feature_files: list[str],
@@ -84,10 +120,11 @@ def query_func(
     remap_path: str | None = None,
     block_size: int = defaults.DEFAULT_BLOCK_SZ,
     device: str = DEFAULT_DEVICE,
+    cancel: CancelFlag | None = None,
 ) -> list[str]:
     dev = resolve_device(device)
     since = time.time()
-    log = make_run_logger(output_dir, "query_run.log")
+    log = make_run_logger(output_dir, "query_run.log", cancel)
     try:
         log.info("\n==> Input arguments...\n")
         log.info(f"Query directory: {features_folder}")
@@ -109,42 +146,100 @@ def query_func(
 
         remap = read_remap(remap_path, log)
         written: list[str] = []
-        for c in clades:
-            contig_ids = [g for g, cl in assignments if cl == c]
-            log.info(f"\n==> Working on subtree {c} ({len(contig_ids)} contigs)...\n")
-            model_name, meta, params = load_checkpoint(
-                os.path.join(model_dir, f"model_subtree_{c}.ckpt")
-            )
-            model = params_from_jax(params).to(dev).eval()
-            if model_name == "NeuralNetFSW":
-                load = _npy_block_loader(features_folder, fsw_k_from_meta(meta), dev)
-            else:
-                load = _kf_block_loader(features_folder, params["fc1"]["w"].shape[0], dev)
-            emb_names, anchors = read_embeddings_csv(
-                os.path.join(model_dir, f"embeddings_subtree_{c}.csv")
-            )
-            anchors_dev = torch.from_numpy(anchors).to(dev)
+        qmat = cached_query_matrix(feature_files, dev)
+        open_files: dict[int, tuple] = {}  # c -> (f_dist, f_emb)
+        # (c, labels, fused result on its way to the host, e_dim, last block of c?)
+        pending: deque = deque()
 
-            dist_path = os.path.join(output_dir, f"apples_input_di_mtrx_subtree_{c}.csv")
-            emb_path = os.path.join(output_dir, f"embedding_subtree_{c}.emb")
-            written += [dist_path, emb_path]
-            with open(dist_path, "w") as f_dist, open(emb_path, "w") as f_emb, torch.no_grad():
-                f_dist.write("\t" + "\t".join(emb_names) + "\n")
-                for z in range(0, len(contig_ids), block_size):
-                    names, x = load(contig_ids[z : z + block_size])
-                    emb = model(x)
-                    dist = squared_clamped(cdist_exact_blocked(emb, anchors_dev))
-                    emb, dist = emb.cpu().numpy(), dist.cpu().numpy()
-                    labels = [remap.get(n, n) for n in names] if remap else names
-                    for lbl, drow in zip(labels, dist):
-                        f_dist.write(lbl + "\t" + f32_row(drow))
-                    for lbl, erow in zip(labels, emb):
-                        f_emb.write(lbl + "\t" + f32_row(erow))
-            log.info(f"Wrote distance matrix: {dist_path}")
-            log.info(f"Wrote embeddings: {emb_path}")
-            log.info(f"\n==> Computation is completed for subtree {c}!\n")
-            hrs, m, s = hms(time.time() - since)
-            log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+        def _write_out(pend):
+            c, labels, fused_pending, e_dim, is_last = pend
+            f_dist, f_emb = open_files[c]
+            with phases.phase("fetch"):
+                fused = host_result(fused_pending)
+            with phases.phase("format"):
+                d_text = "".join(lbl + "\t" + f32_row(r) for lbl, r in zip(labels, fused[:, e_dim:]))
+                e_text = "".join(lbl + "\t" + f32_row(r) for lbl, r in zip(labels, fused[:, :e_dim]))
+            with writing(cancel, f_dist.name):
+                f_dist.write(d_text)
+                f_emb.write(e_text)
+                f_dist.flush()
+                f_emb.flush()
+            if is_last:
+                f_dist.close()
+                f_emb.close()
+                del open_files[c]
+                log.info(f"Wrote distance matrix: {f_dist.name}")
+                log.info(f"Wrote embeddings: {f_emb.name}")
+                log.info(f"\n==> Computation is completed for subtree {c}!\n")
+                hrs, m, s = hms(time.time() - since)
+                log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
+
+        try:
+            with torch.no_grad():
+                for c in clades:
+                    contig_ids = [g for g, cl in assignments if cl == c]
+                    log.info(f"\n==> Working on subtree {c} ({len(contig_ids)} contigs)...\n")
+                    with phases.phase("model_load"):
+                        model_name, meta, model = cached_checkpoint(
+                            os.path.join(model_dir, f"model_subtree_{c}.ckpt"), dev
+                        )
+                        emb_names, anchors = cached_embeddings(
+                            os.path.join(model_dir, f"embeddings_subtree_{c}.csv"), dev
+                        )
+                    if model_name == "NeuralNetFSW":
+                        load = _npy_block_loader(features_folder, fsw_k_from_meta(meta))
+                    elif qmat is not None:
+                        load = _kf_gather_loader(qmat)
+                    else:
+                        load = _kf_block_loader(features_folder)
+                    e_dim = model.fc2.out_features
+
+                    dist_path = os.path.join(output_dir, f"apples_input_di_mtrx_subtree_{c}.csv")
+                    emb_path = os.path.join(output_dir, f"embedding_subtree_{c}.emb")
+                    with writing(cancel, dist_path):
+                        f_dist = open(dist_path, "w")
+                        open_files[c] = (f_dist, open(emb_path, "w"))
+                        f_dist.write("\t" + "\t".join(emb_names) + "\n")
+                        f_dist.flush()
+                    written += [dist_path, emb_path]
+
+                    def _blocks(ids=contig_ids, load=load):
+                        for z in range(0, len(ids), block_size):
+                            with phases.phase("parse"):
+                                blk = load(ids[z : z + block_size])
+                            yield blk
+
+                    n_blocks = -(-len(contig_ids) // block_size)
+                    for i, (names, x) in enumerate(prefetch_iter(_blocks())):
+                        x = to_device(x, dev)
+                        if model_name != "NeuralNetFSW" and x.shape[1] != model.fc1.in_features:
+                            raise ValueError(f"feature width {x.shape[1]} != subtree {c} model "
+                                             f"input {model.fc1.in_features}")
+                        with phases.phase("dispatch"):
+                            fused_pending = to_host_async(fused_forward(model, x, anchors))
+                        phases.count("dispatches")
+                        labels = [remap.get(n, n) for n in names] if remap else names
+                        pending.append((c, labels, fused_pending, e_dim, i == n_blocks - 1))
+                        if len(pending) > PIPE_DEPTH:
+                            _write_out(pending.popleft())
+            while pending:
+                _write_out(pending.popleft())
+        except BaseException:
+            # write what was computed before the error, in order: a later
+            # subtree's error must not truncate an earlier subtree's files;
+            # the first block that cannot be written (a device fault, a
+            # cancelled request) ends the drain
+            while pending:
+                try:
+                    _write_out(pending.popleft())
+                except Exception:
+                    break
+            raise
+        finally:
+            for f_dist, f_emb in open_files.values():
+                f_dist.close()
+                f_emb.close()
+            open_files.clear()
 
         log.info("\n==> Computation Completed!\n")
         hrs, m, s = hms(time.time() - since)
@@ -154,21 +249,44 @@ def query_func(
         close_logger(log)
 
 
-def _kf_block_loader(folder: str, input_size: int, dev: torch.device):
+def _kf_gather_loader(qmat):
+    """Block loader over the device-resident query matrix: this block's rows
+    are gathered on the device by an index vector, so no feature bytes
+    cross to the card per block."""
+    all_names, spans, mat = qmat
+
     def load(ids: list[str]) -> tuple[list[str], torch.Tensor]:
-        return load_features([os.path.join(folder, f"{g}.kf") for g in ids], None, input_size, dev)
+        idx: list[int] = []
+        names: list[str] = []
+        for g in ids:
+            span = spans.get(g)
+            if span is None:
+                raise FileNotFoundError(f"{g}.kf was not in the cached query feature set")
+            start, stop = span
+            idx.extend(range(start, stop))
+            names.extend(all_names[start:stop])
+        return names, mat[torch.tensor(idx, dtype=torch.int64).to(mat.device)]
 
     return load
 
 
-def _npy_block_loader(folder: str, k: int, dev: torch.device):
-    """Block loader of FSW point sets: (ids, (B, N, k+1) device tensor),
+def _kf_block_loader(folder: str):
+    def load(ids: list[str]) -> tuple[list[str], np.ndarray]:
+        # the host parse cache: classify parsed these same files this pass
+        names, mat = read_kf_files_cached([os.path.join(folder, f"{g}.kf") for g in ids])
+        return names, mat * np.float32(defaults.FEATURES_SCALER)
+
+    return load
+
+
+def _npy_block_loader(folder: str, k: int):
+    """Block loader of FSW point sets: (ids, (B, N, k+1) float32),
     zero-weight padded. At k <= 9 the length is pinned to the vocab size V
     (a point set never exceeds it), unless the padded block would pass
     NPY_BLOCK_BYTES; then, and at larger k, it pads to a geometric bucket."""
     n_fixed = canonical_vocab_size(k) if 1 <= k <= 9 else None
 
-    def load(ids: list[str]) -> tuple[list[str], torch.Tensor]:
+    def load(ids: list[str]) -> tuple[list[str], np.ndarray]:
         mats = []
         for g in ids:
             p = os.path.join(folder, f"{g}_k{k}.npy")
@@ -189,6 +307,6 @@ def _npy_block_loader(folder: str, k: int, dev: torch.device):
         nf = n_fixed
         if nf is not None and bucket_items(len(ids)) * nf * (k + 1) * 4 > NPY_BLOCK_BYTES:
             nf = None
-        return ids, torch.from_numpy(pad_point_sets(mats, n_fixed=nf)).to(dev)
+        return ids, pad_point_sets(mats, n_fixed=nf)
 
     return load

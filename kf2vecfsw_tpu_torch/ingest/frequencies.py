@@ -24,6 +24,7 @@ from ..device import DEFAULT_DEVICE
 from ..io.fasta import list_sequence_files, read_sequences, sample_name
 from ..io.kf import write_kf
 from ..kmer.counter import KmerCounter
+from ..utils.cancel import CancelFlag, writing
 
 # genomes per kernel launch (the JAX package's batch of 16 per dispatch)
 MAX_INFLIGHT = 16
@@ -92,8 +93,10 @@ def get_frequencies(
     pseudocount: bool = False,
     raw_cnt: bool = False,
     device: str = DEFAULT_DEVICE,
+    cancel: CancelFlag | None = None,
 ) -> list[str]:
     """Process every sequence file in input_dir into output_dir/{sample}.kf.
+    ``cancel``: the serve daemon's flag, which guards every file write.
 
     Returns the list of written paths.
     """
@@ -109,7 +112,8 @@ def get_frequencies(
             name = sample_name(fname)
             vec = _finalize_vec(row.astype(np.float64), pseudocount, raw_cnt, name=name)
             out_path = os.path.join(output_dir, f"{name}.kf")
-            write_kf(out_path, [(name, vec)])
+            with writing(cancel, out_path):
+                write_kf(out_path, [(name, vec)])
             written.append(out_path)
 
     print(f"\n==> Done processing {input_dir}")

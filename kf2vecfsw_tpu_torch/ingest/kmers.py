@@ -22,6 +22,7 @@ from ..device import DEFAULT_DEVICE
 from ..io.fasta import list_sequence_files, sample_name
 from ..kmer.counter import KmerCounter
 from ..kmer.vocab import FSW_BASE_MAP, canonical_vocab_codes, codes_to_digit_matrix
+from ..utils.cancel import CancelFlag, writing
 from .frequencies import read_batches
 
 
@@ -63,9 +64,10 @@ def point_sets_to_vocab_weights(mats: list[np.ndarray], k: int) -> np.ndarray:
 
 
 def get_kmers(input_dir: str, output_dir: str, k: int = 7, threads: int | None = None,
-              device: str = DEFAULT_DEVICE) -> list[str]:
+              device: str = DEFAULT_DEVICE, cancel: CancelFlag | None = None) -> list[str]:
     """Write output_dir/{sample}_k{k}.npy for every sequence file of
-    input_dir; returns the written paths."""
+    input_dir; returns the written paths. ``cancel``: the serve daemon's
+    flag, which guards every file write."""
     counter = KmerCounter(k, device=device)
     os.makedirs(output_dir, exist_ok=True)
     written: list[str] = []
@@ -78,7 +80,8 @@ def get_kmers(input_dir: str, output_dir: str, k: int = 7, threads: int | None =
                 print(f"Warning: No valid ATCG k-mers found in {base_name}")
                 continue
             out_path = os.path.join(output_dir, f"{base_name}_k{k}.npy")
-            np.save(out_path, matrix)
+            with writing(cancel, out_path):
+                np.save(out_path, matrix)
             print(f"Saved: {out_path} (Shape: {matrix.shape})")
             written.append(out_path)
     return written

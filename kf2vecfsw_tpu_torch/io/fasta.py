@@ -1,10 +1,10 @@
 """Host-side sequence ingest: FASTA/FASTQ parsing and base encoding.
 
-The port's own copy of the JAX package's numpy path (``kf2vecfsw_tpu/io/
-fasta.py``): a byte-level pass over the raw file, then a 256-entry lookup
-table encodes bases to uint8 codes A=0, C=1, G=2, T=3 (case-insensitive),
-INVALID=4 for anything else. The JAX package's C++ encoder produces the same
-bytes and is not used here.
+The port's own copy of the JAX package's ``kf2vecfsw_tpu/io/fasta.py``: a
+byte-level pass over the raw file, then the port's C++ text library
+(``io/native``) encodes bases to uint8 codes A=0, C=1, G=2, T=3
+(case-insensitive), INVALID=4 for anything else. ``encode_bases_plain``, a
+256-entry numpy lookup table, gives the same bytes.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from .native.lib import load as load_textio
 
 INVALID = 4
 
@@ -35,6 +37,11 @@ class SeqRecord:
 
 def encode_bases(seq: bytes | np.ndarray) -> np.ndarray:
     """Encode sequence bytes to uint8 base codes (0..3, INVALID=4)."""
+    return load_textio().encode(seq)
+
+
+def encode_bases_plain(seq: bytes | np.ndarray) -> np.ndarray:
+    """``encode_bases`` with a numpy lookup table."""
     arr = np.frombuffer(seq, dtype=np.uint8) if isinstance(seq, (bytes, bytearray)) else seq
     return _ENCODE_LUT[arr]
 

@@ -13,6 +13,7 @@ read, through the same key map as the JAX package's import shim.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 
@@ -62,6 +63,22 @@ def save_checkpoint(path: str, model_name: str, meta: dict, params) -> None:
 def fsw_k_from_meta(meta: dict) -> int:
     """The k an FSW checkpoint was trained at (shared by query + wrappers)."""
     return int(meta.get("fsw_k", meta["model_input_size"] - 1))
+
+
+def fsw_ks(distance_model: str) -> list[int]:
+    """The k of every FSW subtree model of a library, from checkpoint meta
+    only (the weights are not read)."""
+    ks = set()
+    for ckpt in sorted(glob.glob(os.path.join(distance_model, "model_subtree_*.ckpt"))):
+        try:
+            model_name, meta = load_checkpoint_meta(ckpt)
+            if model_name == "NeuralNetFSW":
+                ks.add(fsw_k_from_meta(meta))
+        except (OSError, ValueError, KeyError) as e:
+            # as the JAX package: an unreadable model fails the query only
+            # if a genome is classified into its subtree
+            print(f"WARNING: could not inspect {ckpt}: {e}")
+    return sorted(ks)
 
 
 def load_checkpoint_meta(path: str):

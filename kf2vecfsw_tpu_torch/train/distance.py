@@ -35,6 +35,7 @@ import torch
 from .. import defaults
 from ..device import DEFAULT_DEVICE, device_line, resolve_device
 from ..ingest.kmers import point_sets_to_vocab_weights
+from ..io.native.lib import load as load_textio
 from ..models.fsw import FSWDistEmbed, init_fsw_dist_embed_, shared_vocab_applicable
 from ..models.mlp import DistEmbed, count_params, init_params_, params_from_jax, params_to_jax
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
@@ -53,7 +54,13 @@ FSW_EXPORT_BLOCK = 16  # point sets per forward of the export (a training batch)
 
 
 def f32_row(vals, sep: str = "\t") -> str:
-    """One str(np.float32)-formatted row ending in '\\n'."""
+    """One str(np.float32)-formatted row ending in '\\n' (the port's C++ text
+    library)."""
+    return load_textio().format_floats(np.asarray(vals, dtype=np.float32), sep=sep)
+
+
+def f32_row_plain(vals, sep: str = "\t") -> str:
+    """``f32_row`` in pure Python."""
     return sep.join(str(np.float32(v)) for v in vals) + "\n"
 
 

@@ -1,6 +1,7 @@
 """Patristic leaf-to-leaf distance matrices (the port's copy of the JAX
-package's ``tree/distance.py``, with its pure-Python formatting and parsing
-branches; the JAX package's C++ formatter writes the same bytes).
+package's ``tree/distance.py``). `.di_mtrx` rows are formatted and parsed by
+the port's C++ text library (``io/native``); ``write_di_mtrx_plain`` and
+``read_di_mtrx_plain`` write and read the same bytes and values in Python.
 
 Replaces treeswift's ``tree.distance_matrix(leaf_labels=True)``
 (main.py:469,500). Computed in O(n^2) with numpy block fills via postorder
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..io.native.lib import load as load_textio
 from .newick import Tree
 
 
@@ -56,6 +58,15 @@ def write_di_mtrx(path: str, labels: list[str], dist: np.ndarray) -> None:
     """Write a tab-separated .di_mtrx with header and index column, matching
     the reference's pandas to_csv format (main.py:471,502): float64 values
     in Python repr."""
+    textio = load_textio()
+    with open(path, "w") as f:
+        f.write("\t" + "\t".join(labels) + "\n")
+        for i, lbl in enumerate(labels):
+            f.write(lbl + "\t" + textio.format_doubles(np.asarray(dist[i], dtype=np.float64), sep="\t"))
+
+
+def write_di_mtrx_plain(path: str, labels: list[str], dist: np.ndarray) -> None:
+    """``write_di_mtrx`` in pure Python."""
     with open(path, "w") as f:
         f.write("\t" + "\t".join(labels) + "\n")
         for lbl, row in zip(labels, np.asarray(dist, dtype=np.float64).tolist()):
@@ -65,18 +76,40 @@ def write_di_mtrx(path: str, labels: list[str], dist: np.ndarray) -> None:
 def read_di_mtrx(path: str) -> tuple[list[str], list[str], np.ndarray]:
     """Read a .di_mtrx -> (row labels, col labels, values). Row/col orders may
     differ (the reference's treeswift dict ordering is traversal-dependent);
-    consumers must reindex by label (utils sort_df equivalent)."""
-    with open(path) as f:
-        col_labels = f.readline().rstrip("\n").rstrip("\r").split("\t")[1:]
-        row_labels: list[str] = []
-        rows: list[np.ndarray] = []
-        for line in f:
-            line = line.rstrip("\n").rstrip("\r")
-            if not line:
-                continue
-            name, _, rest = line.partition("\t")
-            row_labels.append(name)
-            rows.append(np.array(rest.split("\t"), dtype=np.float64))
+    consumers must reindex by label (utils sort_df equivalent). The body is
+    parsed as one table; row by row in Python if the parser refuses it or
+    its width is not the header's, as in the JAX package."""
+    with open(path, "rb") as fb:
+        data = fb.read()
+    head_end = data.find(b"\n")
+    header = data[: max(head_end, 0)].decode().rstrip("\r").split("\t")
+    col_labels = header[1:]
+    body = data[head_end + 1 :] if head_end >= 0 else b""
+    res = load_textio().parse_table(body)
+    if res is not None and res[1].shape[1] == len(col_labels):
+        return res[0], col_labels, res[1]
+    return _read_body_plain(body, col_labels)
+
+
+def read_di_mtrx_plain(path: str) -> tuple[list[str], list[str], np.ndarray]:
+    """``read_di_mtrx`` in pure Python."""
+    with open(path, "rb") as fb:
+        data = fb.read()
+    head_end = data.find(b"\n")
+    header = data[: max(head_end, 0)].decode().rstrip("\r").split("\t")
+    return _read_body_plain(data[head_end + 1 :] if head_end >= 0 else b"", header[1:])
+
+
+def _read_body_plain(body: bytes, col_labels: list[str]) -> tuple[list[str], list[str], np.ndarray]:
+    row_labels: list[str] = []
+    rows: list[np.ndarray] = []
+    for line in body.decode().split("\n"):
+        line = line.rstrip("\r")
+        if not line:
+            continue
+        name, _, rest = line.partition("\t")
+        row_labels.append(name)
+        rows.append(np.array(rest.split("\t"), dtype=np.float64))
     return row_labels, col_labels, np.vstack(rows)
 
 

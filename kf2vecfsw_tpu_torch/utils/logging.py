@@ -9,16 +9,35 @@ import logging
 import os
 import time
 
+from .cancel import Cancelled, CancelFlag, writing
+
 _counter = itertools.count()
 
 
-def make_run_logger(out_dir: str, filename: str) -> logging.Logger:
+class _GuardedFileHandler(logging.FileHandler):
+    """A log file whose records are written under a request's cancel flag:
+    once the watchdog cancelled the request, records are dropped."""
+
+    def __init__(self, path: str, cancel: CancelFlag | None):
+        self.cancel = cancel
+        with writing(cancel, path):
+            super().__init__(path, "w+")
+
+    def emit(self, record: logging.LogRecord) -> None:
+        try:
+            with writing(self.cancel, self.baseFilename):
+                super().emit(record)  # flushes
+        except Cancelled:
+            pass
+
+
+def make_run_logger(out_dir: str, filename: str, cancel: CancelFlag | None = None) -> logging.Logger:
     log = logging.getLogger(f"kf2vec_torch.run{next(_counter)}")
     log.setLevel(logging.INFO)
     log.propagate = False
     fmt = logging.Formatter("%(message)s")
     os.makedirs(out_dir, exist_ok=True)
-    fh = logging.FileHandler(os.path.join(out_dir, filename), "w+")
+    fh = _GuardedFileHandler(os.path.join(out_dir, filename), cancel)
     fh.setFormatter(fmt)
     log.addHandler(fh)
     sh = logging.StreamHandler()

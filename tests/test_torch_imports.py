@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of kf2vecfsw_tpu_torch and
-chip_smoke.py loads neither jax nor any module of the JAX package, and the
-entry points run on the card by default, raising when there is none."""
+chip_smoke.py loads neither jax nor any module of the JAX package, its text
+I/O runs on its own C++ library and never loads the JAX package's
+(libkf2vec_io.so), and the entry points run on the card by default, raising
+when there is none."""
 
 import json
 import os
@@ -19,23 +21,37 @@ mods = [m.name for m in pkgutil.walk_packages(kf2vecfsw_tpu_torch.__path__, "kf2
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
+import numpy as np
+from kf2vecfsw_tpu_torch.io.fasta import encode_bases
+from kf2vecfsw_tpu_torch.io.kf import read_kf, write_kf
+from kf2vecfsw_tpu_torch.train.distance import f32_row
+write_kf(sys.argv[1], [("g", np.arange(4.0)), ("h", np.ones(4) / 3)])
+read_kf(sys.argv[1])
+f32_row(np.ones(3, np.float32))
+encode_bases(b"ACGT")
+with open("/proc/self/maps") as f:
+    maps = f.read()
+print(json.dumps({"modules": mods, "loaded": sorted(sys.modules),
+                  "textio": "libtextio-" in maps, "jax_native": "libkf2vec_io" in maps}))
 """
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=120, check=True,
+        [sys.executable, "-c", _PROBE, str(tmp_path / "probe.kf")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
     ).stdout
     report = json.loads(out.strip().splitlines()[-1])
     assert "kf2vecfsw_tpu_torch.cli" in report["modules"]
     for mod in ("kernels.histogram", "kernels.sort", "models.fsw", "ingest.kmers",
                 "utils.membudget", "train.distance", "train.step", "tree.newick",
                 "tree.cluster", "tree.distance", "ingest.tree_ops", "ops.losses",
-                "train.schedule", "train.resume", "train.classifier"):
+                "train.schedule", "train.resume", "train.classifier", "io.native.lib",
+                "io.kf", "io.fasta", "infer.cache", "infer.classify", "infer.query",
+                "infer.serve", "utils.phases", "utils.prefetch", "utils.cancel"):
         assert f"kf2vecfsw_tpu_torch.{mod}" in report["modules"]
+    assert report["textio"] and not report["jax_native"]
     loaded = report["loaded"]
     assert "jax" not in loaded and not any(m.startswith("jax.") for m in loaded)
     assert "kf2vecfsw_tpu" not in loaded
@@ -99,6 +115,7 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: train_model_set_func(d, [], d, d, 1, 8, 4, 4, 1e-3, 1e-6, 2000, None, 28, d),
         lambda: main(["train_model_set", "-input_dir", d, "-subtrees", d, "-o", d]),
         lambda: main(["build_library", "-input_dir", d, "-output_dir", d, "-tree", d]),
+        lambda: main(["serve", "-classifier_model", d, "-distance_model", d]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

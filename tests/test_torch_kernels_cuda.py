@@ -20,6 +20,8 @@ Counting beyond the piece length: a genome of 3-4 pieces (the piece length
 lowered) with seams at every offset mod k, against the numpy ground truth.
 Chunks: ``get_chunks`` on the card writes the CPU's bytes, and the device
 chunk store's batches equal the host store's bit for bit.
+Serving: ``place_features`` through the serve daemon on the card, dense and
+FSW, against the same request on the CPU.
 
 The kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc, and skips without them. On the card (where JAX is not installed, so the
@@ -552,3 +554,104 @@ def test_chunk_trainers_on_the_card_equal_cpu(card, tmp_path):
         np.testing.assert_allclose(_csv(gpu / f"distortions_subtree_{c}.csv", True),
                                    _csv(cpu / f"distortions_subtree_{c}.csv", True),
                                    rtol=1e-3, atol=1e-5)
+
+
+def _serving_library(root, fsw_k, v=32, hidden=64, emb=16, n_anchors=8):
+    """A classifier and two subtree models (dense, or FSW at fsw_k with
+    base_dim 2 and 16 slices) with their anchors, from one CPU generator, and
+    six queries' .kf vectors (and point sets for FSW)."""
+    from kf2vecfsw_tpu_torch.io.kf import write_kf
+    from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
+    from kf2vecfsw_tpu_torch.train.checkpoint import save_checkpoint
+    from kf2vecfsw_tpu_torch.train.distance import f32_row
+
+    gen = torch.Generator().manual_seed(21)
+    rng = np.random.default_rng(21)
+    lib, q = root / "lib", root / "q"
+    lib.mkdir()
+    q.mkdir()
+    save_checkpoint(str(lib / "classifier_model.ckpt"), "NeuralNetClassifierOnly",
+                    {"model_input_size": v, "model_hidden_size_fc1": hidden, "model_class_count": 2},
+                    params_to_jax(init_params_(Classifier(v, hidden, 2), gen)))
+    for c in range(2):
+        if fsw_k:
+            model = init_fsw_dist_embed_(FSWDistEmbed(fsw_k, 2, 16, hidden, emb), gen)
+            meta = {"model_input_size": fsw_k + 1, "fsw_k": fsw_k, "fsw_base_dim": 2,
+                    "fsw_out_dim": 16}
+        else:
+            model = init_params_(DistEmbed(v, hidden, emb), gen)
+            meta = {"model_input_size": v}
+        save_checkpoint(str(lib / f"model_subtree_{c}.ckpt"), "NeuralNetFSW" if fsw_k else "NeuralNet",
+                        {**meta, "model_hidden_size_fc1": hidden, "model_embedding_size": emb},
+                        params_to_jax(model))
+        (lib / f"embeddings_subtree_{c}.csv").write_text("".join(
+            f"a{c}_{i}\t" + f32_row(rng.normal(size=emb).astype(np.float32)) for i in range(n_anchors)))
+    for i in range(6):
+        x = rng.random(v) + 2.0 * (np.arange(v) % 2 == i % 2)
+        write_kf(str(q / f"q{i}.kf"), [(f"q{i}", x / x.sum())])
+        if fsw_k:
+            n = int(rng.integers(5, 30))
+            pts = np.concatenate([rng.integers(0, 4, (n, fsw_k)), rng.random((n, 1))], axis=1)
+            np.save(q / f"q{i}_k{fsw_k}.npy", pts.astype(np.float32))
+    return str(lib), str(q)
+
+
+def _tsv(path, header):
+    with open(path) as f:
+        if header:
+            f.readline()
+        return {p[0]: np.array(p[1:], dtype=np.float64)
+                for p in (line.rstrip("\n").split("\t") for line in f)}
+
+
+@pytest.mark.parametrize("fsw_k", [None, 3])
+def test_serve_place_features_on_the_card_equals_cpu(card, tmp_path, fsw_k):
+    """``place_features`` through the serve daemon on the card against the
+    same request on the CPU, with the main path's tolerances: class
+    probabilities within rtol 1e-4, APPLES and `.emb` rows within rtol 1e-4 /
+    atol 1e-5 (dense) or 1e-3 / 1e-4 (FSW, see
+    ``test_fsw_model_on_the_card_equals_cpu``), for every genome whose top
+    two classes are more than 1e-3 apart in log-probability."""
+    import io
+    import json
+
+    from kf2vecfsw_tpu_torch.cli import build_parser
+    from kf2vecfsw_tpu_torch.infer.cache import clear_all
+    from kf2vecfsw_tpu_torch.infer.serve import ServeDaemon
+
+    lib, q = _serving_library(tmp_path, fsw_k)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        clear_all()
+        outs[dev] = tmp_path / f"out_{dev}"
+        args = build_parser().parse_args(["serve", "-classifier_model", lib, "-distance_model", lib,
+                                          "-device", dev])
+        requests = [{"cmd": "warm"}, {"cmd": "place_features", "features_dir": q,
+                                      "output_dir": str(outs[dev])}]
+        stdout = io.StringIO()
+        before = sort_rows.launches
+        ServeDaemon(args).serve(stdin=io.StringIO("".join(json.dumps(r) + "\n" for r in requests)),
+                                stdout=stdout)
+        replies = [json.loads(line) for line in stdout.getvalue().splitlines()]
+        assert all(r["ok"] for r in replies), replies
+        assert replies[1]["models"] == 3
+        assert (sort_rows.launches > before) == (dev == "cuda" and fsw_k is not None)
+    clear_all()
+    cls_cpu, cls_gpu = (_tsv(outs[d] / "classes.out", True) for d in ("cpu", "cuda"))
+    assert sorted(cls_cpu) == sorted(cls_gpu) == [f"q{i}" for i in range(6)]
+    rtol, atol = (1e-3, 1e-4) if fsw_k else (1e-4, 1e-5)
+    compared = 0
+    for g in cls_cpu:
+        np.testing.assert_allclose(cls_gpu[g][2:], cls_cpu[g][2:], rtol=1e-4, atol=1e-7)
+        with np.errstate(divide="ignore"):  # a probability may round to 0
+            logp = np.sort(np.log(cls_gpu[g][2:]))
+        if logp[-1] - logp[-2] <= 1e-3:
+            continue
+        assert cls_gpu[g][0] == cls_cpu[g][0]
+        c = int(cls_gpu[g][0])
+        for name, header in ((f"apples_input_di_mtrx_subtree_{c}.csv", True),
+                             (f"embedding_subtree_{c}.emb", False)):
+            a, b = (_tsv(outs[d] / name, header)[g] for d in ("cuda", "cpu"))
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=f"{g} {name}")
+        compared += 1
+    assert compared >= 3
