@@ -73,6 +73,23 @@ non-zero without one. Phases, each of which fails the run if it fails:
      the chunk `.kf` of 4 genomes from ``-device cpu`` equals the card's;
      and a small chunk backbone (CHUNK_RB_*) trained on the card and on the
      CPU agrees within the dense rebuild's tolerances;
+   - ranks: data-parallel training (``parallel/``) at full width (k=7,
+     hidden 2048, embedding 1024, batch 16, 512 FSW slices) for
+     RANKS_EPOCHS epochs: ``train_classifier`` and
+     ``train_classifier_chunks`` on the 192 genomes of the chunk phase,
+     dense and FSW ``train_model_set`` (the default lazy route and
+     ``-fsw_lazy_refresh 0``) on the build's smallest subtree (425
+     genomes) and ``train_model_set_chunks`` on its 64 genomes of the chunk
+     phase. (a) Each without a process group, then in a one-rank NCCL group
+     joined through ``initialize_distributed``: the checkpoints equal, bit
+     for bit or within RANKS_W1_RTOL. (b) Two ranks sharing the card over
+     gloo, spawned by ``parallel/mp_check.py``, each writing to its own
+     directory: only rank 0 writes, the ranks' params bit-equal (the
+     trainers' checksum all-reduce), the checkpoints and exports within the
+     rebuild's Adam sign-flip bound of (a)'s; then
+     ``count_canonical_sharded`` of the 9 Mb query at R = 2, exact against
+     one launch. (c) Two cards on NCCL when the machine has them, else one
+     line saying it did not run;
    - long genome: one genome of more than 2^31 bases (a 1 Mb block repeated
      LONG_REPEATS times) counted on the card in overlapping pieces, exact
      against R x the block's counts + (R - 1) x its junction's;
@@ -96,7 +113,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
    placement, with their phases and peak device memory, beside
    process_query_data's; host text I/O, plain Python against the C++
    library, formatting and parsing 1,700 `.kf` rows of 8,192 frequencies
-   and 850 rows of 1,024 float32, the bytes and values equal.
+   and 850 rows of 1,024 float32, the bytes and values equal; each ranked
+   trainer's steps/s over epoch 2 without a group, in the one-rank group and
+   at two ranks sharing the card, with the bytes all-reduced per step, the
+   sharded count's seconds and the phase's.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -119,6 +139,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kf2vecfsw_tpu_torch.cli import build_parser
 from kf2vecfsw_tpu_torch.cli import main as cli_main
@@ -138,7 +159,7 @@ from kf2vecfsw_tpu_torch.infer.query import read_embeddings_csv, read_embeddings
 from kf2vecfsw_tpu_torch.infer.serve import ServeDaemon
 from kf2vecfsw_tpu_torch.ingest import chunks as ingest_chunks
 from kf2vecfsw_tpu_torch.io import kf as kf_io
-from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases
+from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases, read_sequences_raw
 from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
@@ -148,10 +169,21 @@ from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_codes, canonical_vocab_size
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_, unsort
 from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
+from kf2vecfsw_tpu_torch.parallel.counting import count_canonical_sharded
+from kf2vecfsw_tpu_torch.parallel.mesh import (
+    BACKEND_ENV,
+    all_reduce_,
+    data_mesh,
+    initialize_distributed,
+    is_coordinator,
+    shutdown_distributed,
+)
+from kf2vecfsw_tpu_torch.parallel.mp_check import free_port, launch
 from kf2vecfsw_tpu_torch.train import chunks as train_chunks
 from kf2vecfsw_tpu_torch.train import classifier as train_classifier
 from kf2vecfsw_tpu_torch.train import distance as train_distance
 from kf2vecfsw_tpu_torch.train import fsw_lazy
+from kf2vecfsw_tpu_torch.train.checkpoint import _flatten as flatten_params
 from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from kf2vecfsw_tpu_torch.train.schedule import step_lr
 from kf2vecfsw_tpu_torch.train.step import bucket_items
@@ -256,6 +288,12 @@ TEXT_KF_ROWS, TEXT_F32_ROWS = 1700, 850
 CLASSIFIER_BYTES = 4 * ((V_MAIN + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * N_CLASSES)
 DENSE_SUBTREE_BYTES = 4 * ((V_MAIN + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * EMBEDDING_SIZE)
 SERVE_TIMEOUT_S = 600  # the daemon's watchdog: a wedged request is answered, not waited on
+# data-parallel training: 2 epochs of each trainer; a one-rank NCCL group
+# against no group: bit for bit expected (one code path, whose one-rank sums
+# are identities), held within rtol 1e-6
+RANKS_EPOCHS, RANKS_W1_RTOL, RANKS_TIMEOUT_S = 2, 1e-6, 400
+RANKS_DEVICE = "cuda"  # the ranks' -device (a CPU rehearsal sets "cpu")
+F32_TINY = float(np.finfo(np.float32).tiny)  # an atol under which only 0 matches 0
 
 
 def log(msg: str) -> None:
@@ -982,7 +1020,8 @@ class TrainerClock:
             def timed(model, opt, feats, target, order, batch_size, *args, **kw):
                 t0 = time.perf_counter()
                 out = fn(model, opt, feats, target, order, batch_size, *args, **kw)
-                torch.cuda.synchronize()
+                if torch.cuda.is_available():  # a CPU rehearsal of the ranks has no card
+                    torch.cuda.synchronize()
                 self.epochs[kind].append((-(-order.numel() // batch_size), time.perf_counter() - t0))
                 return out
             return timed
@@ -1682,6 +1721,311 @@ def sampler_timings(chunks_dir: str, subset: dict[str, int], dev) -> dict:
     return out
 
 
+# -- phase 4f: data-parallel training over ranks ------------------------------------
+
+
+class RankedTrainer:
+    """One trainer of the ranks phase: its CLI command line for an output
+    directory, its kind (which TrainerClock series times it) and its
+    checkpoints with the batches of one epoch and the exports' tolerance."""
+
+    def __init__(self, name: str, kind: str, argv, checkpoints: dict[str, int], emb_rtol: float):
+        self.name, self.kind, self._argv = name, kind, argv
+        self.checkpoints, self.emb_rtol = checkpoints, emb_rtol
+
+    def argv(self, out: str) -> list[str]:
+        return [*self._argv, "-o", out, "-e", str(RANKS_EPOCHS), "-device", RANKS_DEVICE]
+
+    @property
+    def steps(self) -> int:
+        return RANKS_EPOCHS * sum(self.checkpoints.values())
+
+
+def ranked_trainers(work: str, paths: dict) -> tuple[list[RankedTrainer], int]:
+    """The ranks phase's trainers on phase 4's data, and its smallest subtree:
+    both classifiers on the 192 genomes of the chunk phase (3 classes), the
+    distance trainers (dense, FSW lazy and exact) on the smallest subtree
+    and the chunk distance trainer on its 64 genomes of the chunk phase."""
+    tree_dir, lib = paths["tree_dir"], paths["lib"]
+    subtrees = os.path.join(tree_dir, "tree.subtrees")
+    clades = read_subtree_rows(tree_dir)
+    chunks_dir = os.path.join(work, "chunks_k7")
+    subset = sorted(f[: -len(".kf")] for f in os.listdir(chunks_dir) if f.endswith(".kf"))
+    kf_dir = os.path.join(work, "ranks_kf")
+    os.makedirs(kf_dir)
+    for g in subset:
+        os.symlink(os.path.join(lib, f"{g}.kf"), os.path.join(kf_dir, f"{g}.kf"))
+    sizes = {c: sum(cl == c for cl in clades.values()) for c in set(clades.values())}
+    c = min(sizes, key=sizes.get)
+    n_subset_c = sum(clades[g] == c for g in subset)
+    batches = {n: -(-n // BATCH_SIZE) for n in (len(subset), sizes[c], n_subset_c)}
+    dist = ["-subtrees", subtrees, "-true_dist", tree_dir, "-clade", str(c)]
+    fsw = ["train_model_set", "-input_dir", os.path.join(work, "bb_k7"), *dist]
+    chunk = ["-input_dir", chunks_dir, "-input_dir_fullgenomes", lib]
+    ckpt = f"model_subtree_{c}.ckpt"
+    return [
+        RankedTrainer("train_classifier", "classifier", ["train_classifier", "-input_dir", kf_dir,
+                      "-subtrees", subtrees], {"classifier_model.ckpt": batches[len(subset)]}, 0),
+        RankedTrainer("dense", "distance", ["train_model_set", "-input_dir", lib, "-no_fsw", *dist],
+                      {ckpt: batches[sizes[c]]}, REBUILD_RTOL),
+        RankedTrainer("fsw_lazy", "distance", fsw, {ckpt: batches[sizes[c]]}, FSW_RTOL),
+        RankedTrainer("fsw_exact", "distance", [*fsw, "-fsw_lazy_refresh", "0"],
+                      {ckpt: batches[sizes[c]]}, FSW_RTOL),
+        RankedTrainer("train_classifier_chunks", "classifier",
+                      ["train_classifier_chunks", *chunk, "-subtrees", subtrees],
+                      {"classifier_model.ckpt": batches[len(subset)]}, 0),
+        RankedTrainer("train_model_set_chunks", "distance", ["train_model_set_chunks", *chunk, *dist],
+                      {ckpt: batches[n_subset_c]}, REBUILD_RTOL),
+    ], c
+
+
+def run_in_process(trainers: list[RankedTrainer], root: str) -> dict[str, dict]:
+    """Each trainer in this process, its launch counts and the all-reduce
+    counter set to 0 just before it: its steps/s over epochs 2 on, launches
+    and bytes all-reduced per step."""
+    out = {}
+    for t in trainers:
+        os.makedirs(os.path.join(root, t.name))
+        kmer_hist.launches = sort_rows.launches = 0
+        all_reduce_.bytes = all_reduce_.calls = 0
+        with TrainerClock() as clock:
+            cli_main(t.argv(os.path.join(root, t.name)))
+        out[t.name] = {"steps_per_s": clock.steps_per_s(t.kind, RANKS_EPOCHS),
+                       "launches": {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches},
+                       "all_reduce_bytes_per_step": all_reduce_.bytes / t.steps,
+                       "all_reduce_calls": all_reduce_.calls}
+    return out
+
+
+def world_size_1(trainers: list[RankedTrainer], root: str) -> dict[str, dict]:
+    """The trainers in this process inside a one-rank NCCL group (gloo on
+    the CPU), joined through ``initialize_distributed`` from a launcher's
+    variables and left after them."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in [*env, BACKEND_ENV]}
+    os.environ.update(env)
+    os.environ.pop(BACKEND_ENV, None)
+    try:
+        check(initialize_distributed(device=RANKS_DEVICE) and dist.get_world_size() == 1
+              and dist.get_backend() == ("nccl" if RANKS_DEVICE == "cuda" else "gloo"),
+              "world size 1: no NCCL group")
+        return run_in_process(trainers, root)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def compare_world_size_1(trainers: list[RankedTrainer], plain: str, w1: str) -> dict:
+    """Checkpoints of the one-rank group against the same runs without a
+    group: params, best epoch and lowest loss bit for bit, or within
+    RANKS_W1_RTOL where the masked loss takes other float operations (the
+    classifier's local NLL sum over the batch count against the mean)."""
+    out = {}
+    for t in trainers:
+        for ckpt in t.checkpoints:
+            _, m_a, p_a = load_checkpoint(os.path.join(plain, t.name, ckpt))
+            _, m_b, p_b = load_checkpoint(os.path.join(w1, t.name, ckpt))
+            check(m_a["best_epoch"] == m_b["best_epoch"], f"{t.name}: best epochs differ")
+            tol = Tolerances()
+            tol.compare("lowest_loss", np.array([m_b["lowest_loss"]]), np.array([m_a["lowest_loss"]]),
+                        RANKS_W1_RTOL, F32_TINY)
+            flat_a, flat_b = flatten_params(p_a), flatten_params(p_b)
+            identical = m_a == m_b and flat_a.keys() == flat_b.keys()
+            for key in flat_a:
+                tol.compare("params", flat_b[key], flat_a[key], RANKS_W1_RTOL, F32_TINY)
+                identical &= bool(np.array_equal(flat_a[key], flat_b[key]))
+            tol.check_all(f"{t.name} at world size 1 against no group")
+            check(read_logs(os.path.join(w1, t.name)).count("bit-equal on 1 rank(s)")
+                  == len(t.checkpoints), f"{t.name}: world size 1 replicas line")
+            out[t.name] = {"bit_identical": identical, "tolerance_used": tol.used}
+    return out
+
+
+def read_logs(out_dir: str) -> str:
+    text = ""
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".log"):
+            with open(os.path.join(out_dir, name)) as f:
+                text += f.read()
+    return text
+
+
+def query_codes(q_dir: str, work: str) -> str:
+    """The 9 Mb query genome's encoded bases (records joined by k - 1
+    invalid bases) in an .npy file; returns its path."""
+    path = os.path.join(q_dir, f"q{N_QUERIES - 1:02d}.fastq")
+    codes = concat_with_separators([encode_bases(seq) for _, seq in read_sequences_raw(path)], K_MAIN)
+    check(codes.size >= BIG_GENOME, f"{path}: {codes.size} bases")
+    out = os.path.join(work, "ranks_query.npy")
+    np.save(out, codes)
+    return out
+
+
+def ranked_launch(trainers: list[RankedTrainer], root: str, codes: str, backend: str,
+                  ranks: int) -> dict:
+    """The trainers and count_canonical_sharded of the query genome over
+    ``ranks`` ranks (``rank_steps``) of one ``mp_check`` launch, rank r writing to
+    ``root/rank{r}``: only rank 0 writes; the ranks' params are bit-equal
+    (the trainers' checksum all-reduce, one line per checkpoint in rank 0's
+    logs); the sharded count equals the single-launch count exactly. Returns
+    the ranks' reports and the count's seconds."""
+    argvs = []
+    for r in range(ranks):
+        rank_root = os.path.join(root, f"rank{r}")
+        steps = []
+        for t in trainers:
+            os.makedirs(os.path.join(rank_root, t.name))
+            steps += ["--", *t.argv(os.path.join(rank_root, t.name))]
+        steps += ["--", "count", codes, str(K_MAIN), RANKS_DEVICE, os.path.join(root, "hist.npy")]
+        argvs.append([sys.executable, os.path.abspath(__file__), RANK_FLAG,
+                      os.path.join(root, "report{rank}.json"), *steps])
+    t0 = time.perf_counter()
+    launch(argvs, backend, RANKS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    reports = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"report{r}.json")) as f:
+            reports.append(json.load(f)["steps"])
+    for t in trainers:
+        for r in range(1, ranks):
+            check(os.listdir(os.path.join(root, f"rank{r}", t.name)) == [],
+                  f"{t.name}: rank {r} wrote files")
+        check(read_logs(os.path.join(root, "rank0", t.name)).count(f"bit-equal on {ranks} rank(s)")
+              == len(t.checkpoints), f"{t.name}: {ranks} ranks' replicas line")
+    single = KmerCounter(K_MAIN, RANKS_DEVICE).dense_histogram(np.load(codes)).cpu().numpy()
+    check(np.array_equal(np.load(os.path.join(root, "hist.npy")), single),
+          f"count_canonical_sharded over {ranks} ranks differs from one launch")
+    count_launches = [rep[-1]["launches"]["kmer_hist"] for rep in reports]
+    check(min(count_launches) >= 1, f"count_canonical_sharded: kmer_hist launches {count_launches}")
+    for t, steps in zip(trainers, zip(*reports)):
+        check("fsw" not in t.name or min(s["launches"]["sort_rows"] for s in steps) >= 1,
+              f"{t.name}: sort_rows did not launch on every rank")
+    return {"reports": reports, "wall_s": wall, "count_launches": sum(count_launches)}
+
+
+def compare_ranked(trainers: list[RankedTrainer], w1: str, rank0: str) -> dict:
+    """Rank 0's checkpoints and exports against the one-rank group's within
+    the cuda-vs-cpu rebuild's Adam sign-flip bound (two ranks sum the
+    gradients in another order)."""
+    tol = Tolerances()
+    for t in trainers:
+        a, b = os.path.join(rank0, t.name), os.path.join(w1, t.name)
+        if t.kind == "classifier":
+            _, m_a, p_a = load_checkpoint(os.path.join(a, "classifier_model.ckpt"))
+            _, m_b, p_b = load_checkpoint(os.path.join(b, "classifier_model.ckpt"))
+            tol.compare("lowest_loss", np.array([m_a["lowest_loss"]]),
+                        np.array([m_b["lowest_loss"]]), REBUILD_LOSS_RTOL, 0.0)
+            tol.params(p_a, p_b, adam_drift(t.checkpoints["classifier_model.ckpt"], RANKS_EPOCHS))
+        else:
+            tol.subtree_models(a, b, {int(ck[len("model_subtree_"):-len(".ckpt")]): n
+                                      for ck, n in t.checkpoints.items()}, RANKS_EPOCHS, t.emb_rtol)
+    tol.check_all("two ranks against one")
+    return tol.used
+
+
+def ranked_readings(trainers: list[RankedTrainer], reports: list[list[dict]]) -> dict:
+    """Rank 0's steps/s over epochs 2 on and bytes all-reduced per step of
+    each trainer."""
+    out = {}
+    for t, step in zip(trainers, reports[0]):
+        later = [(n, s) for i, (n, s) in enumerate(step["epochs"][t.kind]) if i % RANKS_EPOCHS]
+        out[t.name] = {"steps_per_s": sum(n for n, _ in later) / sum(s for _, s in later),
+                       "all_reduce_bytes_per_step": step["all_reduce_bytes"] / t.steps,
+                       "launches": step["launches"], "seconds": step["seconds"]}
+    return out
+
+
+RANK_FLAG = "--rank-steps"
+
+
+def rank_steps(report_path: str, steps: list[list[str]]) -> None:
+    """One rank of ``ranked_launch`` (``chip_smoke.py --rank-steps REPORT --
+    STEP -- STEP ...``, the launcher's variables set): the steps in turn in
+    one process group, each a CLI command line or ``count CODES.npy K DEVICE
+    OUT.npy`` (count_canonical_sharded of the encoded bases, rank 0 writing
+    OUT). The launch counts and the all-reduce counter are set to 0
+    just before each step and read just after it; TrainerClock times its
+    epochs. REPORT (``{rank}`` in the path is the rank) gets every step's
+    seconds, epochs, all-reduces and launches on this rank."""
+    report = []
+    for argv in steps:
+        kmer_hist.launches = sort_rows.launches = 0
+        all_reduce_.bytes = all_reduce_.calls = 0
+        t0 = time.perf_counter()
+        with TrainerClock() as clock:
+            if argv[0] == "count":
+                codes, k, device, out_path = argv[1:]
+                initialize_distributed(device=device)
+                hist = count_canonical_sharded(np.load(codes), int(k), data_mesh(torch.device(device)))
+                if is_coordinator():
+                    np.save(out_path, hist)
+            else:
+                cli_main(argv)
+        report.append({"argv": argv, "seconds": time.perf_counter() - t0, "epochs": clock.epochs,
+                       "all_reduce_calls": all_reduce_.calls, "all_reduce_bytes": all_reduce_.bytes,
+                       "launches": {"kmer_hist": kmer_hist.launches,
+                                    "sort_rows": sort_rows.launches}})
+    rank = dist.get_rank()
+    with open(report_path.format(rank=rank), "w") as f:
+        json.dump({"rank": rank, "steps": report}, f)
+    shutdown_distributed()
+
+
+def rank_main(argv: list[str]) -> int:
+    steps: list[list[str]] = []
+    for arg in argv[1:]:
+        if arg == "--":
+            steps.append([])
+        else:
+            steps[-1].append(arg)
+    rank_steps(argv[0], [step for step in steps if step])
+    return 0
+
+
+def phase_ranks(work: str, paths: dict, q_dir: str) -> dict:
+    """Data-parallel training over ranks (see the module docstring, phase 4)."""
+    t_phase = time.perf_counter()
+    trainers, clade = ranked_trainers(work, paths)
+    root = os.path.join(work, "ranks")
+    plain, w1 = os.path.join(root, "plain"), os.path.join(root, "w1")
+    release_serving_caches()
+    out = {"subtree": clade, "no_group": run_in_process(trainers, plain),
+           "world_size_1": world_size_1(trainers, w1)}
+    out["world_size_1_vs_no_group"] = compare_world_size_1(trainers, plain, w1)
+    check(sum(out["world_size_1"][t]["launches"]["sort_rows"] for t in ("fsw_lazy", "fsw_exact")) >= 2,
+          "world size 1: sort_rows did not launch in FSW training")
+    log(f"phase ranks (a) world size 1 on NCCL: {json.dumps(out['world_size_1_vs_no_group'])}")
+    codes = query_codes(q_dir, work)
+    two = ranked_launch(trainers, os.path.join(root, "gloo2"), codes, "gloo", 2)
+    out["two_ranks_gloo"] = ranked_readings(trainers, two["reports"])
+    out["two_ranks_vs_world_size_1"] = compare_ranked(trainers, w1, os.path.join(root, "gloo2", "rank0"))
+    out["count_sharded"] = {"launches": two["count_launches"],
+                            "seconds": two["reports"][0][-1]["seconds"]}
+    out["two_ranks_wall_s"] = two["wall_s"]
+    log(f"phase ranks (b) two ranks sharing the card over gloo: launch {two['wall_s']:.1f} s, "
+        f"against world size 1 (max |a-b| / (atol + rtol |b|), at most 1) "
+        f"{json.dumps(out['two_ranks_vs_world_size_1'])}; count_canonical_sharded of the "
+        f"{BIG_GENOME}-base query at R = 2 equals one launch")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = ranked_launch(trainers, os.path.join(root, "nccl2"), codes, "nccl", 2)
+        out["two_cards_nccl"] = ranked_readings(trainers, nccl["reports"])
+        out["two_cards_vs_world_size_1"] = compare_ranked(trainers, w1,
+                                                          os.path.join(root, "nccl2", "rank0"))
+        log(f"phase ranks (c) two cards on NCCL: ran, {json.dumps(out['two_cards_vs_world_size_1'])}")
+    else:
+        log(f"phase ranks (c) two cards on NCCL: not run, this machine has {n_cards} CUDA card "
+            "(NCCL takes one card per rank); a true two-card run stays unverified")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def phase_long_genome(dev) -> dict:
     """One genome of LONG_BLOCK x LONG_REPEATS > 2^31 bases counted on the
     card through KmerCounter (in pieces of 2^31 - 1 bases), exact against
@@ -1910,6 +2254,7 @@ def main() -> int:
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
         chunk = phase_train_chunks(work, built, q_dir, q_names)
+        ranks = phase_ranks(work, built, q_dir)
         phase_host_text(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1944,6 +2289,16 @@ def main() -> int:
         f"{json.dumps(chunk['outside_epochs_s'])}; peak device memory {chunk['peak_mib']:.0f} MiB; "
         f"sampler {chunk['sampler']['ms']} ms a batch; chunk library served in (s) "
         f"{json.dumps(chunk['serve']['stage_s'])}; the whole phase {chunk['phase_s']} s")
+    log(f"phase timings: ranks on {smi}: steps/s over epoch 2 and bytes all-reduced per step, "
+        "without a group / one-rank NCCL group / two ranks sharing the card over gloo (rank 0) "
+        + json.dumps({name: [ranks["no_group"][name]["steps_per_s"],
+                             ranks["world_size_1"][name]["steps_per_s"],
+                             ranks["two_ranks_gloo"][name]["steps_per_s"],
+                             ranks["world_size_1"][name]["all_reduce_bytes_per_step"],
+                             ranks["two_ranks_gloo"][name]["all_reduce_bytes_per_step"]]
+                      for name in ranks["no_group"]})
+        + f"; count_canonical_sharded R = 2 {ranks['count_sharded']['seconds']:.3f} s; two-rank "
+        f"launch {ranks['two_ranks_wall_s']:.1f} s; the whole phase {ranks['phase_s']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
@@ -1958,6 +2313,12 @@ def main() -> int:
     by_path["kmer_hist"]["get_chunks"] = chunk["get_chunks_launches"]
     by_path["kmer_hist"]["train_chunks"] = chunk["launches"]["kmer_hist"]
     by_path["sort_rows"]["train_chunks"] = chunk["launches"]["sort_rows"]
+    for name in by_path:  # the ranked paths: the one-rank group in this process
+        by_path[name]["train_ddp"] = sum(run["launches"][name]
+                                         for run in ranks["world_size_1"].values())
+        by_path[name]["train_ddp_two_ranks_rank0"] = sum(
+            run["launches"][name] for run in ranks["two_ranks_gloo"].values())
+    by_path["kmer_hist"]["count_sharded"] = ranks["count_sharded"]["launches"]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],
@@ -1994,4 +2355,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == [RANK_FLAG] else main())

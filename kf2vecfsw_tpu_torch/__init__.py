@@ -15,7 +15,9 @@ Libraries of dense models are built here too (``build_library``:
 ``get_frequencies`` -> ``divide_tree`` -> ``get_distances`` ->
 ``train_classifier`` -> ``train_model_set -no_fsw``), with the trainers as
 plain PyTorch on cuBLAS and ``torch.optim.Adam``; ``train_model_set``
-trains FSW models by default, through the row sort under autograd.
+trains FSW models by default, through the row sort under autograd. The
+trainers also run data-parallel over ``torch.distributed`` ranks, one
+process per card (``parallel/``).
 
 Every entry point runs on ``device="cuda"`` unless the caller asks for the
 CPU; the JAX package ``kf2vecfsw_tpu`` is the reference it is tested

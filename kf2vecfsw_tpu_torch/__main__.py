@@ -1,4 +1,6 @@
 from .cli import main
+from .parallel.mesh import shutdown_distributed
 
 if __name__ == "__main__":
     main()
+    shutdown_distributed()

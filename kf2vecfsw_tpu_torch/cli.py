@@ -1,7 +1,9 @@
 """kf2vec CLI of the PyTorch port: the subcommands of the JAX package's
 parser (``kf2vecfsw_tpu/cli.py``) that the port runs, with the same flags
 and defaults, plus ``-device {cuda,cpu}`` (default ``cuda``) on every
-command that uses a device, for a caller who asks for the CPU.
+command that uses a device, for a caller who asks for the CPU. The four
+trainers run data-parallel over the ranks of a launcher such as
+``torch.distributed.run`` (``parallel/mesh.py``).
 
 Commands:
   get_kmers                Genome -> (N, k+1) k-mer point set .npy (FSW input)
@@ -527,11 +529,40 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# the commands that use a device: each joins a launcher's process group
+# first (the JAX package's _DEVICE_COMMANDS, cli.py:490-504)
+_DEVICE_COMMANDS = {
+    "get_frequencies", "get_kmers", "get_chunks", "train_classifier",
+    "train_model_set", "train_classifier_chunks", "train_model_set_chunks",
+    "classify", "query", "build_library", "process_query_data", "serve",
+}
+# the commands that run data-parallel over ranks; the others would write the
+# same files once per rank, so more than one rank refuses them
+_RANKED_COMMANDS = {
+    "train_classifier", "train_model_set", "train_classifier_chunks", "train_model_set_chunks",
+}
+
+
 def main(argv=None):
     """Run one subcommand; returns what the command returns (stage seconds
-    for build_library and process_query_data, else None)."""
+    for build_library and process_query_data, else None). Under a launcher
+    (``python -m torch.distributed.run --nproc_per_node=N -m
+    kf2vecfsw_tpu_torch train_model_set ...``) a device command joins the
+    process group first, and ``-device cuda`` means the rank's own card."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.command in _DEVICE_COMMANDS:
+        import torch.distributed as dist
+
+        from .parallel.mesh import initialize_distributed
+
+        if (initialize_distributed(device=args.device) and dist.get_world_size() > 1
+                and args.command not in _RANKED_COMMANDS):
+            raise SystemExit(
+                f"{args.command} does not run over ranks: every rank would write the same "
+                f"files. Run it in one process; {', '.join(sorted(_RANKED_COMMANDS))} train "
+                "data-parallel"
+            )
     if hasattr(args, "func"):
         return args.func(args)
     parser.print_help()

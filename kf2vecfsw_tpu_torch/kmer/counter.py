@@ -134,14 +134,7 @@ class KmerCounter:
         for seqs in seqs_batch:
             first.append(len(pieces))
             pieces += genome_pieces(concat_with_separators(seqs, self.k), self.k, PIECE_BASES)
-        parts, start = [], 0
-        while start < len(pieces):
-            stop, total = start + 1, pieces[start].size
-            while stop < len(pieces) and total + pieces[stop].size < MAX_BASES:
-                total += pieces[stop].size
-                stop += 1
-            parts.append(self._count(pieces[start:stop]))
-            start = stop
+        parts = [self._count(group) for group in _launch_groups(pieces)]
         if not parts:
             return np.zeros((0, self.vocab.size), dtype=np.int64)
         rows = np.concatenate(parts)
@@ -166,12 +159,41 @@ class KmerCounter:
             out.append((self.vocab[nz], row[nz]))
         return out
 
-    def _count(self, genomes: list[np.ndarray]) -> np.ndarray:
+    def dense_histogram(self, codes: np.ndarray) -> torch.Tensor:
+        """int64 (4^k,) canonical histogram of one encoded base stream over
+        every code (zeros at the non-canonical ones), on the device: the
+        JAX package's per-device count in ``count_canonical_sharded``. A
+        stream longer than PIECE_BASES is counted in overlapping pieces, as
+        in ``count_batch``."""
+        if self.vocab is None:
+            raise ValueError(f"dense k-mer counting supports {MIN_K} <= k <= {MAX_K}, got {self.k}")
+        out = torch.zeros(4**self.k, dtype=torch.int64, device=self.device)
+        for group in _launch_groups(genome_pieces(np.asarray(codes, np.uint8), self.k, PIECE_BASES)):
+            out += self._hist(group).sum(dim=0, dtype=torch.int64)
+        return out
+
+    def _hist(self, genomes: list[np.ndarray]) -> torch.Tensor:
         offsets = np.zeros(len(genomes) + 1, dtype=np.int64)
         np.cumsum([g.size for g in genomes], out=offsets[1:])
-        counts = kmer_hist(
+        return kmer_hist(
             torch.from_numpy(np.concatenate(genomes)).to(self.device),
             torch.from_numpy(offsets).to(self.device),
             self.k,
         )
+
+    def _count(self, genomes: list[np.ndarray]) -> np.ndarray:
+        counts = self._hist(genomes)
         return counts.index_select(1, self._vocab_dev).cpu().numpy().astype(np.int64)
+
+
+def _launch_groups(pieces: list[np.ndarray]):
+    """Runs of consecutive pieces that together hold fewer than MAX_BASES
+    bases: one ``kmer_hist`` launch each."""
+    start = 0
+    while start < len(pieces):
+        stop, total = start + 1, pieces[start].size
+        while stop < len(pieces) and total + pieces[stop].size < MAX_BASES:
+            total += pieces[stop].size
+            stop += 1
+        yield pieces[start:stop]
+        start = stop

@@ -6,7 +6,7 @@ limited to the three the trainers use; reference: losses.py).
 - chunks_weighted_sqrt_mse: Loss_chunks (losses.py:58-117), the same with
   a weight of 1 / (d_true + 1000), for the chunk distance trainer
 - nll_loss: torch nn.NLLLoss over log_softmax outputs
-  (train_classifier_model.py:278)
+  (train_classifier_model.py:278); nll_sum, its sum
 
 Both take an optional pair/sample mask; masked-out entries drop out of the
 mean, which is taken over the entries that remain.
@@ -37,7 +37,16 @@ def chunks_weighted_sqrt_mse(model_dist: torch.Tensor, true_dist: torch.Tensor,
     return weighted_sqrt_mse(model_dist, true_dist, pair_mask, weight_offset=1000.0)
 
 
+def _nll_terms(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -torch.gather(log_probs, 1, labels[:, None].long())[:, 0]
+
+
 def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
              sample_mask: torch.Tensor | None = None) -> torch.Tensor:
-    picked = -torch.gather(log_probs, 1, labels[:, None].long())[:, 0]
-    return _masked_mean(picked, sample_mask)
+    return _masked_mean(_nll_terms(log_probs, labels), sample_mask)
+
+
+def nll_sum(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The NLL summed over the rows: a rank's share of a batch's loss in the
+    sharded plan, before the division by the batch's count."""
+    return torch.sum(_nll_terms(log_probs, labels))

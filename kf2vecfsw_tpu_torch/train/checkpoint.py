@@ -20,6 +20,8 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import is_coordinator
+
 FLAT_SEP = "/"
 
 
@@ -57,6 +59,10 @@ def atomic_savez(path: str, meta: dict, arrays: dict) -> None:
 
 
 def save_checkpoint(path: str, model_name: str, meta: dict, params) -> None:
+    """Written by the coordinator only: over ranks every rank holds the same
+    params, and identical writes through one path + '.tmp' would race."""
+    if not is_coordinator():
+        return
     atomic_savez(path, {"model_name": model_name, **meta}, _flatten(params))
 
 

@@ -33,11 +33,21 @@ was not interrupted. The JAX package's device path draws from
 ``jax.random`` (``:308-333``), which PyTorch cannot reproduce; the port does
 not try.
 
+Over ranks (``parallel.mesh.initialize_distributed``, more than one rank)
+each rank reads only its contiguous range of the genomes' chunk `.kf`
+files (``load_chunk_store_process_sliced``; counts, widths and totals go to
+every rank by one all-reduce), and the prefix sums are sharded by genome
+over the ranks (``DeviceChunkStore.build_sharded``, the JAX package's
+``build_process_sharded``): every rank draws the same host span plan, sums
+the spans of the genomes it owns, and the batch is assembled by one
+all-reduce, bit for bit the replicated store's (``sample_chunk_batch_sharded``).
+When the sharded store does not fit, every rank reads every genome into
+the host store. The loss and gradients take ``train/step.py``'s sharded
+batch plan, and the coordinator alone writes files.
+
 Not ported: the multi-epoch device spans (``make_chunked_span_runner``,
-``split_spans``), a TPU artefact; the multi-host slices
-(``load_chunk_store_process_sliced``, ``build_process_sharded``,
-``sample_chunk_batch_sharded``), which wait for the multi-GPU slice; and
-``sample_one_uniform``, which nothing calls.
+``split_spans``), a TPU artefact; and ``sample_one_uniform``, which nothing
+calls.
 
 Per-batch losses stay on the device and are fetched once per epoch. The
 trainers autosave every ``autosave_every`` epochs and at the last one, in
@@ -61,8 +71,19 @@ from ..device import DEFAULT_DEVICE, device_line, resolve_device
 from ..io.kf import read_kf
 from ..kmer.vocab import low_complexity_mask
 from ..models.mlp import Classifier, DistEmbed, count_params, init_params_, params_to_jax
-from ..ops.losses import chunks_weighted_sqrt_mse, nll_loss
+from ..ops.losses import chunks_weighted_sqrt_mse, nll_sum
 from ..ops.pairwise import pairwise_l2_exact
+from ..parallel.mesh import (
+    DataMesh,
+    all_reduce_,
+    barrier,
+    check_replicas,
+    data_mesh,
+    gather_rows,
+    is_coordinator,
+    mesh_line,
+    process_row_slice,
+)
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.membudget import hbm_fraction
 from ..utils.timing import hms
@@ -77,7 +98,7 @@ from .classifier import (
 from .distance import export_embeddings, load_subtree_dist
 from .resume import start_or_resume
 from .schedule import step_lr
-from .step import set_lr
+from .step import gathered_embeddings, local_rows, set_lr, sharded_step
 
 F32 = np.float32
 INT32_TOTAL = 2**31  # a genome's total count must stay below this in the int32 store
@@ -152,24 +173,30 @@ def normalize_spans(sums: torch.Tensor, scaler: float = defaults.FEATURES_SCALER
     return (vec * scaler).to(torch.float32)
 
 
+def load_chunk_matrices(kf_paths: list[str], cap: bool = False, threads: int = 8,
+                        column_mask: np.ndarray | None = None) -> list[np.ndarray]:
+    """The chunk matrices of ``kf_paths``, read in parallel: uint16 by
+    default, uint8 with ``cap`` (values clamped to 255, utils.py:408-430).
+    ``column_mask`` drops feature columns up front (the hidden -mask
+    low-complexity filter, train_classifier_model_chunks.py:171-195)."""
+    def load(p):
+        _, mat = read_kf(p)
+        if column_mask is not None:
+            mat = mat[:, column_mask]
+        if cap:
+            return np.minimum(mat, 255).astype(np.uint8)
+        return mat.astype(np.uint16)
+
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        return list(pool.map(load, kf_paths))
+
+
 class ChunkStore:
-    """Host-resident chunk matrices: uint16 by default, uint8 with ``cap``
-    (values clamped to 255, utils.py:408-430). ``column_mask`` drops feature
-    columns up front (the hidden -mask low-complexity filter,
-    train_classifier_model_chunks.py:171-195)."""
+    """Host-resident chunk matrices (``load_chunk_matrices``)."""
 
     def __init__(self, kf_paths: list[str], cap: bool = False, threads: int = 8,
                  column_mask: np.ndarray | None = None):
-        def load(p):
-            _, mat = read_kf(p)
-            if column_mask is not None:
-                mat = mat[:, column_mask]
-            if cap:
-                return np.minimum(mat, 255).astype(np.uint8)
-            return mat.astype(np.uint16)
-
-        with ThreadPoolExecutor(max_workers=threads) as pool:
-            self.matrices = list(pool.map(load, kf_paths))
+        self.matrices = load_chunk_matrices(kf_paths, cap, threads, column_mask)
         self.names = [os.path.basename(p)[: -len(".kf")] for p in kf_paths]
         self.counts = np.array([m.shape[0] for m in self.matrices], dtype=np.int64)
 
@@ -198,28 +225,59 @@ class ChunkStore:
         return self.sample_batch(rng, [gi], 1)[0]
 
 
+def _prefix_sums(matrices: list[np.ndarray], n_rows: int, cmax: int, width: int,
+                 device: torch.device) -> torch.Tensor:
+    """(n_rows, cmax + 1, width) int32 prefix sums of ``matrices`` over the
+    chunk axis, a genome's total repeated past its end, zero rows after the
+    last matrix; raises ``OverflowError`` for a genome whose total count
+    reaches 2^31."""
+    prefix = torch.zeros((n_rows, cmax + 1, width), dtype=torch.int32, device=device)
+    for i, m in enumerate(matrices):
+        total = int(m.sum(dtype=np.int64))
+        if total >= INT32_TOTAL:
+            raise OverflowError(
+                f"genome {i}: total chunk count {total} overflows the int32 "
+                "device prefix store; use the host ChunkStore path"
+            )
+        p = torch.from_numpy(m.astype(np.int32)).to(device).cumsum(0, dtype=torch.int32)
+        prefix[i, 1 : m.shape[0] + 1] = p
+        prefix[i, m.shape[0] + 1 :] = p[-1]
+    return prefix
+
+
 class DeviceChunkStore:
     """Per-genome prefix sums over the chunk axis on the device, one
     (G, Cmax+1, V) int32 tensor: a span sum is ``prefix[g, ix + n] -
     prefix[g, ix]``, exact because every genome's total count is below 2^31
     (``fits``; the constructor raises ``OverflowError`` otherwise). A genome
-    shorter than Cmax repeats its total in the rows past its end."""
+    shorter than Cmax repeats its total in the rows past its end.
+
+    ``build_sharded`` makes the genome-sharded store of a mesh of ranks: each
+    rank holds the prefix sums of its ``g_local`` genomes only, and
+    ``batch`` assembles every span row by one all-reduce."""
 
     def __init__(self, matrices: list[np.ndarray], device, scaler: float = defaults.FEATURES_SCALER):
         self.counts = np.array([m.shape[0] for m in matrices], dtype=np.int64)
         self.device, self.scaler = torch.device(device), float(scaler)
-        self.prefix = torch.zeros((len(matrices), int(self.counts.max()) + 1, matrices[0].shape[1]),
-                                  dtype=torch.int32, device=self.device)
-        for i, m in enumerate(matrices):
-            total = int(m.sum(dtype=np.int64))
-            if total >= INT32_TOTAL:
-                raise OverflowError(
-                    f"genome {i}: total chunk count {total} overflows the int32 "
-                    "device prefix store; use the host ChunkStore path"
-                )
-            p = torch.from_numpy(m.astype(np.int32)).to(self.device).cumsum(0, dtype=torch.int32)
-            self.prefix[i, 1 : m.shape[0] + 1] = p
-            self.prefix[i, m.shape[0] + 1 :] = p[-1]
+        self.rank, self.g_local = 0, None  # replicated: every genome here
+        self.prefix = _prefix_sums(matrices, len(matrices), int(self.counts.max()),
+                                   matrices[0].shape[1], self.device)
+
+    @classmethod
+    def build_sharded(cls, local_matrices: list[np.ndarray], counts_global: np.ndarray,
+                      input_size: int, mesh: DataMesh,
+                      scaler: float = defaults.FEATURES_SCALER) -> "DeviceChunkStore":
+        """The store of ``mesh``'s rank from the chunk matrices of its genome
+        range (``load_chunk_store_process_sliced``); ``counts_global`` are
+        the chunk counts of every genome, padded with 1 to a multiple of the
+        world size."""
+        self = cls.__new__(cls)
+        self.counts = np.asarray(counts_global, dtype=np.int64)
+        self.device, self.scaler = mesh.device, float(scaler)
+        self.rank, self.g_local = mesh.rank, self.counts.size // mesh.world_size
+        self.prefix = _prefix_sums(local_matrices, self.g_local, int(self.counts.max()),
+                                   input_size, self.device)
+        return self
 
     @staticmethod
     def nbytes(matrices: list[np.ndarray]) -> int:
@@ -233,15 +291,60 @@ class DeviceChunkStore:
         return all(int(m.sum(dtype=np.int64)) < INT32_TOTAL for m in matrices)
 
     def batch(self, spans: torch.Tensor) -> torch.Tensor:
-        """float32 (R, V) rows of the (3, R) int64 ``spans`` on the device."""
+        """float32 (R, V) rows of the (3, R) int64 ``spans`` on the device. The
+        sharded store normalises the rows of the genomes this rank owns, zero
+        elsewhere, and sums the ranks' rows: exact, since each row is
+        nonzero on one rank only (x + 0 = x)."""
         g, ix, n = spans
-        return normalize_spans((self.prefix[g, ix + n] - self.prefix[g, ix]).to(torch.int64),
+        if self.g_local is None:
+            return normalize_spans((self.prefix[g, ix + n] - self.prefix[g, ix]).to(torch.int64),
+                                   self.scaler)
+        own = g // self.g_local == self.rank
+        li = torch.where(own, g - self.rank * self.g_local, 0)
+        rows = normalize_spans((self.prefix[li, ix + n] - self.prefix[li, ix]).to(torch.int64),
                                self.scaler)
+        return all_reduce_(torch.where(own[:, None], rows, torch.zeros_like(rows)))
 
     def sample_batch(self, rng: np.random.Generator, genome_indices, draws: int) -> np.ndarray:
         """``ChunkStore.sample_batch`` from the device store."""
         spans = draw_spans(rng, self.counts, genome_indices, draws)
         return self.batch(torch.from_numpy(spans).to(self.device)).cpu().numpy()
+
+
+def load_chunk_store_process_sliced(kf_paths: list[str], mesh: DataMesh, cap: bool,
+                                    column_mask: np.ndarray | None = None):
+    """Chunk ingest over ranks: this rank reads only the chunk `.kf` files of
+    its contiguous genome range, [rank * per, (rank + 1) * per) with per =
+    ceil(G / R); every genome's chunk count and total count and the feature
+    width reach every rank by one all-reduce. Returns (local_matrices,
+    counts_global, input_size, totals_global), the counts padded with 1 and
+    the totals with 0 to R * per rows, for ``DeviceChunkStore.build_sharded``
+    and ``sharded_store_fits``; None when there is no range to split (one
+    rank, or no process group). With one rank per device the ranges always
+    divide: the JAX package's other None, a process count that does not
+    divide its devices, has no counterpart."""
+    if not mesh.distributed or mesh.world_size == 1:
+        return None
+    g_pad = -(-len(kf_paths) // mesh.world_size) * mesh.world_size
+    mine = process_row_slice(g_pad, mesh)
+    local = load_chunk_matrices(kf_paths[mine], cap, column_mask=column_mask)
+    rows = torch.zeros((mine.stop - mine.start, 3), dtype=torch.int64)
+    rows[:, 0] = 1
+    for i, m in enumerate(local):
+        rows[i] = torch.tensor([m.shape[0], int(m.sum(dtype=np.int64)), m.shape[1]])
+    table = gather_rows(rows.to(mesh.device), mine.start, g_pad).cpu().numpy()
+    return local, table[:, 0], int(table[:, 2].max()), table[:, 1]
+
+
+def sharded_store_fits(counts_global: np.ndarray, input_size: int, mesh: DataMesh,
+                       totals_global: np.ndarray | None = None) -> bool:
+    """Whether the genome-sharded store fits: its (G_pad, Cmax+1, V) int32
+    prefix sums within the device budget times the ranks, and every genome's
+    total below 2^31 (the guard of ``DeviceChunkStore.fits``)."""
+    nbytes = int(counts_global.shape[0]) * (int(np.max(counts_global)) + 1) * input_size * 4
+    if nbytes > _chunk_device_budget(mesh.device) * mesh.world_size:
+        return False
+    return totals_global is None or bool(np.all(totals_global < INT32_TOTAL))
 
 
 def batch_source(store: ChunkStore, dstore: DeviceChunkStore | None, spans: np.ndarray,
@@ -256,53 +359,76 @@ def batch_source(store: ChunkStore, dstore: DeviceChunkStore | None, spans: np.n
 
 
 def chunk_distance_epoch(model: torch.nn.Module, opt: torch.optim.Optimizer, sample,
-                         dist: torch.Tensor, order: torch.Tensor, batch_size: int) -> torch.Tensor:
+                         dist: torch.Tensor, order: torch.Tensor, batch_size: int,
+                         mesh: DataMesh | None = None) -> torch.Tensor:
     """One epoch of the chunk distance trainer: two span rows per item of a
     batch, their labels the item's row of ``dist`` repeated; returns the
-    per-batch losses on the device."""
+    per-batch losses on the device. Over ranks each rank embeds the span
+    rows of its items (``step.local_rows``)."""
     model.train()
     losses = []
     for bi, idx in enumerate(torch.split(order, batch_size)):
+        x = sample(bi)
         ridx = idx.repeat_interleave(2)
-        loss = chunks_weighted_sqrt_mse(pairwise_l2_exact(model(sample(bi))),
-                                        dist.index_select(0, ridx).index_select(1, ridx))
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        true_dist = dist.index_select(0, ridx).index_select(1, ridx)
+        lo, hi = local_rows(idx.numel(), batch_size, mesh)
+        own = model(x[2 * lo : 2 * hi])
+        loss = sharded_step(model, opt, lambda: chunks_weighted_sqrt_mse(pairwise_l2_exact(
+            gathered_embeddings(own, 2 * lo, x.shape[0])), true_dist), True)
         losses.append(loss.detach())
     return torch.stack(losses)
 
 
 def chunk_classifier_epoch(model: torch.nn.Module, opt: torch.optim.Optimizer, sample,
-                           labels: torch.Tensor, order: torch.Tensor,
-                           batch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+                           labels: torch.Tensor, order: torch.Tensor, batch_size: int,
+                           mesh: DataMesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One epoch of the chunk classifier trainer, one span row per item;
     returns the per-batch NLL and correct counts (taken before each step)
-    on the device."""
+    on the device. Over ranks each rank takes its rows of every batch, and
+    the per-batch sums are all-reduced once, after the epoch."""
     model.train()
     losses, correct = [], []
     for bi, idx in enumerate(torch.split(order, batch_size)):
-        log_probs = model(sample(bi))
-        y = labels.index_select(0, idx)
-        loss = nll_loss(log_probs, y)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        x = sample(bi)
+        lo, hi = local_rows(idx.numel(), batch_size, mesh)
+        log_probs = model(x[lo:hi])
+        y = labels.index_select(0, idx[lo:hi])
+        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True)
         losses.append(loss.detach())
         correct.append((log_probs.detach().argmax(dim=1) == y).sum())
-    return torch.stack(losses), torch.stack(correct)
+    sums = all_reduce_(torch.stack([torch.stack(losses).double(), torch.stack(correct).double()]))
+    return sums[0].float(), sums[1].long()
 
 
 def _store_line(dstore, suffix: str = "") -> str:
+    if dstore is not None and dstore.g_local is not None:
+        return "Chunk store: device-resident prefix sums, sharded by genome over the ranks" + suffix
     if dstore is not None:
         return "Chunk store: device-resident prefix sums" + suffix
     return "Chunk store: host streaming (prefix array exceeds device budget)"
 
 
-def _device_store(store: ChunkStore, dev) -> DeviceChunkStore | None:
-    """The store's prefix sums on ``dev`` when they fit, else None (the
-    host store serves the batches)."""
-    return DeviceChunkStore(store.matrices, dev) if DeviceChunkStore.fits(store.matrices, dev) else None
+def _open_stores(paths: list[str], cap: bool, column_mask, mesh: DataMesh, log):
+    """(host store or None, device store or None, every genome's chunk
+    count, feature width). Over ranks the genome-sharded device store from
+    each rank's slice of the files, when it fits; else the host store of
+    every file, with its prefix sums on the device when they fit (the host
+    store serves the batches otherwise)."""
+    sliced = load_chunk_store_process_sliced(paths, mesh, cap, column_mask)
+    if sliced is not None:
+        local, counts, input_size, totals = sliced
+        if sharded_store_fits(counts, input_size, mesh, totals):
+            log.info(f"Chunk ingest: per-rank genome slices ({len(paths)} genomes over "
+                     f"{mesh.world_size} ranks)")
+            return (None, DeviceChunkStore.build_sharded(local, counts, input_size, mesh),
+                    counts[: len(paths)], input_size)
+    if mesh.distributed:
+        log.info("Chunk ingest: every rank reads every genome"
+                 + (" (the sharded store exceeds the device budget)" if sliced else ""))
+    store = ChunkStore(paths, cap=cap, column_mask=column_mask)
+    fits = DeviceChunkStore.fits(store.matrices, mesh.device)
+    return (store, DeviceChunkStore(store.matrices, mesh.device) if fits else None, store.counts,
+            store.input_size)
 
 
 def _batch_sizes(n_items: int, batch_size: int) -> np.ndarray:
@@ -341,6 +467,7 @@ def train_model_set_chunks_func(
     from ..ingest.tree_ops import read_subtrees
 
     dev = resolve_device(device)
+    mesh = data_mesh(dev)
     since = time.time()
     clade_tag = (
         "_".join(str(c) for c in clades_to_train) if clades_to_train is not None else "all"
@@ -353,6 +480,8 @@ def train_model_set_chunks_func(
         log.info(f"Ground truth directory: {true_dist_dir}")
         log.info("\n==> Parameters...\n")
         log.info(device_line(dev))
+        if mesh.distributed:
+            log.info(mesh_line(mesh))
         log.info(f"Hidden Size fc1: {hidden_size}")
         log.info(f"Embedding Size: {embedding_size}")
         log.info(f"Total Epochs: {num_epochs}")
@@ -375,7 +504,7 @@ def train_model_set_chunks_func(
             clade_genomes = {g for g, cl in rows if cl == c}
             backbone_names = [g for g in avail if g in clade_genomes]
             saved.append(_train_distance_clade(
-                log, since, dev, c, backbone_names, [avail[g] for g in backbone_names],
+                log, since, dev, mesh, c, backbone_names, [avail[g] for g in backbone_names],
                 input_dir_fullgenomes, true_dist_dir, num_epochs, hidden_size, embedding_size,
                 batch_size, lr0, lr_min, lr_decay, seed, cap_data, model_filepath, resume,
                 autosave_every))
@@ -384,17 +513,17 @@ def train_model_set_chunks_func(
         log.info("\n==> Training Completed!\n")
         hrs, m, s = hms(time.time() - since)
         log.info(f"Time: {hrs:02d}:{m:02d}:{s:02d}")
-        return saved
     finally:
         close_logger(log)
+    barrier(mesh)  # every rank returns once the coordinator's files are written
+    return saved
 
 
-def _train_distance_clade(log, since, dev, c, backbone_names, clade_paths, input_dir_fullgenomes,
-                          true_dist_dir, num_epochs, hidden_size, embedding_size, batch_size, lr0,
-                          lr_min, lr_decay, seed, cap_data, model_filepath, resume,
-                          autosave_every) -> str:
-    store = ChunkStore(clade_paths, cap=cap_data)
-    input_size = store.input_size
+def _train_distance_clade(log, since, dev, mesh, c, backbone_names, clade_paths,
+                          input_dir_fullgenomes, true_dist_dir, num_epochs, hidden_size,
+                          embedding_size, batch_size, lr0, lr_min, lr_decay, seed, cap_data,
+                          model_filepath, resume, autosave_every) -> str:
+    store, dstore, counts, input_size = _open_stores(clade_paths, cap_data, None, mesh, log)
     n_items = len(backbone_names)
     log.info(f"Dimensions of feature matrix rows: {n_items}, cols: {input_size}")
     _check_fullgenome_width(input_dir_fullgenomes, backbone_names, input_size)
@@ -404,8 +533,7 @@ def _train_distance_clade(log, since, dev, c, backbone_names, clade_paths, input
     model = init_params_(DistEmbed(input_size, hidden_size, embedding_size), gen)
     log.info(f"Total parameters: {count_params(model)}")
     state_path = os.path.join(model_filepath, f"trainer_state_chunks_subtree_{c}.ckpt")
-    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev)
-    dstore = _device_store(store, dev)
+    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev, mesh)
     log.info(_store_line(dstore, " (sampling fused into the train step)"))
     dist_dev = torch.from_numpy(dist).to(dev)
 
@@ -417,10 +545,10 @@ def _train_distance_clade(log, since, dev, c, backbone_names, clade_paths, input
     batch_sizes = _batch_sizes(n_items, batch_size)
     for epoch in range(st.start_epoch, num_epochs):
         set_lr(st.opt, step_lr(epoch, lr0, lr_min, lr_decay))
-        perm, spans = epoch_plan(seed, epoch, store.counts, draws=2)
+        perm, spans = epoch_plan(seed, epoch, counts, draws=2)
         sample = batch_source(store, dstore, spans, 2 * batch_size, dev)
         losses = chunk_distance_epoch(st.model, st.opt, sample, dist_dev,
-                                      torch.from_numpy(perm).to(dev), batch_size)
+                                      torch.from_numpy(perm).to(dev), batch_size, mesh)
         loss_row = losses.cpu().numpy().astype(np.float64)  # the epoch's one fetch
         for bi, lv in enumerate(loss_row):
             if epoch > 5 and lv > 0.2:
@@ -457,8 +585,12 @@ def _train_distance_clade(log, since, dev, c, backbone_names, clade_paths, input
         "lowest_loss": st.lowest,
     }
     ckpt_path = os.path.join(model_filepath, f"model_subtree_{c}.ckpt")
+    if mesh.distributed:
+        log.info(check_replicas(st.best, mesh, f"subtree {c} best params"))
     save_checkpoint(ckpt_path, "NeuralNet", meta, params_to_jax(st.best))
     del dstore, dist_dev
+    if not is_coordinator():  # the coordinator alone reads the full genomes and exports
+        return ckpt_path
 
     # final embeddings from the full genomes (train_model_set_chunks.py:578-616)
     full_names, full_feats = load_kf_matrix(
@@ -491,22 +623,27 @@ def train_classifier_chunks_func(
     device: str = DEFAULT_DEVICE,
 ) -> str:
     dev = resolve_device(device)
+    mesh = data_mesh(dev)
     since = time.time()
     log = make_run_logger(model_filepath, f"train_classifier_{timestamp()}.log")
     try:
-        return _train_classifier(
-            log, since, dev, input_dir_fullgenomes, feature_files, clades_info, num_epochs,
+        ckpt_path = _train_classifier(
+            log, since, dev, mesh, input_dir_fullgenomes, feature_files, clades_info, num_epochs,
             hidden_size, batch_size, lr0, lr_min, lr_decay, seed, custom_mask, cap_data,
             model_filepath, resume, autosave_every)
     finally:
         close_logger(log)
+    barrier(mesh)  # every rank returns once the coordinator's files are written
+    return ckpt_path
 
 
-def _train_classifier(log, since, dev, input_dir_fullgenomes, feature_files, clades_info,
+def _train_classifier(log, since, dev, mesh, input_dir_fullgenomes, feature_files, clades_info,
                       num_epochs, hidden_size, batch_size, lr0, lr_min, lr_decay, seed,
                       custom_mask, cap_data, model_filepath, resume, autosave_every) -> str:
     log.info("\n==> Preparing Data...\n")
     log.info(device_line(dev))
+    if mesh.distributed:
+        log.info(mesh_line(mesh))
     column_mask, k_inferred = None, None
     if custom_mask:
         _, probe = read_kf(feature_files[0])
@@ -514,9 +651,9 @@ def _train_classifier(log, since, dev, input_dir_fullgenomes, feature_files, cla
         if k_inferred is None:
             raise ValueError(f"cannot infer k from width {probe.shape[1]} for -mask")
         column_mask = low_complexity_mask(k_inferred)
-    store = ChunkStore(feature_files, cap=cap_data, column_mask=column_mask)
-    input_size = store.input_size
-    names = store.names
+    store, dstore, counts, input_size = _open_stores(feature_files, cap_data, column_mask, mesh,
+                                                     log)
+    names = [os.path.basename(p)[: -len(".kf")] for p in feature_files]
     n_items = len(names)
     log.info(f"Dimensions of feature matrix rows: {n_items}, cols: {input_size}")
     log.info(f"Masking: {custom_mask}")
@@ -535,9 +672,8 @@ def _train_classifier(log, since, dev, input_dir_fullgenomes, feature_files, cla
     model = init_params_(Classifier(input_size, hidden_size, class_count), gen)
     log.info(f"Total parameters: {count_params(model)}")
     state_path = os.path.join(model_filepath, "trainer_state_chunks_classifier.ckpt")
-    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev)
+    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev, mesh)
     highest_acc = float(st.extra.get("acc_at_best", -1.0))
-    dstore = _device_store(store, dev)
     log.info(_store_line(dstore))
     labels_dev = torch.from_numpy(labels).to(dev)
 
@@ -546,10 +682,10 @@ def _train_classifier(log, since, dev, input_dir_fullgenomes, feature_files, cla
     items = max(int(batch_sizes.sum()), 1)
     for epoch in range(st.start_epoch, num_epochs):
         set_lr(st.opt, step_lr(epoch, lr0, lr_min, lr_decay))
-        perm, spans = epoch_plan(seed, epoch, store.counts, draws=1)
+        perm, spans = epoch_plan(seed, epoch, counts, draws=1)
         sample = batch_source(store, dstore, spans, batch_size, dev)
         losses, correct = chunk_classifier_epoch(st.model, st.opt, sample, labels_dev,
-                                                 torch.from_numpy(perm).to(dev), batch_size)
+                                                 torch.from_numpy(perm).to(dev), batch_size, mesh)
         loss_row, corr_row = torch.stack([losses.double(), correct.double()]).cpu().numpy()
         epoch_loss = float((loss_row * batch_sizes).sum() / items)
         acc = float(corr_row.sum() / items)
@@ -577,8 +713,12 @@ def _train_classifier(log, since, dev, input_dir_fullgenomes, feature_files, cla
     if custom_mask:
         meta["low_complexity_mask_k"] = k_inferred
     ckpt_path = os.path.join(model_filepath, "classifier_model.ckpt")
+    if mesh.distributed:
+        log.info(check_replicas(st.best, mesh, "best params"))
     save_checkpoint(ckpt_path, "NeuralNetClassifierOnly", meta, params_to_jax(st.best))
     del dstore
+    if not is_coordinator():  # the coordinator alone reads the full genomes and writes
+        return ckpt_path
 
     # backbone classes from the full genomes (train_classifier_model_chunks.py:
     # 517-559), masked as the chunks were

@@ -10,6 +10,11 @@ epoch. The params of the lowest epoch loss (strict ``<``) are written to
 ``classifier_model.ckpt`` (NeuralNetClassifierOnly), and a forward of the
 whole backbone with them to ``backbone_classes.out``, both in the JAX
 package's formats.
+
+Over ranks (``parallel.mesh.initialize_distributed``) every rank holds the
+features, draws the same orders and takes the sharded batch plan; the
+replicas are checked bit-equal before the checkpoint, and the coordinator
+alone writes files.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..device import DEFAULT_DEVICE, device_line, resolve_device
 from ..io.kf import float_repr, read_kf
 from ..kmer.vocab import low_complexity_mask
 from ..models.mlp import Classifier, count_params, init_params_, params_from_jax, params_to_jax
+from ..parallel.mesh import barrier, check_replicas, data_mesh, is_coordinator, mesh_line
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.timing import hms
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -83,7 +89,10 @@ def write_classes_table(
 ) -> None:
     """classes.out / backbone_classes.out writer (TSV; top_class rendered as a
     float to match the reference's np.hstack of floats,
-    train_classifier_model.py:496-506, classify.py:96-124)."""
+    train_classifier_model.py:496-506, classify.py:96-124); the coordinator
+    alone writes."""
+    if not is_coordinator():
+        return
     top_class = probs.argmax(axis=1)
     top_p = probs.max(axis=1)
     with open(path, "w") as f:
@@ -120,20 +129,23 @@ def train_classifier_func(
     device: str = DEFAULT_DEVICE,
 ) -> str:
     dev = resolve_device(device)
+    mesh = data_mesh(dev)
     since = time.time()
     log = make_run_logger(model_filepath, f"train_classifier_{timestamp()}.log")
     try:
-        return _train(
-            log, since, dev, features_folder, feature_files, clades_info, num_epochs,
+        ckpt_path = _train(
+            log, since, dev, mesh, features_folder, feature_files, clades_info, num_epochs,
             hidden_size, batch_size, lr, lr_min, lr_decay, seed, custom_mask,
             model_filepath, resume, autosave_every,
         )
     finally:
         close_logger(log)
+    barrier(mesh)  # every rank returns once the coordinator's files are written
+    return ckpt_path
 
 
 def _train(
-    log, since, dev, features_folder, feature_files, clades_info, num_epochs,
+    log, since, dev, mesh, features_folder, feature_files, clades_info, num_epochs,
     hidden_size, batch_size, lr0, lr_min, lr_decay, seed, custom_mask,
     model_filepath, resume, autosave_every,
 ):
@@ -143,6 +155,8 @@ def _train(
 
     log.info("\n==> Parameters...\n")
     log.info(device_line(dev))
+    if mesh.distributed:
+        log.info(mesh_line(mesh))
     log.info(f"Hidden Size fc1: {hidden_size}")
     log.info(f"Total Epochs: {num_epochs}")
     log.info(f"Batch Size: {batch_size}")
@@ -185,7 +199,7 @@ def _train(
     log.info(f"Total parameters: {count_params(model)}")
     log.info(f"Trainable parameters: {count_params(model)}")
     state_path = os.path.join(model_filepath, "trainer_state_classifier.ckpt")
-    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev)
+    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev, mesh)
     highest_acc = float(st.extra.get("highest_acc", -1.0))
     feats_dev = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
     labels_dev = torch.from_numpy(labels).to(dev)
@@ -199,7 +213,8 @@ def _train(
         lr = step_lr(epoch, lr0, lr_min, lr_decay)
         set_lr(st.opt, lr)
         order = epoch_order(gen, n_items).to(dev)
-        loss_t, acc_t = classifier_epoch(st.model, st.opt, feats_dev, labels_dev, order, batch_size)
+        loss_t, acc_t = classifier_epoch(st.model, st.opt, feats_dev, labels_dev, order,
+                                         batch_size, mesh)
         loss, acc = torch.stack([loss_t, acc_t]).tolist()  # the epoch's one fetch
         if st.keep_if_best(epoch, loss):
             highest_acc = acc
@@ -228,7 +243,11 @@ def _train(
         # classify filters query features with the same mask
         meta["low_complexity_mask_k"] = mask_k
     ckpt_path = os.path.join(model_filepath, "classifier_model.ckpt")
+    if mesh.distributed:
+        log.info(check_replicas(st.best, mesh, "best params"))
     save_checkpoint(ckpt_path, "NeuralNetClassifierOnly", meta, params_to_jax(st.best))
+    if not is_coordinator():
+        return ckpt_path
 
     # full-backbone forward with the saved params -> backbone_classes.out
     # (train_classifier_model.py:470-506)

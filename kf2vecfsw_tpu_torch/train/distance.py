@@ -22,6 +22,13 @@ one key per clade); the loss is fetched once per epoch. A held-out
 writes snapshots, and the params of the lowest epoch loss are written to
 ``model_subtree_{c}.ckpt`` and embedded into the APPLES-compatible
 embeddings/distortions CSVs.
+
+Over ranks (``parallel.mesh.initialize_distributed``) every rank holds the
+clade's features and draws the same orders; each route takes the sharded
+batch plan (the exact route sorts each rank's own point sets, the lazy
+route refreshes every item's planes on every rank); the replicas are
+checked bit-equal before each checkpoint, and the coordinator alone writes
+files.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..ingest.kmers import point_sets_to_vocab_weights
 from ..io.native.lib import load as load_textio
 from ..models.fsw import FSWDistEmbed, init_fsw_dist_embed_, shared_vocab_applicable
 from ..models.mlp import DistEmbed, count_params, init_params_, params_from_jax, params_to_jax
+from ..parallel.mesh import barrier, check_replicas, data_mesh, is_coordinator, mesh_line
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.timing import hms
@@ -106,7 +114,10 @@ def export_embeddings(model: torch.nn.Module, feats: torch.Tensor, backbone_name
                       out_dir: str, clade, log) -> np.ndarray:
     """Embed the full backbone; write distortions_subtree_{c}.csv (squared,
     <1e-6 clamped to 0) and embeddings_subtree_{c}.csv
-    (train_model_set.py:602-643). Returns the embeddings."""
+    (train_model_set.py:602-643). Returns the embeddings; the coordinator
+    alone computes and writes them (None on the other ranks)."""
+    if not is_coordinator():
+        return None
     model.eval()
     block = FSW_EXPORT_BLOCK if feats.dim() == 3 else EXPORT_BLOCK
     outputs = torch.cat([model(feats[i : i + block]) for i in range(0, feats.shape[0], block)])
@@ -157,6 +168,7 @@ def train_model_set_func(
     device: str = DEFAULT_DEVICE,
 ) -> list[str]:
     dev = resolve_device(device)
+    mesh = data_mesh(dev)
     if use_fsw and not any(f.endswith(".npy") for f in feature_files):
         raise SystemExit(
             f"train_model_set: no .npy k-mer point sets in {features_folder}; FSW models "
@@ -169,8 +181,8 @@ def train_model_set_func(
     )
     log = make_run_logger(model_filepath, f"train_model_{timestamp()}_clade_{clade_tag}.log")
     try:
-        return _train_all(
-            log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
+        saved = _train_all(
+            log, since, dev, mesh, features_folder, feature_files, clades_info, true_dist_dir,
             num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min,
             lr_decay, clades_to_train, seed, model_filepath, test_ids_path,
             save_interval, use_fsw, base_dim, fswout_dim, resume, autosave_every,
@@ -178,6 +190,8 @@ def train_model_set_func(
         )
     finally:
         close_logger(log)
+    barrier(mesh)  # every rank returns once the coordinator's files are written
+    return saved
 
 
 def _feature_files(feature_files: list[str], use_fsw: bool) -> dict[str, str]:
@@ -216,7 +230,7 @@ def _fsw_features(paths: list[str], batch_size: int):
 
 
 def _train_all(
-    log, since, dev, features_folder, feature_files, clades_info, true_dist_dir,
+    log, since, dev, mesh, features_folder, feature_files, clades_info, true_dist_dir,
     num_epochs, hidden_size, embedding_size, batch_size, lr0, lr_min, lr_decay,
     clades_to_train, seed, model_filepath, test_ids_path, save_interval,
     use_fsw, base_dim, fswout_dim, resume, autosave_every, fsw_lazy_refresh,
@@ -231,6 +245,8 @@ def _train_all(
 
     log.info("\n==> Parameters...\n")
     log.info(device_line(dev))
+    if mesh.distributed:
+        log.info(mesh_line(mesh))
     log.info(f"Hidden Size fc1: {hidden_size}")
     log.info(f"Embedding Size: {embedding_size}")
     log.info(f"Total Epochs: {num_epochs}")
@@ -307,7 +323,7 @@ def _train_all(
         log.info(f"Trainable parameters: {count_params(model)}")
         ckpt_path = os.path.join(model_filepath, f"model_subtree_{c}.ckpt")
         state_path = os.path.join(model_filepath, f"trainer_state_subtree_{c}.ckpt")
-        st = start_or_resume(model, gen, len(train_idx), state_path, resume, log, lr0, dev)
+        st = start_or_resume(model, gen, len(train_idx), state_path, resume, log, lr0, dev, mesh)
 
         feats_dev = torch.from_numpy(feats).to(dev)
         dist_dev = torch.from_numpy(dist).to(dev)
@@ -351,9 +367,11 @@ def _train_all(
             set_lr(st.opt, lr)
             order = epoch_order(gen, len(train_idx)).to(dev)
             if planes is None:
-                loss = distance_epoch(st.model, st.opt, feats_train, dist_train, order, batch_size)
+                loss = distance_epoch(st.model, st.opt, feats_train, dist_train, order, batch_size,
+                                      mesh=mesh)
             else:
-                loss = lazy_distance_epoch(st.model, st.opt, planes, dist_train, order, batch_size)
+                loss = lazy_distance_epoch(st.model, st.opt, planes, dist_train, order, batch_size,
+                                           mesh=mesh)
             loss = float(loss)  # the epoch's one fetch
             if loss != loss:  # NaN watch (train_model_set_chunks.py:431-432)
                 log.info(f"Loss: {loss}")
@@ -371,13 +389,15 @@ def _train_all(
                 st.autosave(state_path, epoch)
             if save_interval is not None and (
                 epoch % save_interval == 0 or epoch == num_epochs - 1
-            ):
+            ) and is_coordinator():
                 subdir = os.path.join(model_filepath, f"model_epoch_{epoch + 1}")
                 os.makedirs(subdir, exist_ok=True)
                 save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), model_name,
                                 meta, params_to_jax(st.model))
 
         log.info(f"Best Epoch [{st.best_epoch + 1}/{num_epochs}], Lowest loss: {st.lowest:.20f}")
+        if mesh.distributed:
+            log.info(check_replicas(st.best, mesh, f"subtree {c} best params"))
         save_checkpoint(
             ckpt_path, model_name,
             {**meta, "best_epoch": st.best_epoch, "lowest_loss": st.lowest},
@@ -391,7 +411,7 @@ def _train_all(
         export_feats = torch.from_numpy(points).to(dev) if fsw_shared else feats_dev
         export_embeddings(st.best, export_feats, backbone_names, model_filepath, c, log)
         # interval snapshots also get embeddings (train_model_set.py:646-683)
-        if save_interval is not None:
+        if save_interval is not None and is_coordinator():
             for name in sorted(os.listdir(model_filepath)):
                 subdir = os.path.join(model_filepath, name)
                 snap = os.path.join(subdir, f"model_subtree_{c}.ckpt")

@@ -55,6 +55,7 @@ from ..models.fsw import (
     lookup_points,
     vocab_digits,
 )
+from ..parallel.mesh import DataMesh
 from ..utils.membudget import hbm_fraction
 from .step import distance_steps
 
@@ -119,18 +120,23 @@ class LazyPlanes:
                                                          self.feats, self.group)
         self.refreshes += 1
 
-    def rows(self, model: FSWDistEmbed, idx: torch.Tensor):
-        """(S, g2) rows of one batch step, refreshing first when it is due."""
+    def tick(self, model: FSWDistEmbed) -> None:
+        """Before every batch step (on every rank): refresh when it is due."""
         if self.step % self.interval == 0:
             self.refresh(model)
         self.step += 1
+
+    def rows(self, idx: torch.Tensor):
+        """(S, g2) rows of ``idx``."""
         return self.s.index_select(0, idx), self.g2.index_select(0, idx)
 
 
 def lazy_distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, planes: LazyPlanes,
                         dist: torch.Tensor, order: torch.Tensor, batch_size: int,
-                        weight_offset: float = 1e-6) -> torch.Tensor:
+                        weight_offset: float = 1e-6, mesh: DataMesh | None = None) -> torch.Tensor:
     """One epoch of the distance trainer on the lazy route; returns the epoch
-    loss as a device scalar."""
-    return distance_steps(lambda idx: fsw_lazy_apply(model, *planes.rows(model, idx)), model,
-                          opt, dist, order, batch_size, weight_offset)
+    loss as a device scalar. Over ranks every rank refreshes the planes of
+    every item (replicated, as the JAX package's data-only mesh does) and
+    embeds its rows of each batch."""
+    return distance_steps(lambda idx: fsw_lazy_apply(model, *planes.rows(idx)), model, opt, dist,
+                          order, batch_size, weight_offset, mesh, lambda: planes.tick(model))

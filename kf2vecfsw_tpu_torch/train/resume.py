@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..models.mlp import adam_state_from_jax, adam_state_to_jax, params_from_jax, params_to_jax
+from ..parallel.mesh import DataMesh, is_coordinator, rank_rows
 from .checkpoint import _flatten, _unflatten, atomic_savez
 from .step import epoch_order, make_adam
 
@@ -45,7 +46,10 @@ def save_trainer_state(
 ) -> None:
     """All trees in the JAX layout (nested dicts of numpy arrays). ``extra``
     carries trainer-specific JSON-serializable scalars (e.g. the
-    classifier's accuracy at the best epoch)."""
+    classifier's accuracy at the best epoch). Written by the coordinator
+    only."""
+    if not is_coordinator():
+        return
     arrays = {}
     for tag, tree in zip(_TAGS, (params, opt, best_params)):
         for k, v in _flatten(tree).items():
@@ -83,7 +87,8 @@ def _shapes(tree: dict) -> dict:
     return {k: _shapes(v) if isinstance(v, dict) else tuple(np.shape(v)) for k, v in tree.items()}
 
 
-def restore_trainer_state(state_path: str, params: dict, log=None):
+def restore_trainer_state(state_path: str, params: dict, log=None,
+                          mesh: DataMesh | None = None):
     """Load an autosave and guard its parameter shapes against the freshly
     built ``params`` (JAX layout); returns (start_epoch, params, opt,
     best_params, lowest, best_epoch, extra) as JAX-layout trees, or None when
@@ -91,8 +96,21 @@ def restore_trainer_state(state_path: str, params: dict, log=None):
 
     Raises SystemExit on an architecture mismatch: silently training resumed
     params of a different shape under lying checkpoint metadata is the one
-    failure mode worse than losing the run."""
+    failure mode worse than losing the run. Over ranks it raises SystemExit
+    on every rank when the ranks do not all see the same autosave (one
+    without a filesystem shared with rank 0 would start afresh)."""
     state = load_trainer_state(state_path)
+    if mesh is not None and mesh.distributed:
+        mine = torch.tensor([state is not None, state[0] if state is not None else -1],
+                            dtype=torch.int64, device=mesh.device)
+        views = rank_rows(mine, mesh).cpu()
+        if not bool((views == views[0]).all()):
+            raise SystemExit(
+                f"cannot -resume: the ranks disagree on the autosaved state at {state_path} "
+                f"(per-rank [has_state, epoch] = {views.tolist()}). Autosaves are written by "
+                "rank 0 only; resuming over ranks needs the state path on a filesystem that "
+                "every rank shares (or a copy on each host)"
+            )
     if state is None:
         return None
     last_epoch, s_params, s_opt, s_best, lowest, best_epoch, extra = state
@@ -138,12 +156,15 @@ class TrainerState:
 
 
 def start_or_resume(model: nn.Module, gen: torch.Generator, n_items: int, state_path: str,
-                    resume: bool, log, lr: float, device: torch.device) -> TrainerState:
+                    resume: bool, log, lr: float, device: torch.device,
+                    mesh: DataMesh | None = None) -> TrainerState:
     """``model`` is freshly drawn on the CPU from ``gen``. With ``resume`` and
     an autosave at ``state_path``, params, Adam state and best-so-far come
     from it and ``gen`` skips the item orders of the epochs already run, so
-    the resumed run takes the batches an uninterrupted one would."""
-    state = restore_trainer_state(state_path, params_to_jax(model), log) if resume else None
+    the resumed run takes the batches an uninterrupted one would (on every
+    rank alike)."""
+    state = (restore_trainer_state(state_path, params_to_jax(model), log, mesh) if resume
+             else None)
     if state is None:
         model = model.to(device)
         return TrainerState(model, copy.deepcopy(model), make_adam(model, lr))

@@ -15,6 +15,33 @@ spans, a remedy for the TPU's dispatch cost. A batch's loss is the mean over
 its pairs (distance) or items (classifier); the epoch loss is
 sum(loss * items) / sum(items). Losses stay on the device within an epoch:
 the caller fetches them once per epoch.
+
+Every epoch takes the JAX runners' sharded batch plan
+(``kf2vecfsw_tpu/train/step.py:227,267-292,417,445-470``): a batch is
+padded to batch_pad = ceil(B / R) * R rows and rank d holds rows
+[d * local_b, (d + 1) * local_b), local_b = batch_pad / R, so the padding
+falls at the end and a rank may hold only padding (``local_rows``). A
+padded row is masked out of every loss term, so the port does not embed
+it: a rank embeds its real rows, and the masked loss of the padded batch is
+the loss of its real rows. Every rank draws the same orders, so R ranks take
+the batches of one process.
+- Distance: the ranks' embeddings are gathered to the batch's (n, E) by one
+  all-reduce (``parallel.mesh.gather_rows``); the rank's own rows go back
+  in as the tensor that carries the gradient, the others detached. Every
+  rank computes the batch's loss and its backward, which reaches the
+  parameters through its own rows only.
+- Classifier: the local loss is the NLL sum of the rank's rows over the
+  batch's count; the loss and accuracy sums are all-reduced once an epoch.
+- Both: the step's gradients, flattened into one buffer, are summed across
+  ranks by one all-reduce (``all_reduce_grads``), then Adam steps on every
+  rank alike. ``DistributedDataParallel`` is not used: it averages over R,
+  which is wrong for a masked last batch; nor is an autograd all-gather,
+  whose backward sums the R identical losses (R times the gradient) and
+  needs collectives that gloo does not run on CUDA tensors.
+A process without a group takes the same plan as one rank: it holds every
+row, its gathered embeddings are its own, and no collective runs. At world
+size 1 a group adds only the all-reduces, whose sums of one rank change no
+bit, so a one-rank group trains bit for bit as a process without one.
 """
 
 from __future__ import annotations
@@ -22,8 +49,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.losses import nll_loss, weighted_sqrt_mse
+from ..ops.losses import nll_sum, weighted_sqrt_mse
 from ..ops.pairwise import pairwise_l2_exact
+from ..parallel.mesh import DataMesh, all_reduce_, gather_rows
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -56,56 +84,110 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def local_rows(n_rows: int, batch_size: int, mesh: DataMesh | None) -> tuple[int, int]:
+    """[lo, hi): this rank's real rows of a batch of ``n_rows`` items under
+    the sharded plan, the range [rank * local_b, (rank + 1) * local_b) cut
+    at ``n_rows`` (empty for a rank that holds only padding); every row
+    without a mesh."""
+    if mesh is None:
+        return 0, n_rows
+    local_b = -(-batch_size // mesh.world_size)
+    lo = min(mesh.rank * local_b, n_rows)
+    return lo, min(lo + local_b, n_rows)
+
+
+def all_reduce_grads(model: nn.Module) -> None:
+    """Sum every parameter's gradient across the ranks by one all-reduce of
+    one flat buffer (a parameter without a gradient adds zeros); the
+    gradients become views of that buffer. Nothing to do without a group."""
+    if not torch.distributed.is_initialized():
+        return
+    params = list(model.parameters())
+    flat = all_reduce_(torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]))
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def gathered_embeddings(own: torch.Tensor, lo: int, n_rows: int) -> torch.Tensor:
+    """(n_rows, E) embeddings of a batch from each rank's rows; this rank's
+    rows [lo, lo + len(own)) are ``own`` itself, so the gradient of a loss
+    of the result reaches this rank's parameters through them alone.
+    Without a group ``own`` is the batch."""
+    if not torch.distributed.is_initialized():
+        return own
+    full = gather_rows(own, lo, n_rows)
+    return torch.cat([full[:lo], own, full[lo + own.shape[0]:]])
+
+
+def sharded_step(model: nn.Module, opt: torch.optim.Optimizer, loss_fn, has_rows: bool) -> torch.Tensor:
+    """One Adam step of the sharded plan: ``loss_fn()`` is the batch's loss,
+    whose backward runs where the rank holds rows, then the gradients are
+    summed across the ranks; returns the loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    if has_rows:
+        loss.backward()
+    all_reduce_grads(model)
+    opt.step()
+    return loss
+
+
 def _distance_batch_loss(emb, dist, idx, weight_offset):
     true_dist = dist.index_select(0, idx).index_select(1, idx)
     return weighted_sqrt_mse(pairwise_l2_exact(emb), true_dist, None, weight_offset)
 
 
 def distance_steps(embed, model: nn.Module, opt: torch.optim.Optimizer, dist: torch.Tensor,
-                   order: torch.Tensor, batch_size: int, weight_offset: float = 1e-6) -> torch.Tensor:
+                   order: torch.Tensor, batch_size: int, weight_offset: float = 1e-6,
+                   mesh: DataMesh | None = None, before_step=None) -> torch.Tensor:
     """One epoch of the distance-embedding trainer over ``order`` (item
     indices into ``dist`` rows/cols, on its device), with ``embed(idx)``
-    the embeddings of a batch; returns the epoch loss as a device scalar."""
+    the embeddings of a batch's items; ``before_step()``, when given, runs
+    before every batch step on every rank. ``mesh`` is the trainer's data
+    axis (None or a mesh of one: every row); returns the epoch loss as a device scalar."""
     model.train()
     total = torch.zeros((), dtype=torch.float32, device=dist.device)
     for idx in torch.split(order, batch_size):
-        loss = _distance_batch_loss(embed(idx), dist, idx, weight_offset)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        if before_step is not None:
+            before_step()
+        lo, hi = local_rows(idx.numel(), batch_size, mesh)
+        own = (embed(idx[lo:hi]) if hi > lo else
+               torch.zeros((0, model.fc2.out_features), device=dist.device))
+        loss = sharded_step(model, opt, lambda: _distance_batch_loss(
+            gathered_embeddings(own, lo, idx.numel()), dist, idx, weight_offset), hi > lo)
         total += loss.detach() * idx.numel()
     return total / max(order.numel(), 1)
 
 
 def distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.Tensor,
                    dist: torch.Tensor, order: torch.Tensor, batch_size: int,
-                   weight_offset: float = 1e-6) -> torch.Tensor:
+                   weight_offset: float = 1e-6, mesh: DataMesh | None = None) -> torch.Tensor:
     """``distance_steps`` with the model's forward of ``feats`` rows: dense
     (n, V) vectors, FSW (n, N, k+1) point sets or (n, V) vocab weights."""
     return distance_steps(lambda idx: model(feats.index_select(0, idx)), model, opt, dist,
-                          order, batch_size, weight_offset)
+                          order, batch_size, weight_offset, mesh)
 
 
 def classifier_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.Tensor,
-                     labels: torch.Tensor, order: torch.Tensor,
-                     batch_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     labels: torch.Tensor, order: torch.Tensor, batch_size: int,
+                     mesh: DataMesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One epoch of the classifier trainer over ``order``; returns the epoch
     NLL and top-1 accuracy (taken before each batch's step, as the JAX
-    runner does) as device scalars."""
+    runner does) as device scalars; ``mesh`` as in ``distance_steps``."""
     model.train()
     total = torch.zeros((), dtype=torch.float32, device=feats.device)
     correct = torch.zeros((), dtype=torch.int64, device=feats.device)
     for idx in torch.split(order, batch_size):
-        log_probs = model(feats.index_select(0, idx))
-        y = labels.index_select(0, idx)
-        loss = nll_loss(log_probs, y)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        lo, hi = local_rows(idx.numel(), batch_size, mesh)
+        log_probs = model(feats.index_select(0, idx[lo:hi]))
+        y = labels.index_select(0, idx[lo:hi])
+        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True)
         total += loss.detach() * idx.numel()
         correct += (log_probs.detach().argmax(dim=1) == y).sum()
+    sums = all_reduce_(torch.stack([total.double(), correct.double()]))
     n = max(order.numel(), 1)
-    return total / n, correct.to(torch.float32) / n
+    return sums[0].float() / n, sums[1].to(torch.float32) / n
 
 
 @torch.no_grad()

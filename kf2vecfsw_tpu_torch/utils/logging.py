@@ -1,6 +1,7 @@
 """Per-run file+stream loggers, mirroring the reference's operator experience
 (timestamped log file in the output dir, message-only format; e.g.
-train_model_set.py:114-130)."""
+train_model_set.py:114-130). Over ranks only the coordinator opens the
+file (and makes the output directory); every rank logs to its stream."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import logging
 import os
 import time
 
+from ..parallel.mesh import is_coordinator
 from .cancel import Cancelled, CancelFlag, writing
 
 _counter = itertools.count()
@@ -36,10 +38,11 @@ def make_run_logger(out_dir: str, filename: str, cancel: CancelFlag | None = Non
     log.setLevel(logging.INFO)
     log.propagate = False
     fmt = logging.Formatter("%(message)s")
-    os.makedirs(out_dir, exist_ok=True)
-    fh = _GuardedFileHandler(os.path.join(out_dir, filename), cancel)
-    fh.setFormatter(fmt)
-    log.addHandler(fh)
+    if is_coordinator():
+        os.makedirs(out_dir, exist_ok=True)
+        fh = _GuardedFileHandler(os.path.join(out_dir, filename), cancel)
+        fh.setFormatter(fmt)
+        log.addHandler(fh)
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
     log.addHandler(sh)

@@ -49,7 +49,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                 "tree.cluster", "tree.distance", "ingest.tree_ops", "ops.losses",
                 "train.schedule", "train.resume", "train.classifier", "io.native.lib",
                 "io.kf", "io.fasta", "infer.cache", "infer.classify", "infer.query",
-                "infer.serve", "utils.phases", "utils.prefetch", "utils.cancel"):
+                "infer.serve", "utils.phases", "utils.prefetch", "utils.cancel",
+                "parallel.mesh", "parallel.counting", "parallel.mp_check"):
         assert f"kf2vecfsw_tpu_torch.{mod}" in report["modules"]
     assert report["textio"] and not report["jax_native"]
     loaded = report["loaded"]
