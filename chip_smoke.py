@@ -16,9 +16,11 @@ non-zero without one. Phases, each of which fails the run if it fails:
    - ``sort_rows`` against ``sort_rows_reference`` at R in {1, 33, 4096}
      rows, N from 1 to 131,072 (the global-merge path above 16,384), one
      payload row per key row or per 512, on random, tied / signed-zero,
-     sorted and reversed keys: sorted keys bit-equal, ``perm`` a
-     permutation that maps keys and payload to the outputs exactly, and
-     equal to the plain (stable) version's on every row, ties included;
+     sorted and reversed keys, and at a model-axis rank's shapes (256 x
+     8,192 with one payload row, 4,096 x 8,192 with 16): sorted keys
+     bit-equal, ``perm`` a permutation that maps keys and payload to the
+     outputs exactly, and equal to the plain (stable) version's on every
+     row, ties included;
 4. main paths at full width, each driven with the launch counts set to 0
    just before it and read just after:
    - dense: ``process_query_data`` (k=7, a classifier 8192->2048->12 and 12
@@ -90,6 +92,15 @@ non-zero without one. Phases, each of which fails the run if it fails:
      ``count_canonical_sharded`` of the 9 Mb query at R = 2, exact against
      one launch. (c) Two cards on NCCL when the machine has them, else one
      line saying it did not run;
+   - model_axis: tensor-parallel training on the grid (1, 2)
+     (``parallel.mesh.make_mesh``, two ranks sharing the card over gloo,
+     each through ``parallel/mp_check.py``'s ``run_grid``): the ranks
+     phase's ``train_classifier``, dense and FSW ``train_model_set`` (lazy
+     and exact) at full width, each rank holding 1,024 of the 2,048 hidden
+     units and 256 of the 512 FSW slices; only rank 0 writes, the gathered
+     params bit-equal on both ranks, the checkpoints and exports within the
+     rebuild's Adam sign-flip bound of the ranks phase's runs without a
+     group, and every FSW training sort on both ranks one of 256 rows;
    - long genome: one genome of more than 2^31 bases (a 1 Mb block repeated
      LONG_REPEATS times) counted on the card in overlapping pieces, exact
      against R x the block's counts + (R - 1) x its junction's;
@@ -99,7 +110,8 @@ non-zero without one. Phases, each of which fails the run if it fails:
    batch of homopolymers and of dinucleotide repeats; ``sort_rows``: 16
    genomes x 512 slices = 8,192 rows of 8,192, the FSW training sort of
    512 rows of 8,192 with one payload row, and rows of 32,896, a k=8 point
-   set, on the global-merge path; the sort's backward, an unsort scatter,
+   set, on the global-merge path, and a model-axis rank's 256 x 8,192 and
+   4,096 x 8,192; the sort's backward, an unsort scatter,
    at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
    exports' seconds (str(np.float32) formatting apart) and its peak device
@@ -116,7 +128,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
    and 850 rows of 1,024 float32, the bytes and values equal; each ranked
    trainer's steps/s over epoch 2 without a group, in the one-rank group and
    at two ranks sharing the card, with the bytes all-reduced per step, the
-   sharded count's seconds and the phase's.
+   sharded count's seconds and the phase's; on the grid (1, 2) each
+   trainer's steps/s over epoch 2, the bytes all-reduced per step on each
+   group, each rank's sort_rows launches and rows per call, and the phase's
+   seconds.
 
 The last three lines of standard output are the kernel report (JSON), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -167,6 +182,7 @@ from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, til
 from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators, count_canonical_numpy
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_codes, canonical_vocab_size
+from kf2vecfsw_tpu_torch.models import fsw as fsw_model
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_, unsort
 from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
 from kf2vecfsw_tpu_torch.parallel.counting import count_canonical_sharded
@@ -178,7 +194,7 @@ from kf2vecfsw_tpu_torch.parallel.mesh import (
     is_coordinator,
     shutdown_distributed,
 )
-from kf2vecfsw_tpu_torch.parallel.mp_check import free_port, launch
+from kf2vecfsw_tpu_torch.parallel.mp_check import free_port, launch, run_grid
 from kf2vecfsw_tpu_torch.train import chunks as train_chunks
 from kf2vecfsw_tpu_torch.train import classifier as train_classifier
 from kf2vecfsw_tpu_torch.train import distance as train_distance
@@ -293,6 +309,16 @@ SERVE_TIMEOUT_S = 600  # the daemon's watchdog: a wedged request is answered, no
 # are identities), held within rtol 1e-6
 RANKS_EPOCHS, RANKS_W1_RTOL, RANKS_TIMEOUT_S = 2, 1e-6, 400
 RANKS_DEVICE = "cuda"  # the ranks' -device (a CPU rehearsal sets "cpu")
+# the model axis: the grid (1, 2), two ranks sharing the card over gloo, each
+# with half the hidden units and half the FSW slices; its trainers are the
+# ranks phase's (the same data, epochs and flags), held to that phase's runs
+# without a group
+MODEL_AXIS_GRID = (1, 2)
+MODEL_AXIS_TRAINERS = ("train_classifier", "dense", "fsw_lazy", "fsw_exact")
+# sort_rows at a rank's share of the slices: the exact shared step's and the
+# lazy refresh's sort (256 rows of the vocab, one payload row) and a
+# per-genome step's (16 genomes x 256 rows, one payload row per genome)
+MODEL_AXIS_SORTS = ((FSW_OUT_DIM // 2, V_MAIN, 1), (16 * FSW_OUT_DIM // 2, V_MAIN, 16))
 F32_TINY = float(np.finfo(np.float32).tiny)  # an atol under which only 0 matches 0
 
 
@@ -480,6 +506,17 @@ def phase_sort_vs_plain(dev) -> float:
             torch.cuda.empty_cache()
             log(f"phase sort_vs_plain: R={r} N={n} exact, perm equal on every row "
                 f"({tied} rows with ties)")
+    for r, n, p in MODEL_AXIS_SORTS:  # a model-axis rank's share of the slices
+        keys = torch.randn(r, n, generator=gen, device=dev)
+        payload = torch.rand(p, n, generator=gen, device=dev)
+        got = sort_rows(keys, payload)
+        torch.cuda.synchronize()
+        ref = sort_rows_reference(keys, payload)
+        check_sort(keys, payload, got, ref)
+        max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+        cases += 1
+        log(f"phase sort_vs_plain: a model-axis rank's shape R={r} N={n} P={p} exact, perm "
+            "equal on every row")
     log(f"phase sort_vs_plain: {cases} cases exact")
     return max_err
 
@@ -1041,10 +1078,13 @@ class TrainerClock:
 
     def _refresh(self, fn):
         def timed(planes, model):
-            torch.cuda.synchronize()
+            card = torch.cuda.is_available()  # a CPU rehearsal of the ranks has no card
+            if card:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(planes, model)
-            torch.cuda.synchronize()
+            if card:
+                torch.cuda.synchronize()
             self.refresh_s.append((len(self.epochs["distance"]), time.perf_counter() - t0))
             return out
         return timed
@@ -1944,33 +1984,63 @@ def ranked_readings(trainers: list[RankedTrainer], reports: list[list[dict]]) ->
 RANK_FLAG = "--rank-steps"
 
 
+class SortRowsRows:
+    """Records the rows of every ``sort_rows`` call of the FSW model (by
+    wrapping the name ``models/fsw.py`` calls, restored on exit); the
+    wrapper's own launch count is untouched."""
+
+    def __init__(self):
+        self.rows: dict[int, int] = {}
+
+    def __enter__(self):
+        self._fn = fsw_model.sort_rows
+
+        def recorded(keys, payload):
+            self.rows[keys.shape[0]] = self.rows.get(keys.shape[0], 0) + 1
+            return self._fn(keys, payload)
+
+        fsw_model.sort_rows = recorded
+        return self
+
+    def __exit__(self, *exc):
+        fsw_model.sort_rows = self._fn
+
+
 def rank_steps(report_path: str, steps: list[list[str]]) -> None:
-    """One rank of ``ranked_launch`` (``chip_smoke.py --rank-steps REPORT --
-    STEP -- STEP ...``, the launcher's variables set): the steps in turn in
-    one process group, each a CLI command line or ``count CODES.npy K DEVICE
-    OUT.npy`` (count_canonical_sharded of the encoded bases, rank 0 writing
-    OUT). The launch counts and the all-reduce counter are set to 0
-    just before each step and read just after it; TrainerClock times its
-    epochs. REPORT (``{rank}`` in the path is the rank) gets every step's
-    seconds, epochs, all-reduces and launches on this rank."""
+    """One rank of ``ranked_launch`` or ``grid_launch`` (``chip_smoke.py
+    --rank-steps REPORT -- STEP -- STEP ...``, the launcher's variables
+    set): the steps in turn in one process group, each a CLI command line,
+    ``count CODES.npy K DEVICE OUT.npy`` (count_canonical_sharded of the
+    encoded bases, rank 0 writing OUT) or ``grid N_DATA N_MODEL CMD ARGS``
+    (a trainer on a grid with a model axis, ``parallel/mp_check.py``'s
+    ``run_grid``). The launch counts and the all-reduce counters are set to
+    0 just before each step and read just after it; TrainerClock times its
+    epochs and SortRowsRows counts the rows of each sort. REPORT (``{rank}``
+    in the path is the rank) gets every step's seconds, epochs, all-reduces
+    (by group), launches and sort rows on this rank."""
     report = []
     for argv in steps:
         kmer_hist.launches = sort_rows.launches = 0
         all_reduce_.bytes = all_reduce_.calls = 0
+        all_reduce_.bytes_by.clear()
         t0 = time.perf_counter()
-        with TrainerClock() as clock:
+        with TrainerClock() as clock, SortRowsRows() as sorts:
             if argv[0] == "count":
                 codes, k, device, out_path = argv[1:]
                 initialize_distributed(device=device)
                 hist = count_canonical_sharded(np.load(codes), int(k), data_mesh(torch.device(device)))
                 if is_coordinator():
                     np.save(out_path, hist)
+            elif argv[0] == "grid":
+                run_grid(argv[1], argv[2], argv[3:])
             else:
                 cli_main(argv)
         report.append({"argv": argv, "seconds": time.perf_counter() - t0, "epochs": clock.epochs,
                        "all_reduce_calls": all_reduce_.calls, "all_reduce_bytes": all_reduce_.bytes,
+                       "all_reduce_bytes_by": dict(all_reduce_.bytes_by),
                        "launches": {"kmer_hist": kmer_hist.launches,
-                                    "sort_rows": sort_rows.launches}})
+                                    "sort_rows": sort_rows.launches},
+                       "sort_rows_rows": {str(r): n for r, n in sorted(sorts.rows.items())}})
     rank = dist.get_rank()
     with open(report_path.format(rank=rank), "w") as f:
         json.dump({"rank": rank, "steps": report}, f)
@@ -1988,8 +2058,9 @@ def rank_main(argv: list[str]) -> int:
     return 0
 
 
-def phase_ranks(work: str, paths: dict, q_dir: str) -> dict:
-    """Data-parallel training over ranks (see the module docstring, phase 4)."""
+def phase_ranks(work: str, paths: dict, q_dir: str) -> tuple[dict, list[RankedTrainer]]:
+    """Data-parallel training over ranks (see the module docstring, phase 4);
+    returns the phase's readings and its trainers."""
     t_phase = time.perf_counter()
     trainers, clade = ranked_trainers(work, paths)
     root = os.path.join(work, "ranks")
@@ -2023,6 +2094,78 @@ def phase_ranks(work: str, paths: dict, q_dir: str) -> dict:
         log(f"phase ranks (c) two cards on NCCL: not run, this machine has {n_cards} CUDA card "
             "(NCCL takes one card per rank); a true two-card run stays unverified")
     out["phase_s"] = time.perf_counter() - t_phase
+    return out, trainers
+
+
+def grid_launch(trainers: list[RankedTrainer], root: str, grid: tuple[int, int]) -> list[list[dict]]:
+    """The trainers on ``grid`` (``rank_steps``' ``grid`` steps), every rank of
+    one ``mp_check`` launch sharing the card over gloo, rank r writing to
+    ``root/rank{r}``; returns the ranks' reports."""
+    ranks = grid[0] * grid[1]
+    argvs = []
+    for r in range(ranks):
+        steps = []
+        for t in trainers:
+            out = os.path.join(root, f"rank{r}", t.name)
+            os.makedirs(out)
+            steps += ["--", "grid", str(grid[0]), str(grid[1]), *t.argv(out)]
+        argvs.append([sys.executable, os.path.abspath(__file__), RANK_FLAG,
+                      os.path.join(root, "report{rank}.json"), *steps])
+    launch(argvs, "gloo", RANKS_TIMEOUT_S)
+    reports = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"report{r}.json")) as f:
+            reports.append(json.load(f)["steps"])
+    return reports
+
+
+def phase_model_axis(work: str, ranked: list[RankedTrainer]) -> dict:
+    """The model axis (see the module docstring, phase 4): the ranks phase's
+    classifier, dense and FSW trainers on the grid MODEL_AXIS_GRID, two ranks
+    sharing the card over gloo, each holding half of every model."""
+    t_phase = time.perf_counter()
+    trainers = [t for t in ranked if t.name in MODEL_AXIS_TRAINERS]
+    root = os.path.join(work, "model_axis")
+    release_serving_caches()
+    reports = grid_launch(trainers, root, MODEL_AXIS_GRID)
+    rank0 = os.path.join(root, "rank0")
+    ranks = len(reports)
+    for t in trainers:
+        for r in range(1, ranks):
+            check(os.listdir(os.path.join(root, f"rank{r}", t.name)) == [],
+                  f"model axis {t.name}: rank {r} wrote files")
+        logs = read_logs(os.path.join(rank0, t.name))
+        check(logs.count(f"bit-equal on {ranks} rank(s)") == len(t.checkpoints),
+              f"model axis {t.name}: the gathered params are not bit-equal on {ranks} ranks")
+        check(f"grid {MODEL_AXIS_GRID[0]} x {MODEL_AXIS_GRID[1]} (data x model)" in logs,
+              f"model axis {t.name}: the Ranks line names no grid")
+    out = {"grid": list(MODEL_AXIS_GRID), "trainers": {}}
+    for t, steps in zip(trainers, zip(*reports)):
+        fsw = t.name.startswith("fsw")
+        for r, step in enumerate(steps):
+            rows = step["sort_rows_rows"]
+            # training sorts the rank's 256 slices; rank 0 also exports with
+            # the gathered model, blocks of point sets x all 512 slices
+            others = [n for n in rows if int(n) != FSW_OUT_DIM // 2
+                      and not (r == 0 and int(n) % FSW_OUT_DIM == 0)]
+            check(not fsw or (step["launches"]["sort_rows"] >= 1
+                              and str(FSW_OUT_DIM // 2) in rows and not others),
+                  f"model axis {t.name}: rank {r} sort_rows launches "
+                  f"{step['launches']['sort_rows']}, rows per call {rows}")
+        later = [(n, s) for i, (n, s) in enumerate(steps[0]["epochs"][t.kind]) if i % RANKS_EPOCHS]
+        out["trainers"][t.name] = {
+            "steps_per_s": sum(n for n, _ in later) / sum(s for _, s in later),
+            "all_reduce_bytes_per_step": {  # a one-rank data group sums nothing
+                group: steps[0]["all_reduce_bytes_by"].get(group, 0) / t.steps
+                for group in ("data", "model", "world")},
+            "sort_rows_launches": [step["launches"]["sort_rows"] for step in steps],
+            "kmer_hist_launches": [step["launches"]["kmer_hist"] for step in steps],
+            "sort_rows_rows": [step["sort_rows_rows"] for step in steps],
+            "seconds": steps[0]["seconds"]}
+    out["vs_no_group"] = compare_ranked(trainers, os.path.join(work, "ranks", "plain"), rank0)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase model_axis: grid {MODEL_AXIS_GRID[0]} x {MODEL_AXIS_GRID[1]} over gloo on one "
+        f"card, {json.dumps(out)}")
     return out
 
 
@@ -2254,7 +2397,8 @@ def main() -> int:
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
         chunk = phase_train_chunks(work, built, q_dir, q_names)
-        ranks = phase_ranks(work, built, q_dir)
+        ranks, ranked = phase_ranks(work, built, q_dir)
+        model_axis = phase_model_axis(work, ranked)
         phase_host_text(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2262,6 +2406,7 @@ def main() -> int:
     chunk_timing = phase_chunk_hist_timings(dev)
     sort_timing = phase_sort_timings(dev, PHASE5_SORT, reps=10)
     train_sort_timing = phase_sort_timings(dev, PHASE5_TRAIN_SORT, reps=50)
+    axis_sort_timings = [phase_sort_timings(dev, shape, reps=50) for shape in MODEL_AXIS_SORTS]
     long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
     unsort_timing = phase_unsort_timings(dev)
     for tag, run in paths.items():
@@ -2299,6 +2444,11 @@ def main() -> int:
                       for name in ranks["no_group"]})
         + f"; count_canonical_sharded R = 2 {ranks['count_sharded']['seconds']:.3f} s; two-rank "
         f"launch {ranks['two_ranks_wall_s']:.1f} s; the whole phase {ranks['phase_s']:.1f} s")
+    log(f"phase timings: model_axis on {smi}: grid {MODEL_AXIS_GRID[0]} x {MODEL_AXIS_GRID[1]}, "
+        "rank 0's steps/s over epoch 2 and bytes all-reduced per step by group " + json.dumps(
+            {name: [run["steps_per_s"], run["all_reduce_bytes_per_step"]]
+             for name, run in model_axis["trainers"].items()})
+        + f"; the whole phase {model_axis['phase_s']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
@@ -2319,6 +2469,9 @@ def main() -> int:
         by_path[name]["train_ddp_two_ranks_rank0"] = sum(
             run["launches"][name] for run in ranks["two_ranks_gloo"].values())
     by_path["kmer_hist"]["count_sharded"] = ranks["count_sharded"]["launches"]
+    for name in by_path:  # both ranks, rank 0's exports included
+        by_path[name]["train_model_axis"] = sum(sum(run[f"{name}_launches"])
+                                                for run in model_axis["trainers"].values())
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],
@@ -2341,6 +2494,11 @@ def main() -> int:
                       ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "train_shape": {key: train_sort_timing[key] for key in
                         ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "model_axis_shapes": [{key: timing[key] for key in
+                               ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                              for timing in axis_sort_timings],
+        "model_axis_rows_per_call": {name: run["sort_rows_rows"] for name, run in
+                                     model_axis["trainers"].items() if name.startswith("fsw")},
         "train_fsw_routes": {route: {key: run[key] for key in (
             "launches_outside_exports", "export_launches", "refreshes")}
             for route, run in fsw["routes"].items()},

@@ -3,7 +3,9 @@ parser (``kf2vecfsw_tpu/cli.py``) that the port runs, with the same flags
 and defaults, plus ``-device {cuda,cpu}`` (default ``cuda``) on every
 command that uses a device, for a caller who asks for the CPU. The four
 trainers run data-parallel over the ranks of a launcher such as
-``torch.distributed.run`` (``parallel/mesh.py``).
+``torch.distributed.run`` (``parallel/mesh.py``); on a grid with a model
+axis through ``parallel/mp_check.py``'s ``grid`` worker or a library call
+with ``mesh=``.
 
 Commands:
   get_kmers                Genome -> (N, k+1) k-mer point set .npy (FSW input)
@@ -85,7 +87,7 @@ def _cmd_train_classifier(args):
     train_classifier_func(
         args.input_dir, files, args.subtrees, args.e, args.hidden_sz, args.batch_sz,
         args.lr, args.lr_min, args.lr_decay, args.seed, args.mask, args.o,
-        resume=args.resume, device=args.device,
+        resume=args.resume, device=args.device, mesh=args.mesh,
     )
 
 
@@ -108,6 +110,7 @@ def _cmd_train_model_set(args):
         args.seed, args.o, test_ids_path=args.test_set, save_interval=args.save_interval,
         use_fsw=not args.no_fsw, base_dim=args.base_dim, fswout_dim=args.fswout_dim,
         resume=args.resume, fsw_lazy_refresh=args.fsw_lazy_refresh, device=args.device,
+        mesh=args.mesh,
     )
 
 
@@ -141,7 +144,7 @@ def _cmd_train_model_set_chunks(args):
         args.input_dir, args.input_dir_fullgenomes, files, args.subtrees,
         args.true_dist, args.e, args.hidden_sz, args.embed_sz, args.batch_sz,
         args.lr, args.lr_min, args.lr_decay, args.clade, args.seed, args.cap, args.o,
-        resume=args.resume, device=args.device,
+        resume=args.resume, device=args.device, mesh=args.mesh,
     )
 
 
@@ -153,7 +156,7 @@ def _cmd_train_classifier_chunks(args):
         args.input_dir, args.input_dir_fullgenomes, files, args.subtrees, args.e,
         args.hidden_sz, args.batch_sz, args.lr, args.lr_min, args.lr_decay,
         args.seed, args.mask, args.cap, args.o,
-        resume=args.resume, device=args.device,
+        resume=args.resume, device=args.device, mesh=args.mesh,
     )
 
 
@@ -327,6 +330,10 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     parser.add_argument("-v", "--version", action="version", version=VERSION)
+    # the trainers' grid of ranks (parallel.mesh.make_mesh): no flag reaches
+    # it, as none does in the JAX CLI; parallel/mp_check.py's grid worker
+    # sets it on the parsed arguments
+    parser.set_defaults(mesh=None)
     sub = parser.add_subparsers(title="commands", dest="command")
 
     p = sub.add_parser("get_kmers", description="Extract kmers and frequencies from FASTA files")

@@ -38,6 +38,18 @@ Three forwards train the model:
   through (xi - xi.detach()) * g2, zero in value, where g2 = dE/dxi at the
   refresh. At a fresh order the value and every gradient equal the exact
   forward's.
+
+On a grid with a model axis (``parallel.mesh.shard_module``) each rank
+holds d_out / n_model of the slices and frequencies and the matching input
+columns of fc1, which is row-parallel (``mlp.row_parallel``); the lookup,
+fc1's bias and fc2 stay whole. Every forward then sorts only the rank's
+slices, and the lazy planes hold only the rank's (the JAX package's
+``P(None, MODEL_AXIS)`` planes). The lookup feeds every rank's slices, so
+it enters through ``mlp.enter_model_axis``: the backward sums its gradient
+over the model group, and every rank's copy takes the true gradient and
+stays bit-equal. (The JAX package's FSW apply functions do not sum it: each
+model rank's ``lookup`` gradient is n_model times its own slices' part, and
+its replicated copies drift apart.)
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ from ..kmer.vocab import (
     codes_to_digit_matrix,
 )
 from ..utils.membudget import hbm_fraction
-from .mlp import init_params_
+from .mlp import enter_model_axis, init_params_, row_parallel
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -251,6 +263,8 @@ def lookup_points(lookup: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 class FSWDistEmbed(nn.Module):
     """NeuralNetFSW: lookup -> FSW layer -> Linear -> ReLU -> Linear."""
 
+    model_axis = None  # set by parallel.mesh.shard_module
+
     def __init__(self, k: int, base_dim: int, d_out: int, hidden_size: int, embedding_size: int):
         super().__init__()
         self.k = k
@@ -271,22 +285,25 @@ class FSWDistEmbed(nn.Module):
         kmers = x[..., :-1].long()
         weights = x[..., -1]
         b, n, _ = kmers.shape
-        points = lookup_points(self.lookup, kmers)
+        points = lookup_points(enter_model_axis(self.lookup, self.model_axis), kmers)
         if slice_chunk is None:
             slice_chunk = auto_slice_chunk(b, n, self.slices.shape[0], x.device)
-        e = fsw_embed(self.slices, self.freqs, points, weights, slice_chunk)
-        return self.fc2(F.relu(self.fc1(e)))
+        return self.head(fsw_embed(self.slices, self.freqs, points, weights, slice_chunk))
 
     def forward_shared(self, w: torch.Tensor, digits: torch.Tensor,
                        slice_chunk: int | None = None) -> torch.Tensor:
         """w: (B, V) vocab-aligned weights, digits: (V, k) int64 reference-coded
         bases of the vocab (the JAX package's ``fsw_dist_embed_apply_shared``)."""
         b, v = w.shape
-        points = lookup_points(self.lookup, digits)
+        points = lookup_points(enter_model_axis(self.lookup, self.model_axis), digits)
         if slice_chunk is None:
             slice_chunk = auto_slice_chunk(b, v, self.slices.shape[0], w.device)
-        e = fsw_embed_shared(self.slices, self.freqs, points, w, slice_chunk)
-        return self.fc2(F.relu(self.fc1(e)))
+        return self.head(fsw_embed_shared(self.slices, self.freqs, points, w, slice_chunk))
+
+    def head(self, e: torch.Tensor) -> torch.Tensor:
+        """The MLP on FSW embeddings e (B, C): fc1 row-parallel over a model
+        axis, its sum whole on every rank before the bias and the ReLU."""
+        return self.fc2(F.relu(row_parallel(self.fc1, e, self.model_axis)))
 
 
 def _delta_and_gdelta(ws: torch.Tensor, freqs: torch.Tensor, xi_shape):
@@ -360,15 +377,16 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
 
 def fsw_lazy_apply(model: FSWDistEmbed, s: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     """Embeddings (B, E) from rows of a refresh's S (B, C, k, 4) and g2
-    (B, C). Gradients reach the slices and the lookup through the (C, k, 4)
+    (B, C), C the model's own slices (a rank's share on a model axis).
+    Gradients reach the slices and the lookup through the (C, k, 4)
     projections of the slice blocks on the lookup rows, the frequencies
     through (xi - xi.detach()) * g2, which is zero in value."""
     c, k = s.shape[1], s.shape[2]
     vblocks = model.slices.reshape(c, k, -1)
-    proj = torch.einsum("ckd,ad->cka", vblocks, model.lookup)
+    proj = torch.einsum("ckd,ad->cka", vblocks, enter_model_axis(model.lookup, model.model_axis))
     e = torch.einsum("bcka,cka->bc", s, proj)
     e = e + (model.freqs - model.freqs.detach())[None, :] * g2
-    return model.fc2(F.relu(model.fc1(e)))
+    return model.head(e)
 
 
 @torch.no_grad()

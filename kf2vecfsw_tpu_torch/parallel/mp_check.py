@@ -10,20 +10,33 @@ fault; on a failure or at the timeout it kills every rank. A rank runs
 any command line: the CLI (``python -m kf2vecfsw_tpu_torch train_model_set
 ... -device cuda``), or a worker of this module:
 
-    python -m kf2vecfsw_tpu_torch.parallel.mp_check epoch PROBLEM.npz OUT.npz
+    python -m kf2vecfsw_tpu_torch.parallel.mp_check epoch PROBLEM.npz OUT.npz [PROBLEM OUT ...]
     python -m kf2vecfsw_tpu_torch.parallel.mp_check sampler CHUNKS_DIR SEED DRAWS DEVICE OUT.npy
     python -m kf2vecfsw_tpu_torch.parallel.mp_check count CODES.npy K DEVICE OUT.npy
+    python -m kf2vecfsw_tpu_torch.parallel.mp_check grid N_DATA N_MODEL TRAINER ARGS...
 
-``epoch`` trains one epoch of PROBLEM.npz (``write_epoch_problem``) on the
-sharded plan and writes the loss, the parameters and the last batch's
-summed gradients; ``sampler`` reads each rank's slice of the chunk `.kf`
-files of CHUNKS_DIR into the genome-sharded store and draws the span rows
-of epoch 0 through it; ``count`` runs ``count_canonical_sharded`` of the
-encoded bases of CODES.npy and prints the rank's ``kmer_hist`` launches
-(``kmer_hist launches: N``). Rank 0 writes every OUT.
+``epoch`` trains one epoch of each PROBLEM.npz (``write_epoch_problem``) on
+the sharded plan of the grid (world / n_model) x n_model and writes the
+loss, the full parameters and the last batch's summed gradients (gathered
+over the model axis) and the rank's own cut; ``sampler`` reads each rank's
+slice of the chunk `.kf` files of CHUNKS_DIR into the genome-sharded store
+and draws the span rows of epoch 0 through it; ``count`` runs
+``count_canonical_sharded`` of the encoded bases of CODES.npy and prints
+the rank's ``kmer_hist`` launches (``kmer_hist launches: N``); ``grid``
+runs one trainer command of the CLI (``train_classifier ... -device
+cuda``) on the grid ``make_mesh(N_DATA, N_MODEL)``, the model axis that no
+CLI flag reaches, and prints the rank's ``sort_rows`` launches
+(``sort_rows launches: N``). Rank 0 writes every OUT, or, when OUT holds
+``{rank}``, every rank writes its own.
 
 The CPU tests run the ranks with gloo; ``chip_smoke.py`` runs two of them
 sharing one card (gloo on CUDA tensors), since NCCL takes one card per rank.
+By hand, two ranks of a trainer on the grid 1 x 2 (the model cut in two),
+rank 0's output printed::
+
+    python -c "from kf2vecfsw_tpu_torch.parallel.mp_check import launch, worker; \\
+        argv = 'train_model_set -input_dir npy -subtrees t.subtrees -true_dist . -o out'; \\
+        print(launch([worker('grid') + ['1', '2'] + argv.split()] * 2, 'gloo', 3600)[0][1])"
 """
 
 from __future__ import annotations
@@ -140,51 +153,91 @@ def run_sampler(chunks_dir: str, seed: int, draws: int, device: str, out_path: s
 
 
 def write_epoch_problem(path: str, kind: str, feats, target, order, batch_size: int, lr: float,
-                        params: dict) -> None:
+                        params: dict, n_model: int = 1, refresh: int = 0, resume_state: str = "",
+                        save_state: str = "") -> None:
     """The inputs of an ``epoch`` worker: ``kind`` "distance" (``target`` the
     true distances) or "classifier" (``target`` the labels), the item
-    order, the batch size, the learning rate and the initial params in the
-    JAX layout."""
+    order, the batch size, the learning rate, the initial params in the
+    JAX layout (a dense or an FSW model: (n, V) features take the FSW
+    shared-vocab forward, (n, N, k+1) the per-genome one), the grid's
+    model axis and, for FSW, ``refresh`` R > 0 for the lazy route at R (its
+    refresh groups of 4 items), 0 for the exact one. ``resume_state``
+    names a trainer state to start from instead of the params (its params
+    and Adam state, cut for the grid), ``save_state`` where the trainer
+    state after the epoch is autosaved (gathered, as the trainers do)."""
     import numpy as np
 
     from ..train.checkpoint import _flatten
 
     np.savez(path, kind=kind, feats=feats, target=target, order=order, batch_size=batch_size,
-             lr=lr, **{f"params::{k}": v for k, v in _flatten(params).items()})
+             lr=lr, n_model=n_model, refresh=refresh, resume_state=resume_state,
+             save_state=save_state, **{f"params::{k}": v for k, v in _flatten(params).items()})
 
 
 def run_epoch(problem_path: str, out_path: str) -> None:
+    import copy
+
     import numpy as np
     import torch
 
     from ..models.mlp import params_from_jax, params_to_jax
     from ..train.checkpoint import _flatten, _unflatten
-    from ..train.step import classifier_epoch, distance_epoch, make_adam
-    from .mesh import data_mesh, initialize_distributed, is_coordinator
+    from ..train.fsw_lazy import LazyPlanes, lazy_distance_epoch
+    from ..train.resume import start_or_resume
+    from ..train.step import classifier_epoch, distance_epoch
+    from .mesh import gather_module, initialize_distributed, is_coordinator, make_mesh
 
     initialize_distributed(device="cpu")
-    mesh = data_mesh(torch.device("cpu"))
     with np.load(problem_path) as data:
-        kind = str(data["kind"])
+        kind, refresh = str(data["kind"]), int(data["refresh"])
         feats, target = torch.from_numpy(data["feats"]), torch.from_numpy(data["target"])
         order, batch = torch.from_numpy(data["order"]), int(data["batch_size"])
         lr = float(data["lr"])
+        mesh = make_mesh(None, int(data["n_model"]), "cpu")
+        resume_state, save_state = str(data["resume_state"]), str(data["save_state"])
         params = _unflatten({k[len("params::"):]: data[k] for k in data.files
                              if k.startswith("params::")})
-    model = params_from_jax(params)
-    opt = make_adam(model, lr)
-    if kind == "distance":
-        loss, acc = distance_epoch(model, opt, feats, target, order, batch, mesh=mesh), None
-    else:
+    st = start_or_resume(params_from_jax(params), torch.Generator(), order.numel(), resume_state,
+                         bool(resume_state), None, lr, torch.device("cpu"), mesh, shard=True)
+    model, opt = st.model, st.opt
+    if kind == "classifier":
         loss, acc = classifier_epoch(model, opt, feats, target, order, batch, mesh=mesh)
-    grads = params_from_jax(params)
+    elif refresh > 0:
+        planes = LazyPlanes(feats, feats.dim() == 2, refresh, -(-order.numel() // batch), 4)
+        loss, acc = lazy_distance_epoch(model, opt, planes, target, order, batch, mesh=mesh), None
+    else:
+        loss, acc = distance_epoch(model, opt, feats, target, order, batch, mesh=mesh), None
+    if save_state:
+        st.autosave(save_state, st.start_epoch)
+    grads = copy.deepcopy(model)
     with torch.no_grad():
         for g, p in zip(grads.parameters(), model.parameters()):
-            g.copy_(p.grad)
-    if is_coordinator():
-        np.savez(out_path, loss=float(loss), acc=float("nan") if acc is None else float(acc),
-                 **{f"params::{k}": v for k, v in _flatten(params_to_jax(model)).items()},
-                 **{f"grads::{k}": v for k, v in _flatten(params_to_jax(grads)).items()})
+            g.copy_(p.grad if p.grad is not None else torch.zeros_like(p))
+    full, full_grads = gather_module(model), gather_module(grads)
+    if is_coordinator() or "{rank}" in out_path:
+        np.savez(out_path.format(rank=mesh.rank), loss=float(loss),
+                 acc=float("nan") if acc is None else float(acc),
+                 **{f"params::{k}": v for k, v in _flatten(params_to_jax(full)).items()},
+                 **{f"grads::{k}": v for k, v in _flatten(params_to_jax(full_grads)).items()},
+                 **{f"local::{k}": p.detach().numpy() for k, p in model.named_parameters()})
+
+
+def run_grid(n_data: str, n_model: str, argv: list[str]) -> None:
+    """One trainer command of the CLI on the grid ``make_mesh(n_data,
+    n_model)``; prints the rank's ``sort_rows`` launches."""
+    from ..cli import _RANKED_COMMANDS, build_parser
+    from ..kernels.sort import sort_rows
+    from .mesh import initialize_distributed, make_mesh
+
+    args = build_parser().parse_args(argv)
+    if args.command not in _RANKED_COMMANDS:
+        raise SystemExit(f"grid runs a trainer ({', '.join(sorted(_RANKED_COMMANDS))}), "
+                         f"not {args.command!r}")
+    initialize_distributed(device=args.device)
+    args.mesh = make_mesh(int(n_data), int(n_model), args.device)
+    sort_rows.launches = 0
+    args.func(args)
+    print(f"sort_rows launches: {sort_rows.launches}", flush=True)
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -193,13 +246,16 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     mode, rest = argv[0], argv[1:]
     if mode == "epoch":
-        run_epoch(rest[0], rest[1])
+        for problem, out in zip(rest[::2], rest[1::2]):
+            run_epoch(problem, out)
     elif mode == "sampler":
         run_sampler(rest[0], int(rest[1]), int(rest[2]), rest[3], rest[4])
     elif mode == "count":
         run_count(*rest)
+    elif mode == "grid":
+        run_grid(rest[0], rest[1], rest[2:])
     else:
-        raise SystemExit(f"unknown mode {mode!r}: use epoch, sampler or count")
+        raise SystemExit(f"unknown mode {mode!r}: use epoch, sampler, count or grid")
     shutdown_distributed()
 
 

@@ -43,7 +43,13 @@ the spans of the genomes it owns, and the batch is assembled by one
 all-reduce, bit for bit the replicated store's (``sample_chunk_batch_sharded``).
 When the sharded store does not fit, every rank reads every genome into
 the host store. The loss and gradients take ``train/step.py``'s sharded
-batch plan, and the coordinator alone writes files.
+batch plan, and the coordinator alone writes files. On a grid with a model
+axis (``mesh=parallel.mesh.make_mesh(n_data, n_model)``) the chunk trainers
+train over its data axis only, every rank holding the whole model, as the
+JAX package's chunk runners apply without ``model_axis``
+(``kf2vecfsw_tpu/train/chunks.py:688,965``): the genome ranges, the
+sharded store and the plan's collectives are those of the rank's data
+index and data group.
 
 Not ported: the multi-epoch device spans (``make_chunked_span_runner``,
 ``split_spans``), a TPU artefact; and ``sample_one_uniform``, which nothing
@@ -78,11 +84,11 @@ from ..parallel.mesh import (
     all_reduce_,
     barrier,
     check_replicas,
-    data_mesh,
     gather_rows,
     is_coordinator,
     mesh_line,
     process_row_slice,
+    trainer_mesh,
 )
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.membudget import hbm_fraction
@@ -98,7 +104,7 @@ from .classifier import (
 from .distance import export_embeddings, load_subtree_dist
 from .resume import start_or_resume
 from .schedule import step_lr
-from .step import gathered_embeddings, local_rows, set_lr, sharded_step
+from .step import data_sum_, gathered_embeddings, local_rows, set_lr, sharded_step
 
 F32 = np.float32
 INT32_TOTAL = 2**31  # a genome's total count must stay below this in the int32 store
@@ -274,7 +280,8 @@ class DeviceChunkStore:
         self = cls.__new__(cls)
         self.counts = np.asarray(counts_global, dtype=np.int64)
         self.device, self.scaler = mesh.device, float(scaler)
-        self.rank, self.g_local = mesh.rank, self.counts.size // mesh.world_size
+        self.rank, self.g_local = mesh.data_rank, self.counts.size // mesh.n_data
+        self.group = mesh.data_group
         self.prefix = _prefix_sums(local_matrices, self.g_local, int(self.counts.max()),
                                    input_size, self.device)
         return self
@@ -303,7 +310,7 @@ class DeviceChunkStore:
         li = torch.where(own, g - self.rank * self.g_local, 0)
         rows = normalize_spans((self.prefix[li, ix + n] - self.prefix[li, ix]).to(torch.int64),
                                self.scaler)
-        return all_reduce_(torch.where(own[:, None], rows, torch.zeros_like(rows)))
+        return all_reduce_(torch.where(own[:, None], rows, torch.zeros_like(rows)), self.group)
 
     def sample_batch(self, rng: np.random.Generator, genome_indices, draws: int) -> np.ndarray:
         """``ChunkStore.sample_batch`` from the device store."""
@@ -323,16 +330,16 @@ def load_chunk_store_process_sliced(kf_paths: list[str], mesh: DataMesh, cap: bo
     rank, or no process group). With one rank per device the ranges always
     divide: the JAX package's other None, a process count that does not
     divide its devices, has no counterpart."""
-    if not mesh.distributed or mesh.world_size == 1:
+    if not mesh.distributed or mesh.n_data == 1:
         return None
-    g_pad = -(-len(kf_paths) // mesh.world_size) * mesh.world_size
+    g_pad = -(-len(kf_paths) // mesh.n_data) * mesh.n_data
     mine = process_row_slice(g_pad, mesh)
     local = load_chunk_matrices(kf_paths[mine], cap, column_mask=column_mask)
     rows = torch.zeros((mine.stop - mine.start, 3), dtype=torch.int64)
     rows[:, 0] = 1
     for i, m in enumerate(local):
         rows[i] = torch.tensor([m.shape[0], int(m.sum(dtype=np.int64)), m.shape[1]])
-    table = gather_rows(rows.to(mesh.device), mine.start, g_pad).cpu().numpy()
+    table = gather_rows(rows.to(mesh.device), mine.start, g_pad, mesh.data_group).cpu().numpy()
     return local, table[:, 0], int(table[:, 2].max()), table[:, 1]
 
 
@@ -342,7 +349,7 @@ def sharded_store_fits(counts_global: np.ndarray, input_size: int, mesh: DataMes
     prefix sums within the device budget times the ranks, and every genome's
     total below 2^31 (the guard of ``DeviceChunkStore.fits``)."""
     nbytes = int(counts_global.shape[0]) * (int(np.max(counts_global)) + 1) * input_size * 4
-    if nbytes > _chunk_device_budget(mesh.device) * mesh.world_size:
+    if nbytes > _chunk_device_budget(mesh.device) * mesh.n_data:
         return False
     return totals_global is None or bool(np.all(totals_global < INT32_TOTAL))
 
@@ -374,7 +381,7 @@ def chunk_distance_epoch(model: torch.nn.Module, opt: torch.optim.Optimizer, sam
         lo, hi = local_rows(idx.numel(), batch_size, mesh)
         own = model(x[2 * lo : 2 * hi])
         loss = sharded_step(model, opt, lambda: chunks_weighted_sqrt_mse(pairwise_l2_exact(
-            gathered_embeddings(own, 2 * lo, x.shape[0])), true_dist), True)
+            gathered_embeddings(own, 2 * lo, x.shape[0], mesh)), true_dist), True, mesh)
         losses.append(loss.detach())
     return torch.stack(losses)
 
@@ -393,10 +400,11 @@ def chunk_classifier_epoch(model: torch.nn.Module, opt: torch.optim.Optimizer, s
         lo, hi = local_rows(idx.numel(), batch_size, mesh)
         log_probs = model(x[lo:hi])
         y = labels.index_select(0, idx[lo:hi])
-        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True)
+        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True, mesh)
         losses.append(loss.detach())
         correct.append((log_probs.detach().argmax(dim=1) == y).sum())
-    sums = all_reduce_(torch.stack([torch.stack(losses).double(), torch.stack(correct).double()]))
+    sums = data_sum_(torch.stack([torch.stack(losses).double(), torch.stack(correct).double()]),
+                     mesh)
     return sums[0].float(), sums[1].long()
 
 
@@ -419,7 +427,7 @@ def _open_stores(paths: list[str], cap: bool, column_mask, mesh: DataMesh, log):
         local, counts, input_size, totals = sliced
         if sharded_store_fits(counts, input_size, mesh, totals):
             log.info(f"Chunk ingest: per-rank genome slices ({len(paths)} genomes over "
-                     f"{mesh.world_size} ranks)")
+                     f"{mesh.n_data} data ranks)")
             return (None, DeviceChunkStore.build_sharded(local, counts, input_size, mesh),
                     counts[: len(paths)], input_size)
     if mesh.distributed:
@@ -463,11 +471,12 @@ def train_model_set_chunks_func(
     resume: bool = False,
     autosave_every: int = 500,
     device: str = DEFAULT_DEVICE,
+    mesh: DataMesh | None = None,
 ) -> list[str]:
     from ..ingest.tree_ops import read_subtrees
 
     dev = resolve_device(device)
-    mesh = data_mesh(dev)
+    mesh = trainer_mesh(mesh, dev)
     since = time.time()
     clade_tag = (
         "_".join(str(c) for c in clades_to_train) if clades_to_train is not None else "all"
@@ -621,9 +630,10 @@ def train_classifier_chunks_func(
     resume: bool = False,
     autosave_every: int = 500,
     device: str = DEFAULT_DEVICE,
+    mesh: DataMesh | None = None,
 ) -> str:
     dev = resolve_device(device)
-    mesh = data_mesh(dev)
+    mesh = trainer_mesh(mesh, dev)
     since = time.time()
     log = make_run_logger(model_filepath, f"train_classifier_{timestamp()}.log")
     try:

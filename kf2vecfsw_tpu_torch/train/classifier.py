@@ -14,7 +14,11 @@ package's formats.
 Over ranks (``parallel.mesh.initialize_distributed``) every rank holds the
 features, draws the same orders and takes the sharded batch plan; the
 replicas are checked bit-equal before the checkpoint, and the coordinator
-alone writes files.
+alone writes files. ``mesh=parallel.mesh.make_mesh(n_data, n_model)``
+trains on a grid with a model axis (``kf2vecfsw_tpu/train/classifier.py:
+122,189-197``): each rank keeps its cut of the full init over the hidden
+dimension, and every rank gathers the full weights before the coordinator
+writes the checkpoint, a trainer state or ``backbone_classes.out``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,15 @@ from ..device import DEFAULT_DEVICE, device_line, resolve_device
 from ..io.kf import float_repr, read_kf
 from ..kmer.vocab import low_complexity_mask
 from ..models.mlp import Classifier, count_params, init_params_, params_from_jax, params_to_jax
-from ..parallel.mesh import barrier, check_replicas, data_mesh, is_coordinator, mesh_line
+from ..parallel.mesh import (
+    DataMesh,
+    barrier,
+    check_replicas,
+    gather_module,
+    is_coordinator,
+    mesh_line,
+    trainer_mesh,
+)
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.timing import hms
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -127,9 +139,10 @@ def train_classifier_func(
     resume: bool = False,
     autosave_every: int = 500,
     device: str = DEFAULT_DEVICE,
+    mesh: DataMesh | None = None,
 ) -> str:
     dev = resolve_device(device)
-    mesh = data_mesh(dev)
+    mesh = trainer_mesh(mesh, dev)
     since = time.time()
     log = make_run_logger(model_filepath, f"train_classifier_{timestamp()}.log")
     try:
@@ -199,7 +212,8 @@ def _train(
     log.info(f"Total parameters: {count_params(model)}")
     log.info(f"Trainable parameters: {count_params(model)}")
     state_path = os.path.join(model_filepath, "trainer_state_classifier.ckpt")
-    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev, mesh)
+    st = start_or_resume(model, gen, n_items, state_path, resume, log, lr0, dev, mesh,
+                         shard=True)
     highest_acc = float(st.extra.get("highest_acc", -1.0))
     feats_dev = torch.from_numpy(np.ascontiguousarray(feats)).to(dev)
     labels_dev = torch.from_numpy(labels).to(dev)
@@ -243,9 +257,10 @@ def _train(
         # classify filters query features with the same mask
         meta["low_complexity_mask_k"] = mask_k
     ckpt_path = os.path.join(model_filepath, "classifier_model.ckpt")
+    best = gather_module(st.best)
     if mesh.distributed:
-        log.info(check_replicas(st.best, mesh, "best params"))
-    save_checkpoint(ckpt_path, "NeuralNetClassifierOnly", meta, params_to_jax(st.best))
+        log.info(check_replicas(best, mesh, "best params"))
+    save_checkpoint(ckpt_path, "NeuralNetClassifierOnly", meta, params_to_jax(best))
     if not is_coordinator():
         return ckpt_path
 

@@ -28,7 +28,14 @@ clade's features and draws the same orders; each route takes the sharded
 batch plan (the exact route sorts each rank's own point sets, the lazy
 route refreshes every item's planes on every rank); the replicas are
 checked bit-equal before each checkpoint, and the coordinator alone writes
-files.
+files. ``mesh=parallel.mesh.make_mesh(n_data, n_model)`` trains on a grid
+with a model axis (``kf2vecfsw_tpu/train/distance.py:181,245,327-352``):
+every rank draws the full init from the trainer's CPU generator and keeps
+its cut (``shard_module``), so a grid trains from the weights of one
+process; an FSW rank sorts and refreshes only its d_out / n_model slices.
+Every rank gathers the full weights (``gather_module``) before the
+coordinator writes a checkpoint, a snapshot or a trainer state, and the
+exports run the unsharded forward on them.
 """
 
 from __future__ import annotations
@@ -45,7 +52,15 @@ from ..ingest.kmers import point_sets_to_vocab_weights
 from ..io.native.lib import load as load_textio
 from ..models.fsw import FSWDistEmbed, init_fsw_dist_embed_, shared_vocab_applicable
 from ..models.mlp import DistEmbed, count_params, init_params_, params_from_jax, params_to_jax
-from ..parallel.mesh import barrier, check_replicas, data_mesh, is_coordinator, mesh_line
+from ..parallel.mesh import (
+    DataMesh,
+    barrier,
+    check_replicas,
+    gather_module,
+    is_coordinator,
+    mesh_line,
+    trainer_mesh,
+)
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
 from ..utils.logging import close_logger, make_run_logger, timestamp
 from ..utils.timing import hms
@@ -166,9 +181,10 @@ def train_model_set_func(
     autosave_every: int = 500,
     fsw_lazy_refresh: int | None = None,
     device: str = DEFAULT_DEVICE,
+    mesh: DataMesh | None = None,
 ) -> list[str]:
     dev = resolve_device(device)
-    mesh = data_mesh(dev)
+    mesh = trainer_mesh(mesh, dev)
     if use_fsw and not any(f.endswith(".npy") for f in feature_files):
         raise SystemExit(
             f"train_model_set: no .npy k-mer point sets in {features_folder}; FSW models "
@@ -323,7 +339,8 @@ def _train_all(
         log.info(f"Trainable parameters: {count_params(model)}")
         ckpt_path = os.path.join(model_filepath, f"model_subtree_{c}.ckpt")
         state_path = os.path.join(model_filepath, f"trainer_state_subtree_{c}.ckpt")
-        st = start_or_resume(model, gen, len(train_idx), state_path, resume, log, lr0, dev, mesh)
+        st = start_or_resume(model, gen, len(train_idx), state_path, resume, log, lr0, dev, mesh,
+                             shard=True)
 
         feats_dev = torch.from_numpy(feats).to(dev)
         dist_dev = torch.from_numpy(dist).to(dev)
@@ -337,9 +354,10 @@ def _train_all(
         if use_fsw and lazy_refresh > 0:
             # the refresh transients scale with the features' minor length,
             # V (vocab weights) or N (padded point sets)
-            if lazy_applicable(fswout_dim, feats.shape[1], dev):
+            if lazy_applicable(fswout_dim, feats.shape[1], dev, mesh.n_model):
                 planes = LazyPlanes(feats_train, fsw_shared, lazy_refresh, n_batches,
-                                    pick_refresh_group(fswout_dim, feats.shape[1], dev))
+                                    pick_refresh_group(fswout_dim, feats.shape[1], dev,
+                                                       mesh.n_model))
             else:
                 log.info(
                     "FSW lazy-refresh "
@@ -389,19 +407,22 @@ def _train_all(
                 st.autosave(state_path, epoch)
             if save_interval is not None and (
                 epoch % save_interval == 0 or epoch == num_epochs - 1
-            ) and is_coordinator():
-                subdir = os.path.join(model_filepath, f"model_epoch_{epoch + 1}")
-                os.makedirs(subdir, exist_ok=True)
-                save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), model_name,
-                                meta, params_to_jax(st.model))
+            ):
+                snapshot = gather_module(st.model)  # every rank: a collective on a model axis
+                if is_coordinator():
+                    subdir = os.path.join(model_filepath, f"model_epoch_{epoch + 1}")
+                    os.makedirs(subdir, exist_ok=True)
+                    save_checkpoint(os.path.join(subdir, f"model_subtree_{c}.ckpt"), model_name,
+                                    meta, params_to_jax(snapshot))
 
         log.info(f"Best Epoch [{st.best_epoch + 1}/{num_epochs}], Lowest loss: {st.lowest:.20f}")
+        best = gather_module(st.best)
         if mesh.distributed:
-            log.info(check_replicas(st.best, mesh, f"subtree {c} best params"))
+            log.info(check_replicas(best, mesh, f"subtree {c} best params"))
         save_checkpoint(
             ckpt_path, model_name,
             {**meta, "best_epoch": st.best_epoch, "lowest_loss": st.lowest},
-            params_to_jax(st.best),
+            params_to_jax(best),
         )
         saved.append(ckpt_path)
 
@@ -409,7 +430,7 @@ def _train_all(
         # models embed the per-genome point sets with the exact forward,
         # whichever route trained them
         export_feats = torch.from_numpy(points).to(dev) if fsw_shared else feats_dev
-        export_embeddings(st.best, export_feats, backbone_names, model_filepath, c, log)
+        export_embeddings(best, export_feats, backbone_names, model_filepath, c, log)
         # interval snapshots also get embeddings (train_model_set.py:646-683)
         if save_interval is not None and is_coordinator():
             for name in sorted(os.listdir(model_filepath)):

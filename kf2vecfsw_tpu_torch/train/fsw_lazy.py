@@ -39,7 +39,10 @@ runner's in each case.
 Memory: S is a few MB at any k, so the gate is the refresh's transients,
 (3G + 4) f32 buffers of (C, V) for a group of G items; ``pick_refresh_group``
 halves G from 8 until they fit 3/8 of the device memory, and the route is
-off (``lazy_applicable``) when not even G = 1 fits.
+off (``lazy_applicable``) when not even G = 1 fits. On a grid with a model
+axis C is the rank's d_out / n_model slices: each rank refreshes the planes
+of its own slices (``kf2vecfsw_tpu/train/fsw_lazy.py:87-114,147-190``), so
+a refresh too large for one card may fit on a grid.
 """
 
 from __future__ import annotations
@@ -74,21 +77,24 @@ def refresh_transient_bytes(d_out: int, vocab: int, group: int) -> int:
     return 4 * (3 * group + 4) * d_out * vocab
 
 
-def pick_refresh_group(d_out: int, vocab: int, device: str | torch.device) -> int:
-    """The largest group (<= REFRESH_GROUP, halving) whose transients fit
-    ``fsw_lazy_budget_bytes``; 0 when not even one item's fit."""
+def pick_refresh_group(d_out: int, vocab: int, device: str | torch.device,
+                       n_model: int = 1) -> int:
+    """The largest group (<= REFRESH_GROUP, halving) whose transients over
+    the rank's ceil(d_out / n_model) slices fit ``fsw_lazy_budget_bytes``;
+    0 when not even one item's fit."""
+    d_local = -(-d_out // max(n_model, 1))
     g = REFRESH_GROUP
     while g >= 1:
-        if refresh_transient_bytes(d_out, vocab, g) <= fsw_lazy_budget_bytes(device):
+        if refresh_transient_bytes(d_local, vocab, g) <= fsw_lazy_budget_bytes(device):
             return g
         g //= 2
     return 0
 
 
-def lazy_applicable(d_out: int, vocab: int, device: str | torch.device) -> bool:
+def lazy_applicable(d_out: int, vocab: int, device: str | torch.device, n_model: int = 1) -> bool:
     """Whether the lazy route fits: one item's refresh transients within the
     budget (``vocab`` is the features' minor length, V or N)."""
-    return pick_refresh_group(d_out, vocab, device) > 0
+    return pick_refresh_group(d_out, vocab, device, n_model) > 0
 
 
 class LazyPlanes:
@@ -136,7 +142,7 @@ def lazy_distance_epoch(model: nn.Module, opt: torch.optim.Optimizer, planes: La
                         weight_offset: float = 1e-6, mesh: DataMesh | None = None) -> torch.Tensor:
     """One epoch of the distance trainer on the lazy route; returns the epoch
     loss as a device scalar. Over ranks every rank refreshes the planes of
-    every item (replicated, as the JAX package's data-only mesh does) and
-    embeds its rows of each batch."""
+    every item for its own slices (all of them without a model axis, as the
+    JAX package's data-only mesh does) and embeds its rows of each batch."""
     return distance_steps(lambda idx: fsw_lazy_apply(model, *planes.rows(idx)), model, opt, dist,
                           order, batch_size, weight_offset, mesh, lambda: planes.tick(model))

@@ -10,8 +10,12 @@ autosaved by either package resumes in the other
 (``models.mlp.adam_state_from_jax`` / ``adam_state_to_jax`` carry the
 optimizer across). ``resume=True`` continues from the last autosave.
 
-Single process only: the multi-process guards of the JAX package wait for
-the port's multi-GPU slice.
+On a grid with a model axis the state is written full size: every rank
+gathers the params, Adam's moments and the best params
+(``parallel.mesh.gather_module``, ``models.mlp.adam_state_to_jax``) and the
+coordinator writes them; a resume cuts them again for the grid it runs on
+(``kf2vecfsw_tpu/train/resume.py:92-148``). So a state resumes on any grid,
+and in either package; Adam's step count stays one scalar.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 from torch import nn
 
 from ..models.mlp import adam_state_from_jax, adam_state_to_jax, params_from_jax, params_to_jax
-from ..parallel.mesh import DataMesh, is_coordinator, rank_rows
+from ..parallel.mesh import DataMesh, gather_module, is_coordinator, rank_rows, shard_module
 from .checkpoint import _flatten, _unflatten, atomic_savez
 from .step import epoch_order, make_adam
 
@@ -139,9 +143,12 @@ class TrainerState:
     extra: dict = field(default_factory=dict)
 
     def autosave(self, path: str, epoch: int, extra: dict | None = None) -> None:
+        """Every rank gathers the state (a collective on a model axis); the
+        coordinator writes it."""
         save_trainer_state(
-            path, epoch, params_to_jax(self.model), adam_state_to_jax(self.opt, self.model),
-            params_to_jax(self.best), self.lowest, self.best_epoch, extra,
+            path, epoch, params_to_jax(gather_module(self.model)),
+            adam_state_to_jax(self.opt, self.model), params_to_jax(gather_module(self.best)),
+            self.lowest, self.best_epoch, extra,
         )
 
     @torch.no_grad()
@@ -157,22 +164,24 @@ class TrainerState:
 
 def start_or_resume(model: nn.Module, gen: torch.Generator, n_items: int, state_path: str,
                     resume: bool, log, lr: float, device: torch.device,
-                    mesh: DataMesh | None = None) -> TrainerState:
-    """``model`` is freshly drawn on the CPU from ``gen``. With ``resume`` and
-    an autosave at ``state_path``, params, Adam state and best-so-far come
-    from it and ``gen`` skips the item orders of the epochs already run, so
-    the resumed run takes the batches an uninterrupted one would (on every
-    rank alike)."""
+                    mesh: DataMesh | None = None, shard: bool = False) -> TrainerState:
+    """``model`` is freshly drawn, full size, on the CPU from ``gen``. With
+    ``resume`` and an autosave at ``state_path``, params, Adam state and
+    best-so-far come from it and ``gen`` skips the item orders of the
+    epochs already run, so the resumed run takes the batches an
+    uninterrupted one would (on every rank alike). With ``shard`` the model
+    and its state are cut over ``mesh``'s model axis (``shard_module``)."""
     state = (restore_trainer_state(state_path, params_to_jax(model), log, mesh) if resume
              else None)
+    axis = mesh if shard else None
     if state is None:
-        model = model.to(device)
+        model = shard_module(model, axis).to(device)
         return TrainerState(model, copy.deepcopy(model), make_adam(model, lr))
     start, params, opt_state, best_params, lowest, best_epoch, extra = state
-    model = params_from_jax(params).to(device)
+    model = shard_module(params_from_jax(params), axis).to(device)
     opt = make_adam(model, lr)
     adam_state_from_jax(opt, model, opt_state)
     for _ in range(start):
         epoch_order(gen, n_items)
-    return TrainerState(model, params_from_jax(best_params).to(device), opt, start, lowest,
-                        best_epoch, extra)
+    return TrainerState(model, shard_module(params_from_jax(best_params), axis).to(device), opt,
+                        start, lowest, best_epoch, extra)

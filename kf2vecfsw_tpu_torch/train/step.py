@@ -17,27 +17,38 @@ sum(loss * items) / sum(items). Losses stay on the device within an epoch:
 the caller fetches them once per epoch.
 
 Every epoch takes the JAX runners' sharded batch plan
-(``kf2vecfsw_tpu/train/step.py:227,267-292,417,445-470``): a batch is
-padded to batch_pad = ceil(B / R) * R rows and rank d holds rows
-[d * local_b, (d + 1) * local_b), local_b = batch_pad / R, so the padding
-falls at the end and a rank may hold only padding (``local_rows``). A
-padded row is masked out of every loss term, so the port does not embed
-it: a rank embeds its real rows, and the masked loss of the padded batch is
-the loss of its real rows. Every rank draws the same orders, so R ranks take
-the batches of one process.
-- Distance: the ranks' embeddings are gathered to the batch's (n, E) by one
-  all-reduce (``parallel.mesh.gather_rows``); the rank's own rows go back
-  in as the tensor that carries the gradient, the others detached. Every
-  rank computes the batch's loss and its backward, which reaches the
+(``kf2vecfsw_tpu/train/step.py:227,267-292,417,445-470``) over the data
+axis of the trainer's grid (``parallel.mesh.DataMesh``, R = n_data data
+indices): a batch is padded to batch_pad = ceil(B / R) * R rows and data
+index d holds rows [d * local_b, (d + 1) * local_b), local_b = batch_pad /
+R, so the padding falls at the end and a data index may hold only padding
+(``local_rows``). A padded row is masked out of every loss term, so the
+port does not embed it: a rank embeds its real rows, and the masked loss of
+the padded batch is the loss of its real rows. Every rank draws the same
+orders, so the grid takes the batches of one process. The collectives of
+the plan run on the rank's data group (the ranks of its model index; the
+whole world on the grid (world, 1)):
+- Distance: the data group's embeddings are gathered to the batch's (n, E)
+  by one all-reduce (``parallel.mesh.gather_rows``); the rank's own rows go
+  back in as the tensor that carries the gradient, the others detached.
+  Every rank computes the batch's loss and its backward, which reaches the
   parameters through its own rows only.
 - Classifier: the local loss is the NLL sum of the rank's rows over the
-  batch's count; the loss and accuracy sums are all-reduced once an epoch.
-- Both: the step's gradients, flattened into one buffer, are summed across
-  ranks by one all-reduce (``all_reduce_grads``), then Adam steps on every
-  rank alike. ``DistributedDataParallel`` is not used: it averages over R,
-  which is wrong for a masked last batch; nor is an autograd all-gather,
-  whose backward sums the R identical losses (R times the gradient) and
-  needs collectives that gloo does not run on CUDA tensors.
+  batch's count; the loss and accuracy sums are all-reduced over the data
+  group once an epoch.
+- Both: the step's gradients, flattened into one buffer, are summed over
+  the data group by one all-reduce (``all_reduce_grads``), then Adam steps
+  on every rank alike. ``DistributedDataParallel`` is not used: it
+  averages over R, which is wrong for a masked last batch; nor is an
+  autograd all-gather, whose backward sums the R identical losses (R times
+  the gradient) and needs collectives that gloo does not run on CUDA
+  tensors.
+With a model axis the ranks of a model group hold the same rows and compute
+the same loss, each on its cut of the model (``models/mlp.py``): the
+forward's sums over the model group make their embeddings equal, and each
+rank's backward gives its cut's gradient and every whole parameter's true
+one, so the data group's sum is the gradient of one process, never n_model
+times it.
 A process without a group takes the same plan as one rank: it holds every
 row, its gathered embeddings are its own, and no collective runs. At world
 size 1 a group adds only the all-reduces, whose sums of one rank change no
@@ -86,49 +97,60 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 
 def local_rows(n_rows: int, batch_size: int, mesh: DataMesh | None) -> tuple[int, int]:
     """[lo, hi): this rank's real rows of a batch of ``n_rows`` items under
-    the sharded plan, the range [rank * local_b, (rank + 1) * local_b) cut
-    at ``n_rows`` (empty for a rank that holds only padding); every row
-    without a mesh."""
+    the sharded plan, the range [d * local_b, (d + 1) * local_b) of its data
+    index d, cut at ``n_rows`` (empty for a data index that holds only
+    padding); every row without a mesh."""
     if mesh is None:
         return 0, n_rows
-    local_b = -(-batch_size // mesh.world_size)
-    lo = min(mesh.rank * local_b, n_rows)
+    local_b = -(-batch_size // mesh.n_data)
+    lo = min(mesh.data_rank * local_b, n_rows)
     return lo, min(lo + local_b, n_rows)
 
 
-def all_reduce_grads(model: nn.Module) -> None:
-    """Sum every parameter's gradient across the ranks by one all-reduce of
-    one flat buffer (a parameter without a gradient adds zeros); the
-    gradients become views of that buffer. Nothing to do without a group."""
-    if not torch.distributed.is_initialized():
+def data_sum_(t: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """Sum ``t`` in place over the mesh's data group; nothing without a
+    mesh over a process group."""
+    if mesh is None or not mesh.distributed:
+        return t
+    return all_reduce_(t, mesh.data_group)
+
+
+def all_reduce_grads(model: nn.Module, mesh: DataMesh | None) -> None:
+    """Sum every parameter's gradient over the data group by one all-reduce
+    of one flat buffer (a parameter without a gradient adds zeros); the
+    gradients become views of that buffer. Nothing to do without a mesh
+    over a process group."""
+    if mesh is None or not mesh.distributed:
         return
     params = list(model.parameters())
-    flat = all_reduce_(torch.cat([
-        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]))
+    flat = data_sum_(torch.cat([
+        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]), mesh)
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad = g.view_as(p)
 
 
-def gathered_embeddings(own: torch.Tensor, lo: int, n_rows: int) -> torch.Tensor:
-    """(n_rows, E) embeddings of a batch from each rank's rows; this rank's
-    rows [lo, lo + len(own)) are ``own`` itself, so the gradient of a loss
-    of the result reaches this rank's parameters through them alone.
-    Without a group ``own`` is the batch."""
-    if not torch.distributed.is_initialized():
+def gathered_embeddings(own: torch.Tensor, lo: int, n_rows: int,
+                        mesh: DataMesh | None) -> torch.Tensor:
+    """(n_rows, E) embeddings of a batch from the data group's rows; this
+    rank's rows [lo, lo + len(own)) are ``own`` itself, so the gradient of a
+    loss of the result reaches this rank's parameters through them alone.
+    Without a mesh over a process group ``own`` is the batch."""
+    if mesh is None or not mesh.distributed:
         return own
-    full = gather_rows(own, lo, n_rows)
+    full = gather_rows(own, lo, n_rows, mesh.data_group)
     return torch.cat([full[:lo], own, full[lo + own.shape[0]:]])
 
 
-def sharded_step(model: nn.Module, opt: torch.optim.Optimizer, loss_fn, has_rows: bool) -> torch.Tensor:
+def sharded_step(model: nn.Module, opt: torch.optim.Optimizer, loss_fn, has_rows: bool,
+                 mesh: DataMesh | None) -> torch.Tensor:
     """One Adam step of the sharded plan: ``loss_fn()`` is the batch's loss,
     whose backward runs where the rank holds rows, then the gradients are
-    summed across the ranks; returns the loss."""
+    summed over the data group; returns the loss."""
     opt.zero_grad(set_to_none=True)
     loss = loss_fn()
     if has_rows:
         loss.backward()
-    all_reduce_grads(model)
+    all_reduce_grads(model, mesh)
     opt.step()
     return loss
 
@@ -144,8 +166,9 @@ def distance_steps(embed, model: nn.Module, opt: torch.optim.Optimizer, dist: to
     """One epoch of the distance-embedding trainer over ``order`` (item
     indices into ``dist`` rows/cols, on its device), with ``embed(idx)``
     the embeddings of a batch's items; ``before_step()``, when given, runs
-    before every batch step on every rank. ``mesh`` is the trainer's data
-    axis (None or a mesh of one: every row); returns the epoch loss as a device scalar."""
+    before every batch step on every rank. ``mesh`` is the trainer's grid
+    (None or a mesh of one: every row); returns the epoch loss as a device
+    scalar."""
     model.train()
     total = torch.zeros((), dtype=torch.float32, device=dist.device)
     for idx in torch.split(order, batch_size):
@@ -155,7 +178,8 @@ def distance_steps(embed, model: nn.Module, opt: torch.optim.Optimizer, dist: to
         own = (embed(idx[lo:hi]) if hi > lo else
                torch.zeros((0, model.fc2.out_features), device=dist.device))
         loss = sharded_step(model, opt, lambda: _distance_batch_loss(
-            gathered_embeddings(own, lo, idx.numel()), dist, idx, weight_offset), hi > lo)
+            gathered_embeddings(own, lo, idx.numel(), mesh), dist, idx, weight_offset), hi > lo,
+            mesh)
         total += loss.detach() * idx.numel()
     return total / max(order.numel(), 1)
 
@@ -182,10 +206,10 @@ def classifier_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.
         lo, hi = local_rows(idx.numel(), batch_size, mesh)
         log_probs = model(feats.index_select(0, idx[lo:hi]))
         y = labels.index_select(0, idx[lo:hi])
-        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True)
+        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True, mesh)
         total += loss.detach() * idx.numel()
         correct += (log_probs.detach().argmax(dim=1) == y).sum()
-    sums = all_reduce_(torch.stack([total.double(), correct.double()]))
+    sums = data_sum_(torch.stack([total.double(), correct.double()]), mesh)
     n = max(order.numel(), 1)
     return sums[0].float() / n, sums[1].to(torch.float32) / n
 

@@ -11,7 +11,11 @@ fixtures, with ``-device cuda``):
     sign-flip bound of one process, only rank 0 writes, and their
     parameters are bit-equal;
 and ``count_canonical_sharded`` over two ranks on the card (``kmer_hist`` on
-each rank's segment) equals one launch's count exactly.
+each rank's segment) equals one launch's count exactly; (c) the model cut
+over two ranks sharing the card (the grid 1 x 2, ``mp_check``'s ``grid``
+worker) trains the classifier and the dense and FSW models within the Adam
+bound of one process, only rank 0 writes, and each rank's FSW training
+launches ``sort_rows`` on its half of the slices.
 
 The kernels have no CPU mode and NCCL needs a card, so every test here skips
 without one. On the card (no JAX there):
@@ -147,3 +151,20 @@ def test_sharded_counting_on_the_card(card, tmp_path):
     assert np.array_equal(got, count_canonical_numpy(codes, 7))
     for _, output in results:
         assert "kmer_hist launches: 1" in output
+
+
+def test_the_model_cut_over_two_ranks_on_the_card(card, tmp_path):
+    runs = [run for run in _runs(tmp_path) if "chunks" not in run[0]]
+    for name, argv, ckpts in runs:
+        main(argv(str(tmp_path / "plain" / name)))
+        outs = [tmp_path / "grid" / f"rank{r}" / name for r in range(2)]
+        for out in outs:
+            out.mkdir(parents=True)
+        results = launch([worker("grid") + ["1", "2", *argv(str(out))] for out in outs], "gloo",
+                         TIMEOUT_S)
+        assert os.listdir(outs[1]) == [], name
+        assert _logs(outs[0]).count("bit-equal on 2 rank(s)") == len(ckpts), name
+        for _, output in results:
+            (n,) = [int(n) for n in re.findall(r"sort_rows launches: (\d+)", output)]
+            assert "fsw" not in name or n >= 1, name
+        _assert_checkpoints_close(tmp_path / "plain" / name, outs[0], ckpts)
