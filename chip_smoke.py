@@ -14,8 +14,9 @@ non-zero without one. Phases, each of which fails the run if it fails:
      multi-record, a 2 Mb repeat, empty, shorter than k, tile seams, a 9 Mb
      genome);
    - ``sort_rows`` against ``sort_rows_reference`` at R in {1, 33, 4096}
-     rows, N from 1 to 131,072 (the global-merge path above 16,384), one
-     payload row per key row or per 512, on random, tied / signed-zero,
+     rows, N from 1 to 131,073 (the cluster path above 16,384 with its
+     seams, the global-merge path above 131,072), one payload row per key
+     row or per 512, on random, tied / signed-zero,
      sorted and reversed keys, and at a model-axis rank's shapes (256 x
      8,192 with one payload row, 4,096 x 8,192 with 16): sorted keys
      bit-equal, ``perm`` a permutation that maps keys and payload to the
@@ -101,6 +102,17 @@ non-zero without one. Phases, each of which fails the run if it fails:
      params bit-equal on both ranks, the checkpoints and exports within the
      rebuild's Adam sign-flip bound of the ranks phase's runs without a
      group, and every FSW training sort on both ranks one of 256 rows;
+   - fsw_k8: FSW at k=8 (V = 32,896, so every training and query sort
+     takes ``sort_rows``' cluster path) at full width on the 48-genome
+     backbone: ``get_kmers -k 8`` on cuda and on cpu (`.npy` bytes
+     identical), ``get_frequencies -k 8`` and ``train_classifier`` (2
+     epochs), ``train_model_set`` with default flags (lazy, shared-vocab) on
+     every subtree and ``-fsw_lazy_refresh 0`` on subtree 0, 2 epochs each,
+     the CPU training subtrees 0 and 1 and subtree 0 again (checkpoints and
+     exports within the FSW rebuild's tolerances), and the trained library
+     serving the 32 queries, 4 of them again on the CPU (within
+     FSW_RTOL / FSW_ATOL); the cluster path must launch in the lazy and the
+     exact training and in the query;
    - long genome: one genome of more than 2^31 bases (a 1 Mb block repeated
      LONG_REPEATS times) counted on the card in overlapping pieces, exact
      against R x the block's counts + (R - 1) x its junction's;
@@ -109,9 +121,12 @@ non-zero without one. Phases, each of which fails the run if it fails:
    main path's shape (``kmer_hist``: 16 genomes of 5 Mb, k=7, and the same
    batch of homopolymers and of dinucleotide repeats; ``sort_rows``: 16
    genomes x 512 slices = 8,192 rows of 8,192, the FSW training sort of
-   512 rows of 8,192 with one payload row, and rows of 32,896, a k=8 point
-   set, on the global-merge path, and a model-axis rank's 256 x 8,192 and
-   4,096 x 8,192; the sort's backward, an unsort scatter,
+   512 rows of 8,192 with one payload row, a model-axis rank's 256 x 8,192
+   and 4,096 x 8,192, and on the cluster path 8,192 rows of 32,896 (a k=8
+   query block), 512 of 32,896 and 512 of 131,072 (the shared-vocab sorts
+   at k=8 and k=9), each also on the global-merge path that such rows took
+   before, which the kernel must not trail; the sort's backward, an unsort
+   scatter,
    at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
    exports' seconds (str(np.float32) formatting apart) and its peak device
@@ -178,7 +193,14 @@ from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases, read_sequences_r
 from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
-from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, sort_rows_reference, tile_elems
+from kf2vecfsw_tpu_torch.kernels.sort import (
+    cluster_elems,
+    cluster_shape,
+    sort_rows,
+    sort_rows_merge,
+    sort_rows_reference,
+    tile_elems,
+)
 from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators, count_canonical_numpy
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_codes, canonical_vocab_size
@@ -227,10 +249,18 @@ SORT_REPLACES = (
     "the lax.sort calls at kf2vecfsw_tpu/models/fsw.py:65,75,120,131"
 )
 SORT_ROWS = (1, 33, 4096)
-SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 32896, 131072)
+# the tile path to 16,384; the cluster path to 131,072 (1 block of 1024 threads
+# to 17,408, 2 to 34,816, ...; the items a thread step every 1,024 blocks' worth);
+# the merge past it
+SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 16385, 17408, 17409, 24577, 32768,
+                32769, 32896, 34816, 34817, 49153, 131071, 131072, 131073)
 SORT_KINDS = ("normal", "ties_and_signed_zeros", "sorted", "reversed")
 PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW query block
-PHASE5_SORT_LONG = (16 * FSW_OUT_DIM, 32896, 16)  # the same at k=8 (V = 32,896)
+# the cluster path's rows, each also timed on the merge path it replaces: a
+# query block at k=8 (V = 32,896), the shared-vocab sort at k=8 and at k=9
+PHASE5_SORT_LONG = ((16 * FSW_OUT_DIM, 32896, 16), (FSW_OUT_DIM, 32896, 1),
+                    (FSW_OUT_DIM, 131072, 1))
+LONG_SORT_GOAL_MS = 6.0  # the redesign's goal at 8,192 x 32,896
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
@@ -262,22 +292,35 @@ REBUILD_LOSS_RTOL = 1e-3
 # backbone's subtrees of 27-45 batches, so 6 epochs refresh 2-3 times each
 FSW_EPOCHS = 6
 V_MAIN = canonical_vocab_size(K_MAIN)
-FSW_MODEL_BYTES = 4 * (4 * FSW_BASE_DIM + FSW_OUT_DIM * (K_MAIN * FSW_BASE_DIM + 1)
-                       + (FSW_OUT_DIM + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * EMBEDDING_SIZE)
+
+
+def fsw_model_bytes(k: int) -> int:
+    return 4 * (4 * FSW_BASE_DIM + FSW_OUT_DIM * (k * FSW_BASE_DIM + 1)
+                + (FSW_OUT_DIM + 1) * HIDDEN_SIZE_FC1 + (HIDDEN_SIZE_FC1 + 1) * EMBEDDING_SIZE)
+
+
+FSW_MODEL_BYTES = fsw_model_bytes(K_MAIN)
 # short contigs of 1-2 kb hold at most ~2,000 k-mers at k=7, padded to at
 # most 2,432 < V / 3: the per-genome route
 CONTIGS, CONTIG_SIZE, CONTIG_LEN = 96, 48, (1_000, 2_000)
-# the route lines each FSW training run logs once per subtree
-FSW_ROUTES = {
-    "lazy_shared": (f"FSW shared-vocab path: V={V_MAIN} (one shared sort per batch)",
-                    "FSW lazy sort-refresh path: refresh every 128 steps (auto-enabled; pass "
-                    "-fsw_lazy_refresh 0 for the exact per-step sort)"),
-    "exact_shared": (f"FSW shared-vocab path: V={V_MAIN} (one shared sort per batch)",),
-    "lazy_pergenome": ("FSW lazy sort-refresh path (per-genome sort orders): refresh every 128 "
-                       "steps (auto-enabled; pass -fsw_lazy_refresh 0 for the exact per-step "
-                       "sort)",),
-    "exact_pergenome": (),
-}
+
+
+def fsw_routes(v: int) -> dict[str, tuple[str, ...]]:
+    """The route lines each FSW training run logs once per subtree, at vocab
+    size v."""
+    shared = f"FSW shared-vocab path: V={v} (one shared sort per batch)"
+    return {
+        "lazy_shared": (shared, "FSW lazy sort-refresh path: refresh every 128 steps (auto-enabled; "
+                                "pass -fsw_lazy_refresh 0 for the exact per-step sort)"),
+        "exact_shared": (shared,),
+        "lazy_pergenome": ("FSW lazy sort-refresh path (per-genome sort orders): refresh every 128 "
+                           "steps (auto-enabled; pass -fsw_lazy_refresh 0 for the exact per-step "
+                           "sort)",),
+        "exact_pergenome": (),
+    }
+
+
+FSW_ROUTES = fsw_routes(V_MAIN)
 # cuda vs cpu FSW training (2 subtrees of the small backbone, 2 epochs,
 # default flags): params within the dense rebuild's Adam sign-flip bound;
 # the exported embeddings within FSW_RTOL, the served FSW forward's
@@ -320,6 +363,12 @@ MODEL_AXIS_TRAINERS = ("train_classifier", "dense", "fsw_lazy", "fsw_exact")
 # per-genome step's (16 genomes x 256 rows, one payload row per genome)
 MODEL_AXIS_SORTS = ((FSW_OUT_DIM // 2, V_MAIN, 1), (16 * FSW_OUT_DIM // 2, V_MAIN, 16))
 F32_TINY = float(np.finfo(np.float32).tiny)  # an atol under which only 0 matches 0
+# FSW at k=8 (V = 32,896: every sort of its training and of its queries takes
+# the cluster path) on the rebuild's small backbone: get_kmers, the
+# classifier, default flags on every subtree (the CPU on FSW_REBUILD_CLADES),
+# -fsw_lazy_refresh 0 on subtree 0, FSW_K8_EPOCHS epochs each
+K8, FSW_K8_EPOCHS = 8, 2
+V8 = canonical_vocab_size(K8)
 
 
 def log(msg: str) -> None:
@@ -486,7 +535,8 @@ def check_sort(keys: torch.Tensor, payload: torch.Tensor, got, ref) -> int:
 
 def phase_sort_vs_plain(dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    check(tile_elems() == 16384, f"tile of {tile_elems()} elements")
+    check(tile_elems() == 16384 and cluster_elems() == 131072,
+          f"tile of {tile_elems()} elements, cluster of {cluster_elems()}")
     max_err, cases = 0.0, 0
     for r in SORT_ROWS:
         for n in SORT_LENGTHS:
@@ -644,20 +694,29 @@ def read_bytes(path: str) -> bytes:
         return f.read()
 
 
+def counted(fn, *args):
+    """fn(*args) with every launch count set to 0 just before it; returns
+    its result and the counts just after (``sort_rows_long``: the cluster
+    path's launches among sort_rows')."""
+    kmer_hist.launches = sort_rows.launches = sort_rows.long_launches = 0
+    out = fn(*args)
+    return out, {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
+                 "sort_rows_long": sort_rows.long_launches}
+
+
 def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
-                  model_bytes: int, fsw_k: int | None, n_classes: int = N_CLASSES) -> dict:
+                  model_bytes: int, fsw_k: int | None, n_classes: int = N_CLASSES,
+                  k: int = K_MAIN) -> dict:
     """process_query_data on the card with every launch count set to 0 just
     before it; returns the output directory, the counts, the stage seconds
     and the peak device memory."""
     out_dir = os.path.join(work, f"out_{tag}_cuda")
     os.makedirs(out_dir)
     argv = ["process_query_data", "-input_dir", q_dir, "-output_dir", out_dir,
-            "-k", str(K_MAIN), "-classifier_model", lib_dir, "-distance_model", lib_dir]
+            "-k", str(k), "-classifier_model", lib_dir, "-distance_model", lib_dir]
     release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
-    kmer_hist.launches = sort_rows.launches = 0
-    stage_s = cli_main(argv)  # default device: the card
-    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}
+    stage_s, launches = counted(cli_main, argv)  # default device: the card
     peak = torch.cuda.max_memory_allocated()
     check(launches["kmer_hist"] >= 1, f"{tag}: kmer_hist was not launched on the main path")
     if fsw_k:
@@ -670,10 +729,11 @@ def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str
 
 
 def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
-               model_bytes: int, fsw_k: int | None) -> dict:
+               model_bytes: int, fsw_k: int | None, n_classes: int = N_CLASSES,
+               k: int = K_MAIN) -> dict:
     """serve_on_card, then 4 genomes again with -device cpu; returns the
     counts, the stage seconds and the largest cuda-vs-cpu differences."""
-    run = serve_on_card(tag, work, lib_dir, q_dir, names, model_bytes, fsw_k)
+    run = serve_on_card(tag, work, lib_dir, q_dir, names, model_bytes, fsw_k, n_classes, k)
     out_dir, launches = run["out_dir"], run["launches"]
 
     # four genomes again on the CPU (one FASTQ, multi-record, the 9 Mb one)
@@ -685,7 +745,7 @@ def drive_path(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
         if f.rsplit(".f", 1)[0] in cpu_names:
             os.symlink(os.path.join(q_dir, f), os.path.join(q_cpu, f))
     cli_main(["process_query_data", "-input_dir", q_cpu, "-output_dir", out_cpu,
-              "-k", str(K_MAIN), "-classifier_model", lib_dir, "-distance_model", lib_dir,
+              "-k", str(k), "-classifier_model", lib_dir, "-distance_model", lib_dir,
               "-device", "cpu"])
     check(kmer_hist.launches == launches["kmer_hist"] and sort_rows.launches == launches["sort_rows"],
           f"{tag}: the CPU run launched a CUDA kernel")
@@ -1139,7 +1199,7 @@ def check_library(lib: str, clades: dict[str, int], n_genomes: int) -> None:
     check_subtree_models(lib, clades, "NeuralNet")
 
 
-def check_subtree_models(lib: str, clades: dict[str, int], family: str) -> None:
+def check_subtree_models(lib: str, clades: dict[str, int], family: str, k: int = K_MAIN) -> None:
     """Each subtree's checkpoint (family, finite best loss; an FSW model's
     meta and parameter shapes at full width), embeddings and distortions of
     every member, and no NaN loss in the run logs."""
@@ -1157,8 +1217,8 @@ def check_subtree_models(lib: str, clades: dict[str, int], family: str) -> None:
               f"subtree {c}: {name}, lowest loss {meta['lowest_loss']}")
         if family == "NeuralNetFSW":
             check((meta["fsw_k"], meta["fsw_base_dim"], meta["fsw_out_dim"])
-                  == (K_MAIN, FSW_BASE_DIM, FSW_OUT_DIM), f"subtree {c}: FSW meta {meta}")
-            shapes = {"lookup": (4, FSW_BASE_DIM), "fsw/slices": (FSW_OUT_DIM, K_MAIN * FSW_BASE_DIM),
+                  == (k, FSW_BASE_DIM, FSW_OUT_DIM), f"subtree {c}: FSW meta {meta}")
+            shapes = {"lookup": (4, FSW_BASE_DIM), "fsw/slices": (FSW_OUT_DIM, k * FSW_BASE_DIM),
                       "fsw/freqs": (FSW_OUT_DIM,), "fc1/w": (FSW_OUT_DIM, HIDDEN_SIZE_FC1),
                       "fc2/w": (HIDDEN_SIZE_FC1, EMBEDDING_SIZE)}
             for path, shape in shapes.items():
@@ -1469,6 +1529,85 @@ def phase_train_fsw(work: str, paths: dict, q_dir: str, q_names: list[str]) -> d
     out["serve"] = {"stage_s": serve["stage_s"], "launches": serve["launches"]}
     out["rebuild_tolerance_used"] = compare_fsw_rebuilds(work, paths["rb_fna"],
                                                          paths["rb_tree_dir"])
+    return out
+
+
+# -- phase 4c': FSW at k=8 --------------------------------------------------------
+
+
+def train_fsw_k8(feats: str, tree_dir: str, out_dir: str, dev: str, route: str,
+                 clades: tuple[int, ...] | None) -> dict[str, int]:
+    """train_model_set at k=8 on `dev` (every subtree, or `clades`) for
+    FSW_K8_EPOCHS epochs with the route's flags; checks its route lines and
+    returns its launches."""
+    os.makedirs(out_dir, exist_ok=True)
+    flags = ("-fsw_lazy_refresh", "0") if route == "exact_shared" else ()
+    only = ("-clade", *map(str, clades)) if clades is not None else ()
+    _, launches = counted(cli_main, [
+        "train_model_set", "-input_dir", feats, "-subtrees", os.path.join(tree_dir, "tree.subtrees"),
+        "-true_dist", tree_dir, "-o", out_dir, "-e", str(FSW_K8_EPOCHS), *flags, *only,
+        "-device", dev])
+    n = len(clades) if clades is not None else len(set(read_subtree_rows(tree_dir).values()))
+    lines = route_lines(out_dir)
+    check(lines == list(fsw_routes(V8)[route]) * n,
+          f"k=8 {route} on {dev}: route lines {lines}, expected {fsw_routes(V8)[route]} x {n}")
+    if dev == "cpu":
+        check(not any(launches.values()), f"k=8 {route} on the CPU launched a kernel: {launches}")
+    else:
+        check(launches["sort_rows_long"] >= 1,
+              f"k=8 {route}: the cluster path of sort_rows did not launch ({launches})")
+    return launches
+
+
+def phase_fsw_k8(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict:
+    """FSW at k=8 through the CLI on the card against the CPU (see the module
+    docstring, phase 4)."""
+    t0 = time.perf_counter()
+    fna, tree_dir = paths["rb_fna"], paths["rb_tree_dir"]
+    clades = read_subtree_rows(tree_dir)
+    n_clades = len(set(clades.values()))
+    launches, feats = {}, {}
+    for dev in ("cuda", "cpu"):
+        feats[dev] = os.path.join(work, f"k8_npy_{dev}")
+        _, launches[f"get_kmers_{dev}"] = counted(cli_main, [
+            "get_kmers", "-input_dir", fna, "-output_dir", feats[dev], "-k", str(K8), "-device", dev])
+    same_files(feats["cuda"], feats["cpu"], (".npy",))
+    check(launches["get_kmers_cuda"]["kmer_hist"] >= 1 and not any(launches["get_kmers_cpu"].values()),
+          f"k=8 get_kmers launches {launches}")
+    points = [np.load(os.path.join(feats["cuda"], f), mmap_mode="r").shape[0]
+              for f in os.listdir(feats["cuda"])]
+
+    lib = os.path.join(work, "lib_k8")  # the classifier and every subtree's default-flag model
+    os.makedirs(lib)
+    _, launches["get_frequencies"] = counted(cli_main, [
+        "get_frequencies", "-input_dir", fna, "-output_dir", lib, "-k", str(K8)])
+    _, launches["train_classifier"] = counted(cli_main, [
+        "train_classifier", "-input_dir", lib, "-subtrees", os.path.join(tree_dir, "tree.subtrees"),
+        "-o", lib, "-e", str(FSW_K8_EPOCHS)])
+    tol = Tolerances()
+    for route, on_card, on_cpu in (("lazy_shared", None, FSW_REBUILD_CLADES),
+                                   ("exact_shared", (0,), (0,))):
+        lib_gpu = lib if route == "lazy_shared" else os.path.join(work, f"lib_k8_{route}_cuda")
+        lib_cpu = os.path.join(work, f"lib_k8_{route}_cpu")
+        launches[route] = train_fsw_k8(feats["cuda"], tree_dir, lib_gpu, "cuda", route, on_card)
+        train_fsw_k8(feats["cuda"], tree_dir, lib_cpu, "cpu", route, on_cpu)
+        tol.subtree_models(lib_gpu, lib_cpu, clade_batches(clades, on_cpu), FSW_K8_EPOCHS, FSW_RTOL)
+    check_subtree_models(lib, clades, "NeuralNetFSW", k=K8)
+    log(f"phase fsw_k8: {len(points)} genomes, point sets of {min(points)}-{max(points)} k-mers "
+        f"(V = {V8}), .npy identical on cuda and cpu; lazy (subtrees {FSW_REBUILD_CLADES}) and "
+        f"exact (subtree 0) training cuda vs cpu: tolerance used (max |a-b| / (atol + rtol |b|), "
+        f"at most 1) and largest differences {json.dumps(tol.used)}")
+    tol.check_all("FSW k=8 training cuda vs cpu")
+
+    query = drive_path("fsw_k8", work, lib, q_dir, q_names, fsw_model_bytes(K8), K8,
+                       n_classes=n_clades, k=K8)
+    check(query["launches"]["sort_rows_long"] >= 1,
+          f"k=8 query: the cluster path of sort_rows did not launch ({query['launches']})")
+    launches["query"] = query["launches"]
+    out = {"seconds": time.perf_counter() - t0, "launches": launches,
+           "point_sets": [min(points), max(points)], "tolerance_used": tol.used,
+           "query": {key: query[key] for key in ("stage_s", "cuda_vs_cpu", "peak_mib")}}
+    log(f"phase fsw_k8: {json.dumps(out)}")
     return out
 
 
@@ -2332,6 +2471,10 @@ def phase_host_text(work: str) -> dict:
 
 
 def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
+    """sort_rows at one shape against its plain version, one torch.sort and
+    its bound; a row past tile_elems() also against the global-merge path
+    (``sort_rows_merge``: what such rows took before the cluster path), which
+    the kernel must not trail, with the cluster's launch shape."""
     r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     keys = torch.randn(r, n, generator=gen, device=dev)
@@ -2341,7 +2484,8 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     # the one PyTorch call for the sorted keys and perm (the payload gather
     # is extra); timed here only, the port never calls it
     library_ms = cuda_ms(lambda: torch.sort(keys, dim=-1), reps=reps)
-    check_sort(keys, payload, sort_rows(keys, payload), sort_rows_reference(keys, payload))
+    got, ref = sort_rows(keys, payload), sort_rows_reference(keys, payload)
+    check_sort(keys, payload, got, ref)
     # read 4 B of key per element and the payload rows once; write 4 B each
     # of sorted key, sorted payload and perm (a long row's scratch pairs are
     # traffic the function does not need, so none is counted)
@@ -2354,6 +2498,15 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
     }
+    if n > tile_elems():
+        out["parent_ms"] = cuda_ms(lambda: sort_rows_merge(keys, payload), reps=reps)
+        merged = sort_rows_merge(keys, payload)
+        check(all(torch.equal(a, b) for a, b in zip(got, merged)),
+              f"{out['shape']}: the cluster path and the merge path differ")
+        if n <= cluster_elems():
+            out["cluster"] = cluster_shape(n)
+            check(kernel_ms <= out["parent_ms"],
+                  f"{out['shape']}: {kernel_ms} ms, slower than the merge path's {out['parent_ms']}")
     log(f"phase timings: sort_rows {json.dumps(out)}")
     return out
 
@@ -2396,6 +2549,7 @@ def main() -> int:
         serve = phase_serve(work, paths, q_dir, q_names)
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
+        fsw_k8 = phase_fsw_k8(work, built, q_dir, q_names)
         chunk = phase_train_chunks(work, built, q_dir, q_names)
         ranks, ranked = phase_ranks(work, built, q_dir)
         model_axis = phase_model_axis(work, ranked)
@@ -2407,7 +2561,8 @@ def main() -> int:
     sort_timing = phase_sort_timings(dev, PHASE5_SORT, reps=10)
     train_sort_timing = phase_sort_timings(dev, PHASE5_TRAIN_SORT, reps=50)
     axis_sort_timings = [phase_sort_timings(dev, shape, reps=50) for shape in MODEL_AXIS_SORTS]
-    long_timing = phase_sort_timings(dev, PHASE5_SORT_LONG, reps=3)
+    long_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 20)
+                    for shape in PHASE5_SORT_LONG]
     unsort_timing = phase_unsort_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
@@ -2449,6 +2604,8 @@ def main() -> int:
             {name: [run["steps_per_s"], run["all_reduce_bytes_per_step"]]
              for name, run in model_axis["trainers"].items()})
         + f"; the whole phase {model_axis['phase_s']:.1f} s")
+    log(f"phase timings: fsw_k8 {fsw_k8['seconds']:.1f} s; the k=8 query's stages (s) "
+        f"{json.dumps(fsw_k8['query']['stage_s'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
@@ -2472,6 +2629,10 @@ def main() -> int:
     for name in by_path:  # both ranks, rank 0's exports included
         by_path[name]["train_model_axis"] = sum(sum(run[f"{name}_launches"])
                                                 for run in model_axis["trainers"].values())
+    by_path["kmer_hist"]["fsw_k8"] = sum(run["kmer_hist"] for run in fsw_k8["launches"].values())
+    for path in ("lazy_shared", "exact_shared", "query"):
+        by_path["sort_rows"][f"fsw_k8_{path}"] = fsw_k8["launches"][path]["sort_rows"]
+    goal = long_timings[0]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "tpu_kernels": ["B1", "B2"], "launches": by_path["kmer_hist"]["dense"],
@@ -2490,8 +2651,15 @@ def main() -> int:
         "max_abs_err": sort_err, "ms": sort_timing["ms"], "plain_ms": sort_timing["plain_ms"],
         "bound_ms": sort_timing["bound_ms"], "bound_by": sort_timing["bound_by"],
         "library_ms": sort_timing["library_ms"],
-        "long_rows": {key: long_timing[key] for key in
-                      ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "long_rows": [{key: timing[key] for key in (
+            "shape", "ms", "parent_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cluster")}
+            for timing in long_timings],
+        "long_rows_goal": {"shape": goal["shape"], "ms": goal["ms"], "goal_ms": LONG_SORT_GOAL_MS,
+                           "goal_met": goal["ms"] <= LONG_SORT_GOAL_MS,
+                           "torch_sort_ms": goal["library_ms"],
+                           "faster_than_torch_sort": goal["ms"] < goal["library_ms"]},
+        "long_launches_by_path": {path: fsw_k8["launches"][path]["sort_rows_long"]
+                                  for path in ("lazy_shared", "exact_shared", "query")},
         "train_shape": {key: train_sort_timing[key] for key in
                         ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "model_axis_shapes": [{key: timing[key] for key in

@@ -23,9 +23,10 @@
 // read plus 4 B key + 4 B payload + 4 B perm written, and the payload read
 // (4 B per element of the payload_rows rows) is negligible when
 // payload_rows << rows: about 16 B per element over 3.35 TB/s, 0.32 ms for
-// 8,192 rows of 8,192. The operations (about n log2 n compares a row, or a
-// few tens of integer instructions per element and radix pass) over the
-// card's 16.7 T integer operations/s stay below that.
+// 8,192 rows of 8,192 and 1.29 ms for 8,192 rows of 32,896. The operations
+// (about n log2 n compares a row, or a few tens of integer instructions per
+// element and radix pass) over the card's 16.7 T integer operations/s stay
+// below that.
 //
 // Design:
 // - n <= kTile (16,384): one block of the smallest power of two >= 32 of
@@ -46,7 +47,43 @@
 //   counting and the scatter. The last pass leaves the sorted row in
 //   shared memory; the payload row is staged in the key buffer and
 //   gathered from there.
-// - n > kTile (k = 8 and 9 query point sets, n up to 131,072): the row is
+// - kTile < n <= kClusterElems (131,072: the k = 8 and k = 9 point sets and
+//   the shared-vocab sorts at V = 32,896 and 131,072): one row per thread
+//   block cluster of C = ceil(n / 17,408) blocks of 1024 threads (1 to 8,
+//   8 the portable cluster size), sorted in distributed shared memory. This path stands in
+//   for the same B3 sort at long rows: one SM's 227 KB of shared memory
+//   does not hold such a row with its indices, a cluster's does. Block b
+//   holds columns [b cap, (b + 1) cap) of the row, cap = 1024 threads times
+//   the fewest items a thread (9 to 17) with C cap >= n (at V = 32,896: 2
+//   blocks of 17,408, against 65,536 for the merge's power of two), so
+//   only the last block holds padding (largest key, index >= n), fewer
+//   than C * 1024 elements. The same LSD radix sort runs across the
+//   cluster: each block counts its digits per warp as the tile path does
+//   and publishes its 256 digit totals; after a cluster barrier every block
+//   reads the C totals through distributed shared memory and knows the
+//   offset of each of its (digit, warp) groups in the whole row (blocks in
+//   column order, so the pass stays stable); each item is stored, key and
+//   32-bit index, straight into the shared memory of the block that owns
+//   its rank; after a second barrier each block reads its ranks back. The
+//   row is read once and the outputs written once: the 16 B an element of
+//   the bound, no scratch and no pass through device memory, where the
+//   merge below moves about ten times that. What is left, by the clock64
+//   breakdown of profile_sort_rows.py on an H100 at 8,192 rows of 32,896:
+//   the warp-private counting (with the read-back) and the scatter of the
+//   pairs about a third of the time each, the output a fifth, the two
+//   cluster barriers a tenth. The scatter costs per store, alike into a
+//   peer and into the block itself: it is the shared memory pipe, through
+//   the bank conflicts of random ranks, as in the tile path. Fewer, fuller
+//   blocks are faster: one 8-byte pair a store beats a key and an index
+//   stored apart, 1024 threads beat 768 (more warps, less padding), and 2
+//   blocks of 17 items beat 3 of 11 at V = 32,896 (less of the row crosses
+//   to a peer, and the card holds 66 two-block clusters on all 132 SMs
+//   against 39 three-block ones on 117), though at 64 registers a thread
+//   more items spill more.
+//   Staging a block's items in digit order so that warps store runs,
+//   explicit st.shared::cluster stores, 512-thread blocks two to an SM and
+//   __match_any_sync in place of the lane masks gained nothing or lost.
+// - n > kClusterElems (per-genome point sets at k >= 10 only): the row is
 //   padded to the next power of two n_pad with (largest key, index >= n),
 //   which sorts after every real element. One block per tile radix-sorts
 //   its tile and stores 64-bit (key, global index) pairs to a scratch row
@@ -58,14 +95,22 @@
 //   same permutation as the tile path.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kItems = 16;                        // keys a thread holds
 constexpr int kMaxThreads = 1024;
 constexpr int kTile = kMaxThreads * kItems;       // 16,384: a row a block sorts
+constexpr int kMaxCluster = 8;                    // the portable cluster size
+constexpr int kClusterThreads = 1024;             // threads of a cluster's block
+constexpr int kClusterItems = 17;                 // the most keys such a thread holds
+constexpr int kClusterElems = kMaxCluster * kTile;  // 131,072: a row a cluster sorts
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 constexpr int kGlobalThreads = 256;
@@ -407,6 +452,212 @@ merge_tiles_kernel(uint64_t* __restrict__ scratch, const float* __restrict__ pay
   }
 }
 
+// Shared memory of one block of a cluster sort, kClusterThreads threads of
+// kIt items each: the
+// exchange buffer that the cluster's blocks scatter into ((key, 32-bit row
+// index) pairs of kCap ranks, one 8-byte store each), a 256-bin counter row
+// and a 256-bin lane-mask row per warp, the (digit, group) sums of the scan (kGroups groups of
+// kGroupWarps warps, skewed as in Layout), this block's digit totals, which
+// the other blocks read, its digits' offsets in the row and the warp totals
+// of the scan over digits.
+template <int kIt>
+struct ClusterLayout {
+  static constexpr int kThreads = kClusterThreads;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kCap = kThreads * kIt;
+  static constexpr int kGroups = kThreads / kRadix;
+  static constexpr int kGroupWarps = kWarps / kGroups;
+  static constexpr int kSums = kRadix * kGroups;
+  static constexpr int kBytes = 2 * kCap * 4 + 2 * kWarps * kRadix * 4 + (kSums + kSums / 32) * 4 +
+                                2 * kRadix * 4 + 32 * 4;
+  uint2* pairs;
+  uint32_t* counts;
+  uint32_t* masks;
+  uint32_t* sums;
+  uint32_t* hist;
+  uint32_t* base;
+  uint32_t* wsum;
+  __device__ explicit ClusterLayout(void* raw)
+      : pairs(static_cast<uint2*>(raw)),
+        counts(reinterpret_cast<uint32_t*>(pairs + kCap)),
+        masks(counts + kWarps * kRadix),
+        sums(masks + kWarps * kRadix),
+        hist(sums + kSums + kSums / 32),
+        base(hist + kRadix),
+        wsum(base + kRadix) {}
+  __device__ static int skew(int i) { return i + (i >> 5); }
+};
+
+// kTile < n <= kClusterElems: the cluster of blocks [row * C, (row + 1) * C)
+// sorts row `row`; block b of the cluster starts with columns [b kCap,
+// (b + 1) kCap) and ends with the ranks [b kCap, (b + 1) kCap), which it
+// writes out. Every pass synchronises the cluster twice: once the digit
+// totals are published (so every block has also read back the previous
+// pass's ranks, and its exchange buffers may be written), and once every
+// item is stored (so every block may read its ranks, and no block leaves
+// while a peer still writes to it).
+template <int kIt>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+sort_rows_cluster_kernel(const float* __restrict__ keys, const float* __restrict__ payload,
+                         float* __restrict__ out_keys, float* __restrict__ out_payload,
+                         int32_t* __restrict__ perm, int n, int64_t group) {
+  using L = ClusterLayout<kIt>;
+  constexpr int kThreads = L::kThreads;
+  extern __shared__ uint4 smem_raw[];
+  const L s(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  const int64_t row = blockIdx.x / blocks;
+  const int col0 = me * L::kCap;  // this block's first column
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first = warp * 32 * kIt + lane;  // item i is element first + 32 i
+  const uint32_t lt = lanemask_lt();
+  uint32_t key[kIt];
+  uint32_t idx[kIt];
+  const float* in = keys + row * n + col0;
+  const int valid = n - col0 < L::kCap ? n - col0 : L::kCap;  // the last block's pads after
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int j = first + 32 * i;
+    key[i] = j < valid ? ordered(__ldcs(in + j)) : 0xFFFFFFFFu;
+    idx[i] = static_cast<uint32_t>(col0 + j);
+  }
+
+  uint32_t* wcount = s.counts + warp * kRadix;
+  uint32_t* wmask = s.masks + warp * kRadix;  // zero between items
+  for (int c = lane; c < kRadix; c += 32) wmask[c] = 0;
+  // the digit and warp group whose counts this thread scans
+  const int digit = threadIdx.x % kRadix;
+  const int grp = threadIdx.x / kRadix;
+  // the rank of item i among the items of its warp with its digit, in the
+  // half i % 2 of rank[i / 2]
+  uint32_t rank[(kIt + 1) / 2];
+
+#pragma unroll 1
+  for (int shift = 0; shift < 32; shift += kRadixBits) {
+    // warp-private counts and ranks, as in block_radix_sort
+#pragma unroll
+    for (int c = lane; c < kRadix; c += 32) wcount[c] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kIt; ++i) {
+      const uint32_t d = (key[i] >> shift) & (kRadix - 1);
+      atomicOr(&wmask[d], 1u << lane);
+      __syncwarp();
+      const uint32_t peers = wmask[d];
+      __syncwarp();
+      const uint32_t before = __popc(peers & lt);
+      uint32_t seen = 0;
+      if (before == 0) {
+        seen = atomicAdd(&wcount[d], __popc(peers));
+        wmask[d] = 0;
+      }
+      seen = __shfl_sync(kFull, seen, __ffs(peers) - 1);
+      __syncwarp();
+      rank[i / 2] = i % 2 ? rank[i / 2] | ((seen + before) << 16) : seen + before;
+    }
+    __syncthreads();
+    // each thread: the counts of its group's warps for its digit, exclusive
+    // in place, and the group's sum
+    {
+      uint32_t sum = 0;
+#pragma unroll
+      for (int w = 0; w < L::kGroupWarps; ++w) {
+        uint32_t* c = &s.counts[(grp * L::kGroupWarps + w) * kRadix + digit];
+        const uint32_t v = *c;
+        *c = sum;
+        sum += v;
+      }
+      s.sums[L::skew(digit * L::kGroups + grp)] = sum;
+    }
+    __syncthreads();
+    // a thread per digit: the groups' sums exclusive in place, and the
+    // block's total of the digit published to the cluster
+    if (threadIdx.x < kRadix) {
+      uint32_t run = 0;
+#pragma unroll
+      for (int g = 0; g < L::kGroups; ++g) {
+        uint32_t* c = &s.sums[L::skew(threadIdx.x * L::kGroups + g)];
+        const uint32_t v = *c;
+        *c = run;
+        run += v;
+      }
+      s.hist[threadIdx.x] = run;
+    }
+    cluster.sync();
+    // a thread per digit: the digit's count in the whole row and in the
+    // blocks before this one, then the exclusive scan of the row's counts
+    // over the digits (8 warps, their totals through s.wsum)
+    uint32_t offset = 0;
+    if (threadIdx.x < kRadix) {
+      uint32_t total = 0;
+      uint32_t earlier = 0;
+      for (int b = 0; b < blocks; ++b) {
+        const uint32_t v = *cluster.map_shared_rank(s.hist + threadIdx.x, b);
+        total += v;
+        earlier += b < me ? v : 0;
+      }
+      uint32_t incl = total;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) s.wsum[warp] = incl;
+      offset = incl - total + earlier;
+    }
+    __syncthreads();
+    if (threadIdx.x < kRadix) {
+      for (int w = 0; w < warp; ++w) offset += s.wsum[w];
+      s.base[threadIdx.x] = offset;  // not s.hist: a peer may still be reading it
+    }
+    __syncthreads();
+    // each thread: its digit's offset in the row and its group's in the
+    // block, added to its group's warp rows
+    {
+      const uint32_t add = s.base[digit] + s.sums[L::skew(digit * L::kGroups + grp)];
+#pragma unroll
+      for (int w = 0; w < L::kGroupWarps; ++w) {
+        s.counts[(grp * L::kGroupWarps + w) * kRadix + digit] += add;
+      }
+    }
+    __syncthreads();
+    // each item to its rank, in the shared memory of the block that owns it
+#pragma unroll
+    for (int i = 0; i < kIt; ++i) {
+      const uint32_t d = (key[i] >> shift) & (kRadix - 1);
+      const uint32_t at = wcount[d] + ((rank[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
+      const uint32_t owner = at / L::kCap;
+      const uint32_t local = at - owner * L::kCap;
+      *cluster.map_shared_rank(s.pairs + local, owner) = make_uint2(key[i], idx[i]);
+    }
+    cluster.sync();
+    if (shift + kRadixBits < 32) {  // the last pass leaves the ranks in shared memory
+#pragma unroll
+      for (int i = 0; i < kIt; ++i) {
+        const uint2 v = s.pairs[first + 32 * i];
+        key[i] = v.x;
+        idx[i] = v.y;
+      }
+    }
+  }
+
+  const float* prow = payload + (row / group) * n;
+  const int64_t out0 = row * n;
+#pragma unroll
+  for (int m = 0; m < kIt; ++m) {
+    const int j = threadIdx.x + m * kThreads;
+    if (col0 + j < n) {
+      const uint2 v = s.pairs[j];
+      __stcs(out_keys + out0 + col0 + j, unordered(v.x));
+      __stcs(perm + out0 + col0 + j, static_cast<int32_t>(v.y));
+      __stcs(out_payload + out0 + col0 + j, __ldg(prow + v.y));
+    }
+  }
+}
+
 template <int kThreads>
 cudaError_t launch_tile(const float* k, const float* p, float* ok, float* op, int32_t* pm,
                         int64_t rows, int n, int64_t group, cudaStream_t s) {
@@ -419,10 +670,140 @@ cudaError_t launch_tile(const float* k, const float* p, float* ok, float* op, in
   return cudaGetLastError();
 }
 
+// The launch of a cluster sort of `rows` rows of n, kIt items a thread and
+// `blocks` blocks a cluster (its grid, shared memory and cluster shape),
+// after the attribute that admits its shared memory.
+template <int kIt>
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t prepare(int64_t rows, int blocks, cudaStream_t s) {
+    constexpr int smem = ClusterLayout<kIt>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(sort_rows_cluster_kernel<kIt>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(blocks);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(static_cast<unsigned>(rows * blocks));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaSuccess;
+  }
+  cudaError_t active_clusters(int* active) {
+    void (*kernel)(const float*, const float*, float*, float*, int32_t*, int, int64_t) =
+        sort_rows_cluster_kernel<kIt>;
+    return cudaOccupancyMaxActiveClusters(active, (const void*)kernel, &cfg);
+  }
+};
+
+template <int kIt>
+cudaError_t cluster_occupancy(int blocks, int* active, int64_t* smem_bytes) {
+  ClusterLaunch<kIt> launch;
+  *smem_bytes = ClusterLayout<kIt>::kBytes;
+  const cudaError_t err = launch.prepare(1, blocks, nullptr);
+  return err == cudaSuccess ? launch.active_clusters(active) : err;
+}
+
+// Launches after checking that the card holds one such cluster at a time.
+template <int kIt>
+cudaError_t launch_cluster(const float* k, const float* p, float* ok, float* op, int32_t* pm,
+                           int64_t rows, int n, int blocks, int64_t group, cudaStream_t s) {
+  ClusterLaunch<kIt> launch;
+  cudaError_t err = launch.prepare(rows, blocks, s);
+  if (err != cudaSuccess) return err;
+  int active = 0;
+  err = launch.active_clusters(&active);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&launch.cfg, sort_rows_cluster_kernel<kIt>, k, p, ok, op, pm, n,
+                           group);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The cluster shape of a row of kTile < n <= kClusterElems: the fewest
+// blocks of kClusterThreads threads of at most kClusterItems items that
+// hold n (1 to 8), each thread with the fewest items that hold n (9 to
+// kClusterItems), so the padding stays under C * kClusterThreads.
+int cluster_blocks(int64_t n) {
+  constexpr int64_t cap = int64_t(kClusterThreads) * kClusterItems;
+  return static_cast<int>((n + cap - 1) / cap);
+}
+
+int cluster_items(int64_t n) {
+  const int64_t per_block = (n + cluster_blocks(n) - 1) / cluster_blocks(n);
+  return static_cast<int>((per_block + kClusterThreads - 1) / kClusterThreads);
+}
+
+// f(std::integral_constant<int, items>{}) for items = cluster_items(n).
+template <typename F>
+cudaError_t with_cluster_items(int64_t n, F f) {
+  switch (cluster_items(n)) {
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    case 13: return f(std::integral_constant<int, 13>{});
+    case 14: return f(std::integral_constant<int, 14>{});
+    case 15: return f(std::integral_constant<int, 15>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 17: return f(std::integral_constant<int, 17>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 int64_t next_pow2(int64_t n) {
   int64_t p = 1;
   while (p < n) p <<= 1;
   return p;
+}
+
+// n > kTile through device memory: presort, then the bitonic merges.
+cudaError_t launch_merge(const float* k, const float* p, float* ok, float* op, int32_t* pm,
+                         uint64_t* sc, int64_t rows, int64_t n, int64_t group, cudaStream_t s) {
+  if (sc == nullptr) return cudaErrorInvalidValue;
+  const int64_t n_pad = next_pow2(n);
+  const int64_t n_tiles = n_pad / kTile;
+  if (rows > INT_MAX / n_tiles) return cudaErrorInvalidValue;
+  const unsigned tile_blocks = static_cast<unsigned>(rows * n_tiles);
+  const int presort_smem = Layout<kMaxThreads>::kBytes;
+  const int merge_smem = static_cast<int>(kTile * sizeof(uint64_t));
+  cudaError_t err = cudaFuncSetAttribute(presort_tiles_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, presort_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(merge_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             merge_smem);
+  if (err != cudaSuccess) return err;
+
+  presort_tiles_kernel<<<tile_blocks, kMaxThreads, presort_smem, s>>>(k, sc, n, n_pad, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t n_pairs = rows * (n_pad / 2);
+  int64_t global_blocks = (n_pairs + kGlobalThreads - 1) / kGlobalThreads;
+  if (global_blocks > kMaxGlobalBlocks) global_blocks = kMaxGlobalBlocks;
+  for (int64_t size = 2 * int64_t(kTile); size <= n_pad; size <<= 1) {
+    for (int64_t stride = size / 2; stride >= kTile; stride >>= 1) {
+      merge_global_kernel<<<static_cast<unsigned>(global_blocks), kGlobalThreads, 0, s>>>(
+          sc, n_pad, size, stride, n_pairs);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    merge_tiles_kernel<<<tile_blocks, kMaxThreads, merge_smem, s>>>(
+        sc, p, ok, op, pm, n, n_pad, n_tiles, size, group);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool valid_shape(int64_t rows, int64_t n, int64_t payload_rows) {
+  return rows >= 1 && n >= 1 && n <= kMaxN && payload_rows >= 1 && rows % payload_rows == 0;
 }
 
 }  // namespace
@@ -430,8 +811,12 @@ int64_t next_pow2(int64_t n) {
 extern "C" {
 
 // Elements a block sorts in shared memory: rows longer than this take the
-// global-merge path (the seam the tests place lengths around).
+// cluster path (the seam the tests place lengths around).
 int64_t sort_rows_tile_elems() { return kTile; }
+
+// Elements a cluster sorts in distributed shared memory: rows longer than
+// this take the global-merge path.
+int64_t sort_rows_cluster_elems() { return kClusterElems; }
 
 // Keys each thread of the tile path holds: a row of n <= kTile elements is
 // sorted by the smallest power-of-two block of at least 32 threads with
@@ -442,17 +827,36 @@ const char* sort_rows_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The cluster path's shape for rows of n (kTile < n <= kClusterElems) on the
+// current device: blocks a cluster, threads a block, items a thread, shared
+// memory bytes a block and the clusters the card holds at a time; returns 0,
+// or the CUDA error of the attribute or the occupancy query.
+int sort_rows_cluster_shape(int64_t n, int64_t* blocks, int64_t* threads, int64_t* items,
+                            int64_t* smem_bytes, int64_t* active) {
+  if (n <= kTile || n > kClusterElems) return static_cast<int>(cudaErrorInvalidValue);
+  const int b = cluster_blocks(n);
+  int clusters = 0;
+  const cudaError_t err = with_cluster_items(n, [&](auto items) {
+    return cluster_occupancy<decltype(items)::value>(b, &clusters, smem_bytes);
+  });
+  *blocks = b;
+  *threads = kClusterThreads;
+  *items = cluster_items(n);
+  *active = clusters;
+  return static_cast<int>(err);
+}
+
 // Launches on `stream` without synchronising; returns the first error of
-// cudaFuncSetAttribute or a launch (cudaGetLastError()), 0 on success.
+// cudaFuncSetAttribute, the cluster occupancy query or a launch
+// (cudaGetLastError()), cudaErrorLaunchOutOfResources if the card holds no
+// cluster of the row's shape, 0 on success.
 // keys: f32 (rows, n); payload: f32 (payload_rows, n) with rows % payload_rows
 // == 0; out_keys, out_payload: f32 (rows, n); perm: int32 (rows, n);
-// scratch: (rows, next_pow2(n)) 64-bit, needed only when n > kTile.
+// scratch: (rows, next_pow2(n)) 64-bit, needed only when n > kClusterElems.
 int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void* out_payload,
                      void* perm, void* scratch, int64_t rows, int64_t n, int64_t payload_rows,
                      void* stream) {
-  if (rows < 1 || n < 1 || n > kMaxN || payload_rows < 1 || rows % payload_rows != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid_shape(rows, n, payload_rows)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t group = rows / payload_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* k = static_cast<const float*>(keys);
@@ -474,40 +878,35 @@ int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void
     return static_cast<int>(err);
   }
 
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n_pad = next_pow2(n);
-  const int64_t n_tiles = n_pad / kTile;
-  if (rows > INT_MAX / n_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned tile_blocks = static_cast<unsigned>(rows * n_tiles);
-  const int presort_smem = Layout<kMaxThreads>::kBytes;
-  const int merge_smem = static_cast<int>(kTile * sizeof(uint64_t));
-  uint64_t* sc = static_cast<uint64_t*>(scratch);
-  err = cudaFuncSetAttribute(presort_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             presort_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(merge_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             merge_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  presort_tiles_kernel<<<tile_blocks, kMaxThreads, presort_smem, s>>>(k, sc, n, n_pad, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_pairs = rows * (n_pad / 2);
-  int64_t global_blocks = (n_pairs + kGlobalThreads - 1) / kGlobalThreads;
-  if (global_blocks > kMaxGlobalBlocks) global_blocks = kMaxGlobalBlocks;
-  for (int64_t size = 2 * int64_t(kTile); size <= n_pad; size <<= 1) {
-    for (int64_t stride = size / 2; stride >= kTile; stride >>= 1) {
-      merge_global_kernel<<<static_cast<unsigned>(global_blocks), kGlobalThreads, 0, s>>>(
-          sc, n_pad, size, stride, n_pairs);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    merge_tiles_kernel<<<tile_blocks, kMaxThreads, merge_smem, s>>>(
-        sc, p, ok, op, pm, n, n_pad, n_tiles, size, group);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= kClusterElems) {
+    const int b = cluster_blocks(n);
+    if (rows > INT_MAX / b) return static_cast<int>(cudaErrorInvalidValue);
+    const int m = static_cast<int>(n);
+    return static_cast<int>(with_cluster_items(n, [&](auto items) {
+      return launch_cluster<decltype(items)::value>(k, p, ok, op, pm, rows, m, b, group, s);
+    }));
   }
-  return 0;
+
+  return static_cast<int>(launch_merge(k, p, ok, op, pm, static_cast<uint64_t*>(scratch), rows, n,
+                                       group, s));
+}
+
+// The global-merge path for any n > kTile: what rows of kTile < n <=
+// kClusterElems took before the cluster path, kept callable so that a
+// timing can hold the cluster path against it on one card. sort_rows_launch
+// never calls it for such rows. Arguments as sort_rows_launch's; scratch is
+// always needed.
+int sort_rows_merge_launch(const void* keys, const void* payload, void* out_keys,
+                           void* out_payload, void* perm, void* scratch, int64_t rows, int64_t n,
+                           int64_t payload_rows, void* stream) {
+  if (!valid_shape(rows, n, payload_rows) || n <= kTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_merge(
+      static_cast<const float*>(keys), static_cast<const float*>(payload),
+      static_cast<float*>(out_keys), static_cast<float*>(out_payload), static_cast<int32_t*>(perm),
+      static_cast<uint64_t*>(scratch), rows, n, rows / payload_rows,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -15,6 +15,13 @@ in column order, so ``perm`` is fully determined, ties included. (B3 and
 ``lax.sort(is_stable=False)`` may order ties otherwise: the sorted keys
 agree on every row, the payload and ``perm`` on rows without ties.)
 
+The kernel takes a row by its length: up to ``tile_elems()`` (16,384) one
+thread block sorts it in shared memory; up to ``cluster_elems()`` (131,072:
+the k = 8 and k = 9 point sets and vocabularies) one thread block cluster
+sorts it in distributed shared memory; longer rows merge through device
+memory. ``sort_rows.launches`` counts every launch, ``sort_rows.
+long_launches`` those of the cluster path.
+
 On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it runs ``sort_rows_reference``, the same function in plain tensor ops.
 """
@@ -26,7 +33,7 @@ import functools
 
 import torch
 
-MAX_N = 1 << 30  # the kernel pads long rows to a power of two and indexes in int32
+MAX_N = 1 << 30  # the merge path pads long rows to a power of two and indexes in int32
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -73,11 +80,14 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("sort_rows")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.sort_rows_launch.argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
-    lib.sort_rows_launch.restype = ctypes.c_int
+    for name in ("sort_rows_launch", "sort_rows_merge_launch"):
+        getattr(lib, name).argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+        getattr(lib, name).restype = ctypes.c_int
     lib.sort_rows_error_string.argtypes = [ctypes.c_int]
     lib.sort_rows_error_string.restype = ctypes.c_char_p
-    for name in ("sort_rows_tile_elems", "sort_rows_items_per_thread"):
+    lib.sort_rows_cluster_shape.argtypes = [i64] + [ctypes.POINTER(i64)] * 5
+    lib.sort_rows_cluster_shape.restype = ctypes.c_int
+    for name in ("sort_rows_tile_elems", "sort_rows_cluster_elems", "sort_rows_items_per_thread"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
     return lib
@@ -85,8 +95,29 @@ def _lib() -> ctypes.CDLL:
 
 def tile_elems() -> int:
     """Elements a thread block sorts in shared memory; longer rows take the
-    kernel's global-merge path."""
+    kernel's cluster path."""
     return int(_lib().sort_rows_tile_elems())
+
+
+def cluster_elems() -> int:
+    """Elements a thread block cluster sorts in distributed shared memory;
+    longer rows take the kernel's global-merge path."""
+    return int(_lib().sort_rows_cluster_elems())
+
+
+def cluster_shape(n: int) -> dict[str, int]:
+    """The cluster path's launch for rows of N (tile_elems() < N <=
+    cluster_elems()) on the current card: blocks a cluster, threads a block,
+    items a thread, shared memory bytes a block and the clusters the card
+    holds at a time."""
+    lib = _lib()
+    out = [ctypes.c_int64() for _ in range(5)]
+    err = lib.sort_rows_cluster_shape(n, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"sort_rows cluster shape at N={n}: "
+                           f"{lib.sort_rows_error_string(err).decode()} ({err})")
+    keys = ("blocks", "threads", "items", "smem_bytes", "active_clusters")
+    return dict(zip(keys, (v.value for v in out)))
 
 
 def items_per_thread() -> int:
@@ -106,16 +137,30 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         return sort_rows_reference(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
+    out = _launch("sort_rows_launch", keys, payload, keys.shape[1] > cluster_elems())
+    sort_rows.launches += 1
+    if tile_elems() < keys.shape[1] <= cluster_elems():
+        sort_rows.long_launches += 1
+    return out
+
+
+sort_rows.launches = 0  # kernel launches in this process
+sort_rows.long_launches = 0  # those of them on the cluster path
+
+
+def _launch(entry: str, keys: torch.Tensor, payload: torch.Tensor, with_scratch: bool):
+    """Outputs allocated and one launch of the C entry point ``entry`` on
+    the current stream of the keys' card; raises on a launch error."""
     (r, n), p = keys.shape, payload.shape[0]
     out_keys = torch.empty_like(keys)
     out_payload = torch.empty_like(keys)
     perm = torch.empty((r, n), dtype=torch.int32, device=keys.device)
     lib = _lib()
     scratch = (torch.empty((r, 1 << (n - 1).bit_length()), dtype=torch.int64, device=keys.device)
-               if n > tile_elems() else None)
+               if with_scratch else None)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = lib.sort_rows_launch(
+        err = getattr(lib, entry)(
             keys.data_ptr(), payload.data_ptr(), out_keys.data_ptr(), out_payload.data_ptr(),
             perm.data_ptr(), None if scratch is None else scratch.data_ptr(), r, n, p, stream,
         )
@@ -123,8 +168,18 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         raise RuntimeError(
             f"sort_rows launch failed: {lib.sort_rows_error_string(err).decode()} ({err})"
         )
-    sort_rows.launches += 1
     return out_keys, out_payload, perm
 
 
-sort_rows.launches = 0  # kernel launches in this process
+def sort_rows_merge(keys: torch.Tensor, payload: torch.Tensor):
+    """``sort_rows`` of CUDA tensors with N > tile_elems() through the
+    global-merge path, whatever N: the path rows of tile_elems() < N <=
+    cluster_elems() took before the cluster path. No caller in the package
+    uses it; a timing holds the cluster path against it on one card.
+    Counts no launch."""
+    _check(keys, payload)
+    if keys.device.type != "cuda":
+        raise ValueError(f"sort_rows_merge takes CUDA tensors, not {keys.device}")
+    if keys.shape[1] <= tile_elems():
+        raise ValueError(f"sort_rows_merge takes rows longer than {tile_elems()}")
+    return _launch("sort_rows_merge_launch", keys, payload, True)

@@ -7,9 +7,13 @@ version with genome boundaries at +-k and +-1 of the tile and block-span
 seams, and on 5 Mb homopolymers and dinucleotide repeats (many lanes of a
 warp on one bin).
 ``sort_rows``: a row count that is a multiple of nothing, N around the
-block sizes of the radix tile sort and N = 16,385 (the first length on the
-global-merge path), all-equal keys (``perm`` the identity), keys at the f32
-extremes; ``perm`` equal to the plain (stable) version's on every row; and
+block sizes of the radix tile sort, the cluster path's lengths from 16,385
+to 131,072 with its seams and 131,073 (the first length on the global-merge
+path), ties on every other row, all-equal keys (``perm`` the identity),
+keys at the f32 extremes; ``perm`` equal to the plain (stable) version's on
+every row; ``sort_rows.long_launches`` counting the cluster path's launches
+alone; the global-merge path that the timings hold the cluster path against
+equal to the plain version; and
 the FSW model on the card against the CPU at d_out 512; the sort under
 autograd (``SortPW``, ``SortShared``) forward and backward against the CPU.
 Trainers: two epochs of ``train_classifier``, of the dense
@@ -42,8 +46,11 @@ from kf2vecfsw_tpu_torch.kernels.histogram import (
     tile_windows,
 )
 from kf2vecfsw_tpu_torch.kernels.sort import (
+    cluster_elems,
+    cluster_shape,
     items_per_thread,
     sort_rows,
+    sort_rows_merge,
     sort_rows_reference,
     tile_elems,
 )
@@ -173,10 +180,58 @@ def test_sort_equals_plain_version(card, r, p, n):
     gen = torch.Generator(device=card).manual_seed(r * n + p)
     keys = torch.randn(r, n, generator=gen, device=card)
     payload = torch.rand(p, n, generator=gen, device=card)
-    before = sort_rows.launches
+    before = sort_rows.launches, sort_rows.long_launches
     _assert_sort_matches_plain(keys, payload)
-    assert sort_rows.launches == before + 1
-    assert tile_elems() == 16_384  # 16,385 is the first length on the global-merge path
+    assert sort_rows.launches == before[0] + 1
+    assert sort_rows.long_launches == before[1] + (n > tile_elems())
+    assert tile_elems() == 16_384  # 16,385 is the first length on the cluster path
+
+
+# the cluster path (16,384 < N <= 131,072) and its seams: 1 block of 1024
+# threads to 17,408, 2 to 34,816, 8 at 131,072, the items a thread stepping
+# every 1,024 x blocks elements (24,576 / 24,577: 12 / 13 items of 2
+# blocks); 131,073 is the first length on the global-merge path
+LONG_LENGTHS = [16_385, 17_408, 17_409, 24_576, 24_577, 32_768, 32_769, 32_896, 34_816, 34_817,
+                49_153, 131_071, 131_072, 131_073]
+
+
+@pytest.mark.parametrize("r,p", [(37, 37), (37, 1), (1031, 1)])
+@pytest.mark.parametrize("n", LONG_LENGTHS)
+def test_sort_long_rows_equal_plain_version(card, r, p, n):
+    gen = torch.Generator(device=card).manual_seed(r * n + p + 1)
+    keys = torch.randn(r, n, generator=gen, device=card)
+    keys[::2] = torch.round(keys[::2] * 4) / 4  # ties on every other row
+    payload = torch.rand(p, n, generator=gen, device=card)
+    before = sort_rows.launches, sort_rows.long_launches
+    _assert_sort_matches_plain(keys, payload)
+    assert sort_rows.launches == before[0] + 1
+    on_cluster = tile_elems() < n <= cluster_elems()
+    assert sort_rows.long_launches == before[1] + on_cluster
+    assert cluster_elems() == 131_072
+    if on_cluster:
+        shape = cluster_shape(n)
+        assert 1 <= shape["blocks"] <= 8 and shape["threads"] == 1024
+        slots = shape["blocks"] * shape["threads"] * shape["items"]
+        assert n <= slots < n + shape["blocks"] * shape["threads"]  # padding in the last block
+        assert shape["active_clusters"] >= 1
+
+
+@pytest.mark.parametrize("n", [16_385, 32_896, 131_072, 131_073])
+def test_merge_path_equals_plain_version(card, n):
+    """The global-merge path, which the timings hold the cluster path
+    against, sorts any row past the tile as the plain version does."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    keys = torch.randn(33, n, generator=gen, device=card)
+    keys[1::2] = torch.round(keys[1::2] * 4) / 4
+    payload = torch.rand(1, n, generator=gen, device=card)
+    before = sort_rows.launches, sort_rows.long_launches
+    got = sort_rows_merge(keys, payload)
+    torch.cuda.synchronize()
+    assert (sort_rows.launches, sort_rows.long_launches) == before
+    for a, b in zip(got, sort_rows_reference(keys, payload)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError, match="longer than"):
+        sort_rows_merge(keys[:, :tile_elems()].contiguous(), payload[:, :tile_elems()].contiguous())
 
 
 def test_sort_equals_plain_version_around_the_block_sizes(card):
@@ -190,7 +245,7 @@ def test_sort_equals_plain_version_around_the_block_sizes(card):
         _assert_sort_matches_plain(keys[:64].contiguous(), torch.rand(2, n, generator=gen, device=card))
 
 
-@pytest.mark.parametrize("n", [5, 8192, 8193, 16_384, 16_385])
+@pytest.mark.parametrize("n", [5, 8192, 8193, 16_384, 16_385, 32_896, 131_072, 131_073])
 def test_sort_all_equal_keys_and_f32_extremes(card, n):
     payload = torch.rand(1, n, device=card)
     perm = _assert_sort_matches_plain(torch.full((4, n), 0.5, device=card), payload)

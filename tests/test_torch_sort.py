@@ -15,7 +15,13 @@ import torch
 from kf2vecfsw_tpu.kernels.sort import sort_rows as jax_sort_rows
 from kf2vecfsw_tpu.models.fsw import _f2i_keys as jax_f2i_keys
 from kf2vecfsw_tpu_torch.kernels import sort as sort_mod
-from kf2vecfsw_tpu_torch.kernels.sort import f2i_keys, i2f_keys, sort_rows, sort_rows_reference
+from kf2vecfsw_tpu_torch.kernels.sort import (
+    f2i_keys,
+    i2f_keys,
+    sort_rows,
+    sort_rows_merge,
+    sort_rows_reference,
+)
 
 torch.set_num_threads(1)
 
@@ -132,6 +138,34 @@ def test_wrapper_on_cpu_tensors_never_touches_the_kernel(monkeypatch):
     for a, b in zip(sort_rows(keys, payload), sort_rows_reference(keys, payload)):
         assert torch.equal(a, b)
     assert sort_rows.launches == before
+
+
+@pytest.mark.parametrize("n", [16_385, 32_896, 131_073])
+def test_long_rows_on_cpu_take_the_plain_version_and_count_no_launch(monkeypatch, n):
+    """Rows past one block's tile (the kernel's cluster and merge paths on
+    the card) are the plain version on CPU tensors, stable like every row."""
+    def no_kernel():
+        raise AssertionError("the CPU path reached the CUDA library")
+
+    monkeypatch.setattr(sort_mod, "_lib", no_kernel)
+    before = (sort_rows.launches, sort_rows.long_launches)
+    rng = np.random.default_rng(n)
+    keys = np.round(rng.normal(size=(2, n)) * 8).astype(np.float32) + np.float32(0)  # ties, no -0.0
+    payload = rng.random((1, n)).astype(np.float32)
+    sk, sp, perm = _port(keys, payload)
+    _check_consistent(keys, payload, sk, sp, perm)
+    for i in range(2):
+        np.testing.assert_array_equal(perm[i], np.argsort(keys[i], kind="stable"))
+    assert (sort_rows.launches, sort_rows.long_launches) == before
+
+
+def test_merge_path_takes_only_long_rows_on_the_card(monkeypatch):
+    monkeypatch.setattr(sort_mod, "_lib", lambda: pytest.fail("reached the CUDA library"))
+    keys = torch.zeros((2, 40_000))
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        sort_rows_merge(keys, keys[:1].contiguous())
+    with pytest.raises(ValueError, match="% P == 0"):
+        sort_rows_merge(keys, torch.zeros((3, 40_000)))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
