@@ -18,7 +18,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
      seams, the global-merge path above 131,072), one payload row per key
      row or per 512, on random, tied / signed-zero,
      sorted and reversed keys, and at a model-axis rank's shapes (256 x
-     8,192 with one payload row, 4,096 x 8,192 with 16): sorted keys
+     8,192 with one payload row, 4,096 x 8,192 with 16), and on the merge
+     path at k=10's lengths (262,144, 300,007 and 524,800 at R in {1, 33},
+     one payload row or one per key row), with ``cluster_elems()`` equal to
+     the host's ``CLUSTER_ELEMS``: sorted keys
      bit-equal, ``perm`` a permutation that maps keys and payload to the
      outputs exactly, and equal to the plain (stable) version's on every
      row, ties included;
@@ -113,6 +116,30 @@ non-zero without one. Phases, each of which fails the run if it fails:
      serving the 32 queries, 4 of them again on the CPU (within
      FSW_RTOL / FSW_ATOL); the cluster path must launch in the lazy and the
      exact training and in the query;
+   - fsw_k10: FSW at k=10 (V = 524,800) at full width on a backbone of 16
+     random genomes of 300-400 kb (1% N, ``-size 8``), whose point sets of
+     about 230,000-290,000 k-mers put every sort on the merge path:
+     ``get_kmers -k 10``, ``train_model_set`` with default flags (the
+     per-genome lazy route) on every subtree and ``-fsw_lazy_refresh 0``
+     (per-genome exact) on the largest, 2 epochs each, the exact run traced
+     through ``KF2VEC_PROFILE_DIR`` into a directory of the phase's own
+     (its second epoch's trace must hold the merge kernels of
+     ``sort_rows.cu``); ``query`` of 4 of the genomes on the card and of 2
+     of them with ``-device cpu`` (the plain path on the carried
+     checkpoint), whose embeddings, and the export's, agree within
+     FSW_RTOL / FSW_ATOL; ``sort_rows`` must launch in the lazy, exact and
+     query runs and never on the cluster path; then the device memory of
+     one refresh group (the group ``pick_refresh_group`` chose) and of one
+     sliced forward (``auto_slice_chunk``'s chunk, 16 genomes) against the
+     budgets' counts, beside the counts copied from the JAX package;
+   - zoo: every ``models/zoo.py`` model at kf2vec's default widths (input
+     8,192 from phase 4's `.kf` rows, hidden 2,048, embedding 1,024, 12
+     classes, batch 16): ``MLP`` of depth 2, 3 and 4, both classifiers,
+     ``MLPBN`` in training (its running statistics too) and eval mode,
+     ``CNN`` single and double, ``ClassifierTrans`` (16 heads, FFN 2,048)
+     and ``BiRNN`` (2 layers of 1,024 over 16 windows), each forward on the
+     card against the same module's CPU forward within ZOO_TIGHT or
+     ZOO_LOOSE;
    - long genome: one genome of more than 2^31 bases (a 1 Mb block repeated
      LONG_REPEATS times) counted on the card in overlapping pieces, exact
      against R x the block's counts + (R - 1) x its junction's;
@@ -125,7 +152,9 @@ non-zero without one. Phases, each of which fails the run if it fails:
    and 4,096 x 8,192, and on the cluster path 8,192 rows of 32,896 (a k=8
    query block), 512 of 32,896 and 512 of 131,072 (the shared-vocab sorts
    at k=8 and k=9), each also on the global-merge path that such rows took
-   before, which the kernel must not trail; the sort's backward, an unsort
+   before, which the kernel must not trail; on the merge path 512 rows of
+   262,144 (one k=10 genome's refresh) and 1,024 rows of 524,800 with 16
+   payload rows (a k=10 query block); the sort's backward, an unsort
    scatter,
    at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
@@ -155,6 +184,7 @@ card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import math
@@ -177,6 +207,7 @@ from kf2vecfsw_tpu_torch.defaults import (
     BATCH_SIZE,
     DEFAULT_SUBTREE_SZ,
     EMBEDDING_SIZE,
+    FEATURES_SCALER,
     FSW_BASE_DIM,
     FSW_OUT_DIM,
     HIDDEN_SIZE_FC1,
@@ -194,19 +225,28 @@ from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
 from kf2vecfsw_tpu_torch.kernels.sort import (
+    CLUSTER_ELEMS,
     cluster_elems,
     cluster_shape,
     sort_rows,
     sort_rows_merge,
     sort_rows_reference,
+    sort_transient_bytes,
     tile_elems,
 )
 from kf2vecfsw_tpu_torch.kmer import counter as counter_mod
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, concat_with_separators, count_canonical_numpy
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_codes, canonical_vocab_size
 from kf2vecfsw_tpu_torch.models import fsw as fsw_model
+from kf2vecfsw_tpu_torch.models import zoo
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_, unsort
-from kf2vecfsw_tpu_torch.models.mlp import Classifier, DistEmbed, init_params_, params_to_jax
+from kf2vecfsw_tpu_torch.models.mlp import (
+    Classifier,
+    DistEmbed,
+    init_params_,
+    params_from_jax,
+    params_to_jax,
+)
 from kf2vecfsw_tpu_torch.parallel.counting import count_canonical_sharded
 from kf2vecfsw_tpu_torch.parallel.mesh import (
     BACKEND_ENV,
@@ -225,6 +265,7 @@ from kf2vecfsw_tpu_torch.train.checkpoint import _flatten as flatten_params
 from kf2vecfsw_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from kf2vecfsw_tpu_torch.train.schedule import step_lr
 from kf2vecfsw_tpu_torch.train.step import bucket_items
+from kf2vecfsw_tpu_torch.utils.profiling import PROFILE_DIR_ENV
 
 SEED = 20261016
 K_MAIN = 7
@@ -254,6 +295,9 @@ SORT_ROWS = (1, 33, 4096)
 # the merge past it
 SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 16385, 17408, 17409, 24577, 32768,
                 32769, 32896, 34816, 34817, 49153, 131071, 131072, 131073)
+# the merge path's lengths (k = 10 point sets, its vocab of 524,800), at R in
+# {1, 33}: the lengths phase fsw_k10 sorts
+MERGE_SORT_ROWS, MERGE_SORT_LENGTHS = (1, 33), (262_144, 300_007, 524_800)
 SORT_KINDS = ("normal", "ties_and_signed_zeros", "sorted", "reversed")
 PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW query block
 # the cluster path's rows, each also timed on the merge path it replaces: a
@@ -261,6 +305,10 @@ PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW que
 PHASE5_SORT_LONG = ((16 * FSW_OUT_DIM, 32896, 16), (FSW_OUT_DIM, 32896, 1),
                     (FSW_OUT_DIM, 131072, 1))
 LONG_SORT_GOAL_MS = 6.0  # the redesign's goal at 8,192 x 32,896
+# the merge path's rows: one k = 10 genome's refresh sort (512 slices of a
+# padded point set) and a k = 10 query block after auto_slice_chunk (16
+# genomes x 64 slices of 524,800)
+PHASE5_SORT_MERGE = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16))
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
@@ -369,6 +417,27 @@ F32_TINY = float(np.finfo(np.float32).tiny)  # an atol under which only 0 matche
 # -fsw_lazy_refresh 0 on subtree 0, FSW_K8_EPOCHS epochs each
 K8, FSW_K8_EPOCHS = 8, 2
 V8 = canonical_vocab_size(K8)
+# FSW at k=10 (V = 524,800) on a backbone of K10_LEAVES random genomes of
+# 300-400 kb (1% N): each holds about 230,000-290,000 distinct canonical
+# 10-mers, so every point set has CLUSTER_ELEMS < N < V and every sort of its
+# training and queries takes the merge path; K10_QUERIES genomes queried
+K10, FSW_K10_EPOCHS = 10, 2
+V10 = canonical_vocab_size(K10)
+K10_LEAVES, K10_SIZE, K10_GENOME, K10_QUERIES = 16, 8, (300_000, 400_000), 4
+# the merge path's kernels in sort_rows.cu, which the traced k=10 epoch must hold
+MERGE_KERNELS = ("presort_tiles_kernel", "merge_global_kernel", "merge_tiles_kernel")
+# a measured device peak against a count: the caching allocator hands out a
+# block up to 1 MiB larger than asked, and a stage holds a few dozen blocks
+C5_ALLOC_SLACK = 64 << 20
+# the zoo at kf2vec's default widths (the JAX package gives the zoo none of
+# its own): V_MAIN inputs, HIDDEN_SIZE_FC1 hidden, EMBEDDING_SIZE out,
+# N_CLASSES classes, BATCH_SIZE rows; the transformer's 16 heads and FFN of
+# 2,048 (the reference's defaults), the BiRNN's 2 layers of EMBEDDING_SIZE
+# over ZOO_WINDOWS windows. cuda vs cpu: fp32 sums over 8,192 inputs as the
+# dense served models' tolerance; the transformer's softmax and LayerNorms
+# and the LSTM's 16 recurrent steps compound more rounding
+ZOO_HEADS, ZOO_FFN, ZOO_RNN_LAYERS, ZOO_WINDOWS = 16, 2048, 2, 16
+ZOO_TIGHT, ZOO_LOOSE = (1e-4, 1e-5), (1e-3, 1e-4)
 
 
 def log(msg: str) -> None:
@@ -535,8 +604,9 @@ def check_sort(keys: torch.Tensor, payload: torch.Tensor, got, ref) -> int:
 
 def phase_sort_vs_plain(dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    check(tile_elems() == 16384 and cluster_elems() == 131072,
-          f"tile of {tile_elems()} elements, cluster of {cluster_elems()}")
+    check(tile_elems() == 16384 and cluster_elems() == 131072 == CLUSTER_ELEMS,
+          f"tile of {tile_elems()} elements, cluster of {cluster_elems()} (the host's "
+          f"CLUSTER_ELEMS {CLUSTER_ELEMS})")
     max_err, cases = 0.0, 0
     for r in SORT_ROWS:
         for n in SORT_LENGTHS:
@@ -567,6 +637,26 @@ def phase_sort_vs_plain(dev) -> float:
         cases += 1
         log(f"phase sort_vs_plain: a model-axis rank's shape R={r} N={n} P={p} exact, perm "
             "equal on every row")
+    for r in MERGE_SORT_ROWS:  # the merge path at k = 10's lengths
+        for n in MERGE_SORT_LENGTHS:
+            tied = 0
+            for p in sorted({1, r}):
+                for kind in SORT_KINDS:
+                    keys = sort_keys(kind, gen, r, n, dev)
+                    payload = torch.rand(p, n, generator=gen, device=dev)
+                    long_before = sort_rows.long_launches
+                    got = sort_rows(keys, payload)
+                    torch.cuda.synchronize()
+                    check(sort_rows.long_launches == long_before,
+                          f"R={r} N={n}: counted on the cluster path")
+                    ref = sort_rows_reference(keys, payload)
+                    tied += check_sort(keys, payload, got, ref)
+                    max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+                    cases += 1
+                    del keys, payload, got, ref
+            torch.cuda.empty_cache()
+            log(f"phase sort_vs_plain: merge path R={r} N={n} exact, perm equal on every row "
+                f"({tied} rows with ties)")
     log(f"phase sort_vs_plain: {cases} cases exact")
     return max_err
 
@@ -1426,21 +1516,25 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     return out
 
 
-def contig_backbone(work: str) -> tuple[str, str]:
-    """Short contigs of a random tree, divided into subtrees of
-    CONTIG_SIZE with their distance matrices; returns the contigs'
-    directory and the tree's."""
-    fna, nwk, _ = write_backbone(work, "ct", np.random.default_rng(SEED + 50), CONTIGS,
-                                 CONTIG_LEN)
-    tree_dir = os.path.join(work, "tree_ct")
+def divided_backbone(work: str, tag: str, seed: int, n_leaves: int, lengths: tuple[int, int],
+                     size: int) -> tuple[str, str]:
+    """The genomes of a random tree, divided into subtrees of `size` with
+    their distance matrices; returns the genomes' directory and the tree's."""
+    fna, nwk, _ = write_backbone(work, tag, np.random.default_rng(seed), n_leaves, lengths)
+    tree_dir = os.path.join(work, f"tree_{tag}")
     os.makedirs(tree_dir)
     tree = os.path.join(tree_dir, "tree.nwk")
     with open(tree, "w") as f:
         f.write(nwk)
-    cli_main(["divide_tree", "-tree", tree, "-size", str(CONTIG_SIZE)])
+    cli_main(["divide_tree", "-tree", tree, "-size", str(size)])
     cli_main(["get_distances", "-tree", tree, "-subtrees",
               os.path.join(tree_dir, "tree.subtrees"), "-mode", "subtrees_only"])
     return fna, tree_dir
+
+
+def contig_backbone(work: str) -> tuple[str, str]:
+    """Short contigs of a random tree in subtrees of CONTIG_SIZE."""
+    return divided_backbone(work, "ct", SEED + 50, CONTIGS, CONTIG_LEN, CONTIG_SIZE)
 
 
 def get_kmers_on_card(fna: str, out_dir: str, n_genomes: int) -> int:
@@ -1608,6 +1702,242 @@ def phase_fsw_k8(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict
            "point_sets": [min(points), max(points)], "tolerance_used": tol.used,
            "query": {key: query[key] for key in ("stage_s", "cuda_vs_cpu", "peak_mib")}}
     log(f"phase fsw_k8: {json.dumps(out)}")
+    return out
+
+
+# -- phase 4c'': FSW at k=10 -------------------------------------------------------
+
+
+def train_fsw_k10(feats: str, tree_dir: str, out_dir: str, route: str,
+                  clade: int | None = None) -> dict:
+    """train_model_set at k=10 on the card (every subtree, or `clade`) for
+    FSW_K10_EPOCHS epochs on the per-genome route; checks its route lines and
+    that sort_rows launched in training on the merge path (none on the
+    cluster path); returns its launches, refreshes and seconds."""
+    os.makedirs(out_dir)
+    flags = ("-fsw_lazy_refresh", "0") if route == "exact_pergenome" else ()
+    only = ("-clade", str(clade)) if clade is not None else ()
+    t0 = time.perf_counter()
+    with TrainerClock() as clock:
+        _, launches = counted(cli_main, [
+            "train_model_set", "-input_dir", feats, "-subtrees",
+            os.path.join(tree_dir, "tree.subtrees"), "-true_dist", tree_dir, "-o", out_dir,
+            "-e", str(FSW_K10_EPOCHS), *flags, *only])
+    n = 1 if clade is not None else len(set(read_subtree_rows(tree_dir).values()))
+    lines = route_lines(out_dir)
+    check(lines == list(fsw_routes(V10)[route]) * n,
+          f"k=10 {route}: route lines {lines}, expected {fsw_routes(V10)[route]} x {n}")
+    exports = sum(e["sort_rows"] for e in clock.exports)
+    out = {"seconds": time.perf_counter() - t0, "launches": launches,
+           "launches_outside_exports": launches["sort_rows"] - exports,
+           "refreshes": len(clock.refresh_s), "refresh_s": [t for _, t in clock.refresh_s]}
+    check(out["launches_outside_exports"] >= 1 and launches["sort_rows_long"] == 0,
+          f"k=10 {route}: sort_rows launches {launches}, {exports} in the exports")
+    check((route == "lazy_pergenome") == (out["refreshes"] > 0),
+          f"k=10 {route}: {out['refreshes']} refreshes")
+    return out
+
+
+def kernel_events(trace_dir: str) -> list[str]:
+    """Names of the CUDA kernel events of the one Chrome trace in trace_dir."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"{trace_dir}: trace files {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def measured_peak(fn, *args) -> int:
+    """The device memory fn(*args) allocates at its peak beyond what was
+    allocated before it (torch.cuda.max_memory_allocated)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def c5_readings(lib: str, feats: str, names: list[str], clade: int) -> dict:
+    """Device memory of one per-genome refresh group and of one sliced
+    forward on the card at the backbone's point sets, against the budgets'
+    counts (``refresh_transient_bytes`` for the group ``pick_refresh_group``
+    chose; the chunk ``auto_slice_chunk`` chose times ``slice_sort_bytes``,
+    beside the forward's weight rows) and against the counts copied from the
+    JAX package, which leave out the sort's merge scratch (and, for the
+    refresh, the port's jvp). Fails if a measured peak passes its count by
+    more than C5_ALLOC_SLACK."""
+    _, _, params = load_checkpoint(os.path.join(lib, f"model_subtree_{clade}.ckpt"))
+    model = params_from_jax(params).to("cuda")
+    x = torch.from_numpy(train_distance.pad_point_sets(
+        [np.load(os.path.join(feats, f"{g}_k{K10}.npy")) for g in names])).to("cuda")
+    n_genomes, n = x.shape[:2]
+    check(CLUSTER_ELEMS < n, f"k=10 point sets padded to {n}: not on the merge path")
+    out = {"point_set_length": n}
+    with torch.no_grad():
+        dims = (K10, FSW_BASE_DIM)
+        group = fsw_lazy.pick_refresh_group(FSW_OUT_DIM, n, "cuda", points=dims)
+        check(group >= 1, f"k=10: no refresh group fits at N = {n}")
+        peak = measured_peak(fsw_model.fsw_lazy_refresh_pergenome, model.slices, model.freqs,
+                             model.lookup, x[:group], group)
+        count = fsw_lazy.refresh_transient_bytes(FSW_OUT_DIM, n, group, dims)
+        old = fsw_lazy.refresh_transient_bytes(FSW_OUT_DIM, n, group)  # the JAX formula
+        out["refresh_group"] = {"group": group, "measured": peak, "estimate": count,
+                                "old_estimate": old, "measured_over_estimate": peak / count,
+                                "measured_over_old": peak / old}
+        chunk = fsw_model.auto_slice_chunk(n_genomes, n, FSW_OUT_DIM, "cuda")
+        check(chunk >= 1, f"k=10: the forward of {n_genomes} x {n} takes all slices at once")
+        points = fsw_model.lookup_points(model.lookup, x[..., :K10].long())
+        weights = x[..., -1]
+        peak = measured_peak(fsw_model.fsw_embed, model.slices, model.freqs, points, weights,
+                             chunk)
+        count = chunk * fsw_model.slice_sort_bytes(n_genomes, n) + 4 * n_genomes * n
+        old = chunk * 16 * n_genomes * n + 4 * n_genomes * n
+        out["sliced_forward"] = {"rows": n_genomes, "chunk": chunk, "measured": peak,
+                                 "estimate": count, "old_estimate": old,
+                                 "measured_over_estimate": peak / count,
+                                 "measured_over_old": peak / old}
+    del x, points, model
+    torch.cuda.empty_cache()
+    log(f"phase fsw_k10: device memory against the budgets' counts (bytes) {json.dumps(out)}")
+    for key in ("refresh_group", "sliced_forward"):
+        check(out[key]["measured"] <= out[key]["estimate"] + C5_ALLOC_SLACK,
+              f"k=10 {key}: measured {out[key]['measured']} B over its count "
+              f"{out[key]['estimate']} B")
+    return out
+
+
+def phase_fsw_k10(work: str) -> dict:
+    """FSW at k=10 on the card (see the module docstring, phase 4)."""
+    t0 = time.perf_counter()
+    fna, tree_dir = divided_backbone(work, "k10", SEED + 110, K10_LEAVES, K10_GENOME, K10_SIZE)
+    clades = read_subtree_rows(tree_dir)
+    feats = os.path.join(work, "k10_npy")
+    _, get_kmers_launches = counted(cli_main, [
+        "get_kmers", "-input_dir", fna, "-output_dir", feats, "-k", str(K10)])
+    check(get_kmers_launches["kmer_hist"] >= 1, f"k=10 get_kmers launches {get_kmers_launches}")
+    points = {g: np.load(os.path.join(feats, f"{g}_k{K10}.npy"), mmap_mode="r").shape[0]
+              for g in clades}
+    check(all(CLUSTER_ELEMS < v < V10 for v in points.values()),
+          f"k=10 point sets of {min(points.values())}-{max(points.values())} k-mers")
+    out = {"get_kmers_launches": get_kmers_launches["kmer_hist"],
+           "point_sets": [min(points.values()), max(points.values())],
+           "subtrees": len(set(clades.values()))}
+
+    lib = os.path.join(work, "lib_k10")
+    out["lazy"] = train_fsw_k10(feats, tree_dir, lib, "lazy_pergenome")
+    check_subtree_models(lib, clades, "NeuralNetFSW", k=K10)
+    sizes = {c: sum(cl == c for cl in clades.values()) for c in set(clades.values())}
+    clade = max(sorted(sizes), key=sizes.get)  # the largest subtree: up to K10_QUERIES queries
+    check(sizes[clade] >= 2, f"k=10 subtrees of {sorted(sizes.values())} genomes")
+    traces = os.path.join(work, "k10_traces")  # this phase's own: nothing else traces here
+    os.environ[PROFILE_DIR_ENV] = traces
+    try:
+        exact_dir = os.path.join(work, "lib_k10_exact")
+        out["exact"] = train_fsw_k10(feats, tree_dir, exact_dir, "exact_pergenome", clade)
+    finally:
+        del os.environ[PROFILE_DIR_ENV]
+    check_subtree_models(exact_dir, {g: c for g, c in clades.items() if c == clade},
+                         "NeuralNetFSW", k=K10)
+    check(sorted(os.listdir(traces)) == [f"train_model_clade_{clade}"], f"traces {os.listdir(traces)}")
+    kernels = kernel_events(os.path.join(traces, f"train_model_clade_{clade}"))
+    merge_kernels = {name: sum(name in e for e in kernels) for name in MERGE_KERNELS}
+    check(all(merge_kernels.values()), f"k=10 trace: merge kernels {merge_kernels} among "
+          f"{len(kernels)} kernel events")
+    out["trace"] = {"kernel_events": len(kernels), "merge_kernel_events": merge_kernels}
+
+    # the query of K10_QUERIES backbone genomes, all sent to one subtree
+    members = sorted(g for g, c in clades.items() if c == clade)[:K10_QUERIES]
+    query = {}
+    for dev, names in (("cuda", members), ("cpu", members[:2])):
+        q_dir, q_out = os.path.join(work, f"k10_q_{dev}"), os.path.join(work, f"k10_q_out_{dev}")
+        os.makedirs(q_dir)
+        os.makedirs(q_out)
+        for g in names:
+            os.symlink(os.path.join(feats, f"{g}_k{K10}.npy"), os.path.join(q_dir, f"{g}_k{K10}.npy"))
+        with open(os.path.join(q_dir, "classes.out"), "w") as f:
+            f.write("genome\ttop_class\n" + "".join(f"{g}\t{clade}\n" for g in names))
+        t1 = time.perf_counter()
+        _, query[dev] = counted(cli_main, ["query", "-input_dir", q_dir, "-model", lib,
+                                           "-classes", q_dir, "-o", q_out, "-device", dev])
+        query[f"{dev}_s"] = time.perf_counter() - t1
+    check(query["cuda"]["sort_rows"] >= 1 and query["cuda"]["sort_rows_long"] == 0
+          and not any(query["cpu"].values()), f"k=10 query launches {query}")
+    _, emb_cuda = read_table(os.path.join(work, "k10_q_out_cuda", f"embedding_subtree_{clade}.emb"),
+                             header=False)
+    _, emb_cpu = read_table(os.path.join(work, "k10_q_out_cpu", f"embedding_subtree_{clade}.emb"),
+                            header=False)
+    _, exported = read_table(os.path.join(lib, f"embeddings_subtree_{clade}.csv"), header=False)
+    check(sorted(emb_cuda) == members and sorted(emb_cpu) == members[:2], "k=10 query rows")
+    tol = Tolerances()
+    for what, ref in (("query cuda", emb_cuda), ("export cuda", exported)):
+        tol.compare(f"{what} vs query cpu", np.array([ref[g] for g in members[:2]]),
+                    np.array([emb_cpu[g] for g in members[:2]]), FSW_RTOL, FSW_ATOL)
+    tol.check_all("FSW k=10 embeddings, cuda vs the CPU's plain path")
+    out["query"] = {**query, "tolerance_used": tol.used}
+    out["memory"] = c5_readings(lib, feats, sorted(clades), clade)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase fsw_k10: {json.dumps(out)}")
+    return out
+
+
+# -- phase 4c''': the model zoo -----------------------------------------------------
+
+
+def zoo_models(gen: torch.Generator):
+    """(name, model, input) of each zoo model at kf2vec's default widths,
+    drawn from `gen` one at a time; the input is "rows" (B, V) or "windows"
+    (B, T, V)."""
+    v, h, e, c = V_MAIN, HIDDEN_SIZE_FC1, EMBEDDING_SIZE, N_CLASSES
+    for depth in (2, 3, 4):
+        yield f"MLP_{depth}", zoo.MLP([v] + [h] * (depth - 1) + [e], gen), "rows"
+    yield "ClassifierEmbed", zoo.ClassifierEmbed(v, h, e, c, gen), "rows"
+    yield "ClassifierForked", zoo.ClassifierForked(v, h, e, c, gen), "rows"
+    yield "MLPBN_train", zoo.MLPBN([v, h, e], generator=gen), "rows"
+    yield "MLPBN_eval", zoo.MLPBN([v, h, e], generator=gen).eval(), "rows"
+    yield "CNN", zoo.CNN(v, h, e, generator=gen), "rows"
+    yield "CNN_double", zoo.CNN(v, h, e, double=True, generator=gen), "rows"
+    yield "ClassifierTrans", zoo.ClassifierTrans(v, h, e, c, ZOO_HEADS, ZOO_FFN, gen), "rows"
+    yield "BiRNN", zoo.BiRNN(v, e, ZOO_RNN_LAYERS, c, gen), "windows"
+
+
+def phase_zoo(kf_dir: str) -> dict:
+    """The zoo on the card against the same modules' CPU forward (see the
+    module docstring, phase 4)."""
+    t0 = time.perf_counter()
+    rows = np.concatenate([kf_io.read_kf(os.path.join(kf_dir, f))[1]
+                           for f in sorted(os.listdir(kf_dir)) if f.endswith(".kf")])
+    x = torch.from_numpy(rows[:BATCH_SIZE].astype(np.float32) * np.float32(FEATURES_SCALER))
+    check(tuple(x.shape) == (BATCH_SIZE, V_MAIN), f"zoo input {tuple(x.shape)}")
+    windows = torch.stack([x.roll(-t, dims=0) for t in range(ZOO_WINDOWS)], dim=1)
+    inputs = {"rows": x, "windows": windows}
+    out = {}
+    tol = Tolerances()
+    for name, module, kind in zoo_models(torch.Generator().manual_seed(SEED + 120)):
+        card = copy.deepcopy(module).to("cuda")
+        with torch.no_grad():
+            want = module(inputs[kind])
+            got = card(inputs[kind].to("cuda"))
+            torch.cuda.synchronize()
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        rtol, atol = ZOO_LOOSE if name in ("ClassifierTrans", "BiRNN") else ZOO_TIGHT
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(a.is_cuda and tuple(a.shape) == tuple(b.shape) and bool(torch.isfinite(a).all()),
+                  f"zoo {name} output {i}: {tuple(a.shape)} on {a.device}")
+            tol.compare(f"{name}[{i}]", a.cpu().numpy(), b.numpy(), rtol, atol)
+        if name == "MLPBN_train":  # the running statistics one training forward moved
+            state_gpu, state_cpu = zoo.zoo_state_to_jax(card), zoo.zoo_state_to_jax(module)
+            tol.compare("MLPBN_train running state", state_gpu["bn1"]["var"],
+                        state_cpu["bn1"]["var"], *ZOO_TIGHT)
+        out[name] = {"params": sum(p.numel() for p in module.parameters())}
+        del card
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase zoo: {len(out) - 1} models at V={V_MAIN}, hidden {HIDDEN_SIZE_FC1}, embedding "
+        f"{EMBEDDING_SIZE}, batch {BATCH_SIZE}; cuda vs cpu tolerance used (max |a-b| / "
+        f"(atol + rtol |b|), at most 1) and largest differences {json.dumps(tol.used)}; "
+        f"{json.dumps(out)}")
+    tol.check_all("zoo cuda vs cpu")
     return out
 
 
@@ -2472,9 +2802,10 @@ def phase_host_text(work: str) -> dict:
 
 def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     """sort_rows at one shape against its plain version, one torch.sort and
-    its bound; a row past tile_elems() also against the global-merge path
+    its bound; a row on the cluster path also against the global-merge path
     (``sort_rows_merge``: what such rows took before the cluster path), which
-    the kernel must not trail, with the cluster's launch shape."""
+    the kernel must not trail, with the cluster's launch shape. A row past
+    cluster_elems() takes the merge path itself."""
     r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     keys = torch.randn(r, n, generator=gen, device=dev)
@@ -2498,15 +2829,14 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
     }
-    if n > tile_elems():
+    if tile_elems() < n <= cluster_elems():
         out["parent_ms"] = cuda_ms(lambda: sort_rows_merge(keys, payload), reps=reps)
         merged = sort_rows_merge(keys, payload)
         check(all(torch.equal(a, b) for a, b in zip(got, merged)),
               f"{out['shape']}: the cluster path and the merge path differ")
-        if n <= cluster_elems():
-            out["cluster"] = cluster_shape(n)
-            check(kernel_ms <= out["parent_ms"],
-                  f"{out['shape']}: {kernel_ms} ms, slower than the merge path's {out['parent_ms']}")
+        out["cluster"] = cluster_shape(n)
+        check(kernel_ms <= out["parent_ms"],
+              f"{out['shape']}: {kernel_ms} ms, slower than the merge path's {out['parent_ms']}")
     log(f"phase timings: sort_rows {json.dumps(out)}")
     return out
 
@@ -2550,6 +2880,8 @@ def main() -> int:
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
         fsw_k8 = phase_fsw_k8(work, built, q_dir, q_names)
+        fsw_k10 = phase_fsw_k10(work)
+        zoo_out = phase_zoo(paths["dense"]["out_dir"])
         chunk = phase_train_chunks(work, built, q_dir, q_names)
         ranks, ranked = phase_ranks(work, built, q_dir)
         model_axis = phase_model_axis(work, ranked)
@@ -2563,6 +2895,8 @@ def main() -> int:
     axis_sort_timings = [phase_sort_timings(dev, shape, reps=50) for shape in MODEL_AXIS_SORTS]
     long_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 20)
                     for shape in PHASE5_SORT_LONG]
+    merge_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 10)
+                     for shape in PHASE5_SORT_MERGE]
     unsort_timing = phase_unsort_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
@@ -2606,6 +2940,11 @@ def main() -> int:
         + f"; the whole phase {model_axis['phase_s']:.1f} s")
     log(f"phase timings: fsw_k8 {fsw_k8['seconds']:.1f} s; the k=8 query's stages (s) "
         f"{json.dumps(fsw_k8['query']['stage_s'])}")
+    log(f"phase timings: fsw_k10 {fsw_k10['seconds']:.1f} s (lazy training "
+        f"{fsw_k10['lazy']['seconds']:.1f} s, its refreshes {json.dumps(fsw_k10['lazy']['refresh_s'])}, "
+        f"exact {fsw_k10['exact']['seconds']:.1f} s, query on the card "
+        f"{fsw_k10['query']['cuda_s']:.2f} s and of 2 on the CPU {fsw_k10['query']['cpu_s']:.2f} s); "
+        f"zoo {zoo_out['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     by_path = {name: {tag: run["launches"][name] for tag, run in paths.items()}
                for name in ("kmer_hist", "sort_rows")}
@@ -2632,6 +2971,11 @@ def main() -> int:
     by_path["kmer_hist"]["fsw_k8"] = sum(run["kmer_hist"] for run in fsw_k8["launches"].values())
     for path in ("lazy_shared", "exact_shared", "query"):
         by_path["sort_rows"][f"fsw_k8_{path}"] = fsw_k8["launches"][path]["sort_rows"]
+    by_path["kmer_hist"]["fsw_k10"] = fsw_k10["get_kmers_launches"]
+    merge_launches = {"fsw_k10_lazy": fsw_k10["lazy"]["launches"]["sort_rows"],
+                      "fsw_k10_exact": fsw_k10["exact"]["launches"]["sort_rows"],
+                      "fsw_k10_query": fsw_k10["query"]["cuda"]["sort_rows"]}
+    by_path["sort_rows"].update(merge_launches)
     goal = long_timings[0]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -2660,6 +3004,10 @@ def main() -> int:
                            "faster_than_torch_sort": goal["ms"] < goal["library_ms"]},
         "long_launches_by_path": {path: fsw_k8["launches"][path]["sort_rows_long"]
                                   for path in ("lazy_shared", "exact_shared", "query")},
+        "merge_rows": [{key: timing[key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for timing in merge_timings],
+        "merge_launches_by_path": merge_launches,
         "train_shape": {key: train_sort_timing[key] for key in
                         ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "model_axis_shapes": [{key: timing[key] for key in

@@ -103,6 +103,11 @@ def read_sequences(path: str) -> list[SeqRecord]:
     return [SeqRecord(name, encode_bases(seq)) for name, seq in read_sequences_raw(path)]
 
 
+def remove_gaps(seq: bytes) -> bytes:
+    """Remove gap characters like ``seqkit seq -g`` (default gap letters '- .')."""
+    return seq.replace(b"-", b"").replace(b".", b"").replace(b" ", b"")
+
+
 def list_sequence_files(input_dir: str) -> list[str]:
     """List input sequence files exactly like the reference (main.py:272-275)."""
     return [

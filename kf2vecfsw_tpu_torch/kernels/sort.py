@@ -22,6 +22,13 @@ sorts it in distributed shared memory; longer rows merge through device
 memory. ``sort_rows.launches`` counts every launch, ``sort_rows.
 long_launches`` those of the cluster path.
 
+Memory: a launch allocates its three outputs and, on the merge path, an
+int64 scratch row of next_pow2(N) pairs per key row (``launch_buffers``).
+``sort_transient_bytes`` sums them; the FSW memory budgets
+(``models.fsw.auto_slice_chunk``, ``train.fsw_lazy.pick_refresh_group``)
+count the sort through it, and on the CPU too, where the kernel library is
+not built: ``CLUSTER_ELEMS`` mirrors the kernel's ``kClusterElems``.
+
 On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it runs ``sort_rows_reference``, the same function in plain tensor ops.
 """
@@ -30,10 +37,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 MAX_N = 1 << 30  # the merge path pads long rows to a power of two and indexes in int32
+CLUSTER_ELEMS = 131_072  # kClusterElems of csrc/sort_rows.cu: longer rows take the merge path
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -101,7 +110,8 @@ def tile_elems() -> int:
 
 def cluster_elems() -> int:
     """Elements a thread block cluster sorts in distributed shared memory;
-    longer rows take the kernel's global-merge path."""
+    longer rows take the kernel's global-merge path (``CLUSTER_ELEMS``, the
+    host's copy, which the card-only tests hold to it)."""
     return int(_lib().sort_rows_cluster_elems())
 
 
@@ -127,6 +137,28 @@ def items_per_thread() -> int:
     return int(_lib().sort_rows_items_per_thread())
 
 
+def launch_buffers(r: int, n: int, scratch: bool) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
+    """(shape, dtype) of each buffer one launch on (R, N) keys allocates:
+    the sorted keys and payload, ``perm``, and with ``scratch`` the merge
+    path's (R, next_pow2(N)) int64 pairs."""
+    out = {"keys": ((r, n), torch.float32), "payload": ((r, n), torch.float32),
+           "perm": ((r, n), torch.int32)}
+    if scratch:
+        out["scratch"] = ((r, 1 << (n - 1).bit_length()), torch.int64)
+    return out
+
+
+def sort_transient_bytes(r: int, n: int, p: int) -> int:
+    """Bytes a ``sort_rows`` launch on (R, N) keys with (P, N) payload rows
+    allocates beyond its inputs: the three outputs, 12 B an element, and
+    past ``CLUSTER_ELEMS`` the merge path's scratch, 8 B a padded element."""
+    if r < 1 or not 1 <= n <= MAX_N or p < 1 or r % p:
+        raise ValueError(f"sort_rows takes R >= 1 rows of 1 <= N <= {MAX_N} with R % P == 0, "
+                         f"got {(r, n, p)}")
+    return sum(math.prod(shape) * dtype.itemsize
+               for shape, dtype in launch_buffers(r, n, n > CLUSTER_ELEMS).values())
+
+
 def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
     """(sorted_keys, sorted_payload, perm) of ``keys`` (R, N) f32 and
     ``payload`` (P, N) f32 with R % P == 0: ``perm[r, j]`` is the column of
@@ -137,9 +169,9 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         return sort_rows_reference(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
-    out = _launch("sort_rows_launch", keys, payload, keys.shape[1] > cluster_elems())
+    out = _launch("sort_rows_launch", keys, payload, keys.shape[1] > CLUSTER_ELEMS)
     sort_rows.launches += 1
-    if tile_elems() < keys.shape[1] <= cluster_elems():
+    if tile_elems() < keys.shape[1] <= CLUSTER_ELEMS:
         sort_rows.long_launches += 1
     return out
 
@@ -152,12 +184,11 @@ def _launch(entry: str, keys: torch.Tensor, payload: torch.Tensor, with_scratch:
     """Outputs allocated and one launch of the C entry point ``entry`` on
     the current stream of the keys' card; raises on a launch error."""
     (r, n), p = keys.shape, payload.shape[0]
-    out_keys = torch.empty_like(keys)
-    out_payload = torch.empty_like(keys)
-    perm = torch.empty((r, n), dtype=torch.int32, device=keys.device)
+    bufs = {name: torch.empty(shape, dtype=dtype, device=keys.device)
+            for name, (shape, dtype) in launch_buffers(r, n, with_scratch).items()}
+    out_keys, out_payload, perm = bufs["keys"], bufs["payload"], bufs["perm"]
+    scratch = bufs.get("scratch")
     lib = _lib()
-    scratch = (torch.empty((r, 1 << (n - 1).bit_length()), dtype=torch.int64, device=keys.device)
-               if with_scratch else None)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = getattr(lib, entry)(

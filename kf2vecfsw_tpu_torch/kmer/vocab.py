@@ -1,5 +1,5 @@
 """Canonical k-mer vocabulary (the port's copy of the JAX package's
-``kmer/vocab.py``, limited to what the `.kf` and FSW `.npy` routes use).
+``kmer/vocab.py``).
 
 The reference ships sorted canonical k-mer lists as data files
 (kf2vec/data/test_kmers_{6,7}_sorted, vocab_generator_k{3,4,5,8,9}C_fin.fa;
@@ -25,6 +25,8 @@ import numpy as np
 # Maximum k for dense 4^k histograms / vocab enumeration (4^15 = 1.07e9 is
 # already impractical as a dense feature vector; larger k uses sparse paths).
 MAX_DENSE_K = 13
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)  # letter of each base code
 
 
 def revcomp_codes(codes: np.ndarray, k: int) -> np.ndarray:
@@ -60,6 +62,15 @@ def canonical_vocab_size(k: int) -> int:
     if k % 2 == 0:
         n += 4 ** (k // 2) // 2
     return n
+
+
+def codes_to_strings(codes: np.ndarray, k: int) -> list[str]:
+    """Decode base-4 codes into k-mer strings (A=0,C=1,G=2,T=3)."""
+    codes = np.asarray(codes, dtype=np.int64)
+    out = np.empty((len(codes), k), dtype=np.uint8)
+    for i in range(k):
+        out[:, k - 1 - i] = BASES[(codes >> (2 * i)) & 3]
+    return [row.tobytes().decode() for row in out]
 
 
 def codes_to_digit_matrix(codes: np.ndarray, k: int, base_map: np.ndarray) -> np.ndarray:

@@ -63,7 +63,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.sort import f2i_keys, i2f_keys, sort_rows  # noqa: F401  (the JAX module's names)
+from ..kernels.sort import (  # noqa: F401  (f2i_keys, i2f_keys: the JAX module's names)
+    f2i_keys,
+    i2f_keys,
+    sort_rows,
+    sort_transient_bytes,
+)
 from ..kmer.vocab import (
     FSW_BASE_MAP,
     MAX_DENSE_K,
@@ -130,9 +135,14 @@ class SortShared(torch.autograd.Function):
 
 def quantile_coefficients(ws: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """delta = sqrt(2) w cos(pi xi cbar) sinc(xi w / 2) of sorted weights ws
-    (..., N), xi broadcast against them; E = sum(ps * delta, -1)."""
-    cbar = torch.cumsum(ws, dim=-1) - ws / 2.0
-    return _SQRT2 * ws * torch.cos(math.pi * xi * cbar) * torch.sinc(xi * ws / 2.0)
+    (..., N), xi broadcast against them; E = sum(ps * delta, -1). Evaluated
+    so that at most three buffers of ws's size live beside ws at a time
+    (cbar is dropped before the sinc; ws (xi / 2) equals (xi ws) / 2 bit for
+    bit), which keeps the sliced forward's peak at its sort."""
+    cos = torch.cos(math.pi * xi * (torch.cumsum(ws, dim=-1) - ws / 2.0))
+    head = _SQRT2 * ws * cos
+    del cos
+    return head * torch.sinc(ws * (xi / 2.0))
 
 
 def _normalized(weights: torch.Tensor) -> torch.Tensor:
@@ -185,6 +195,7 @@ def fsw_embed(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
         c = v.shape[0]
         p = torch.einsum("cd,bnd->bcn", v, points).reshape(b * c, n).contiguous()
         ps, ws = SortPW.apply(p, wn)  # row b*c + j carries wn[b]
+        del p  # the keys die here: the sort holds the chunk's peak (auto_slice_chunk)
         ps, ws = ps.view(b, c, n), ws.view(b, c, n)
         return torch.sum(ps * quantile_coefficients(ws, xi[None, :, None]), dim=-1)
 
@@ -214,12 +225,23 @@ def fsw_sort_budget_bytes(device: str | torch.device) -> int:
     return hbm_fraction(1, 8, device)
 
 
+def slice_sort_bytes(b: int, n: int) -> int:
+    """Bytes one slice adds to the sliced forward's sort: its B key rows of
+    N and what ``sort_rows`` allocates for them (``sort_transient_bytes``).
+    16 B an element up to ``CLUSTER_ELEMS``, the JAX package's four f32
+    buffers; past it the merge path's scratch adds 8 B a padded element."""
+    return 4 * b * n + sort_transient_bytes(b, n, b)
+
+
 def auto_slice_chunk(b: int, n: int, d_out: int, device: str | torch.device) -> int:
-    """The largest power-of-two slice chunk (at least 8) whose four
-    (B, chunk, N) f32 sort transients fit ``fsw_sort_budget_bytes``; 0 when
-    all d_out slices fit (the JAX package's ``_auto_slice_chunk``)."""
-    per_slice = 4 * b * n * 4
-    chunk = max(8, fsw_sort_budget_bytes(device) // max(per_slice, 1))
+    """The largest power-of-two slice chunk (at least 8) whose sort,
+    ``slice_sort_bytes`` a slice, fits ``fsw_sort_budget_bytes``; 0 when all
+    d_out slices fit. Equal to the JAX package's ``_auto_slice_chunk`` up to
+    N = ``CLUSTER_ELEMS``, never larger beyond it (that one sizes XLA's sort,
+    which has no merge scratch)."""
+    if b < 1 or n < 1:
+        return 0
+    chunk = max(8, fsw_sort_budget_bytes(device) // slice_sort_bytes(b, n))
     if chunk >= d_out:
         return 0
     p = 8
@@ -354,22 +376,24 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
     contigs, sparse clades, k > 9). Per group of ``group`` items: one
     ``sort_rows`` of the G*C projection rows carrying the G weight rows,
     delta and d delta / d xi, the unsort, and each item's own one-hot digit
-    matrix. Zero-weight padding rows add nothing to S or g2."""
+    matrix. Zero-weight padding rows add nothing to S or g2. Only one
+    group's buffers live at a time, each dropped once spent
+    (``train.fsw_lazy.refresh_transient_bytes`` counts the worst stage)."""
     n, npts, kp1 = x.shape
     k = kp1 - 1
     c = slices.shape[0]
-    kmers = x[..., :k].long()
-    wn = _normalized(x[..., -1])
     s_out, g2_out = [], []
     for rows in _refresh_groups(n, group):
-        km, wg = kmers[rows], wn[rows]
+        km = x[rows, :, :k].long()
         g = km.shape[0]
-        points = lookup_points(lookup, km)
-        p = torch.einsum("cd,gnd->gcn", slices, points).reshape(g * c, npts).contiguous()
-        ps, ws, perm = sort_rows(p, wg.contiguous())
+        keys = torch.einsum("cd,gnd->gcn", slices, lookup_points(lookup, km)).reshape(g * c, npts)
+        ps, ws, perm = sort_rows(keys.contiguous(), _normalized(x[rows, :, -1]))
+        del keys
         ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
         delta, gdelta = _delta_and_gdelta(ws, freqs, (1, -1, 1))
+        del ws
         g2_out.append(torch.sum(ps * gdelta, dim=-1))
+        del ps, gdelta
         onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
         s_out.append(torch.bmm(unsort(delta, perm), onehot))
     return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)

@@ -52,8 +52,8 @@ sharded store and the plan's collectives are those of the rank's data
 index and data group.
 
 Not ported: the multi-epoch device spans (``make_chunked_span_runner``,
-``split_spans``), a TPU artefact; and ``sample_one_uniform``, which nothing
-calls.
+``split_spans``), a TPU artefact. ``ChunkStore.sample_one_uniform``, the
+reference's legacy uniform spans, is ported but no trainer draws from it.
 
 Per-batch losses stay on the device and are fetched once per epoch. The
 trainers autosave every ``autosave_every`` epochs and at the last one, in
@@ -229,6 +229,15 @@ class ChunkStore:
     def sample_one(self, rng: np.random.Generator, gi: int) -> np.ndarray:
         """One normalised random-span vector (datasets.py:44-62)."""
         return self.sample_batch(rng, [gi], 1)[0]
+
+    def sample_one_uniform(self, rng: np.random.Generator, gi: int) -> np.ndarray:
+        """One normalised span of the legacy uniform sampling (Dataset_chunks,
+        datasets.py:271-325): length ~ U[1, c), start ~ U[0, c - length),
+        each range at least one wide."""
+        c = int(self.counts[gi])
+        nrows = int(rng.integers(1, max(c, 2)))
+        ix = int(rng.integers(0, max(c - nrows, 1)))
+        return self.batch(np.array([[gi], [ix], [nrows]], dtype=np.int64), "cpu").numpy()[0]
 
 
 def _prefix_sums(matrices: list[np.ndarray], n_rows: int, cmax: int, width: int,

@@ -21,7 +21,9 @@ one key per clade); the loss is fetched once per epoch. A held-out
 ``-test_set`` is scored each epoch with the exact forward, ``-save_interval``
 writes snapshots, and the params of the lowest epoch loss are written to
 ``model_subtree_{c}.ckpt`` and embedded into the APPLES-compatible
-embeddings/distortions CSVs.
+embeddings/distortions CSVs. With ``KF2VEC_PROFILE_DIR`` set, each clade's
+second epoch is traced into ``<dir>/train_model_clade_{c}/``
+(``utils/profiling.py``).
 
 Over ranks (``parallel.mesh.initialize_distributed``) every rank holds the
 clade's features and draws the same orders; each route takes the sharded
@@ -40,6 +42,7 @@ exports run the unsharded forward on them.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -63,10 +66,11 @@ from ..parallel.mesh import (
 )
 from ..ops.pairwise import cdist_exact_blocked, squared_clamped
 from ..utils.logging import close_logger, make_run_logger, timestamp
+from ..utils.profiling import maybe_trace
 from ..utils.timing import hms
 from .checkpoint import load_checkpoint, save_checkpoint
 from .classifier import load_kf_matrix
-from .fsw_lazy import LazyPlanes, lazy_applicable, lazy_distance_epoch, pick_refresh_group
+from .fsw_lazy import LazyPlanes, lazy_distance_epoch, pick_refresh_group
 from .resume import start_or_resume
 from .schedule import step_lr
 from .step import bucket_items, distance_epoch, epoch_order, eval_loss, set_lr
@@ -354,10 +358,10 @@ def _train_all(
         if use_fsw and lazy_refresh > 0:
             # the refresh transients scale with the features' minor length,
             # V (vocab weights) or N (padded point sets)
-            if lazy_applicable(fswout_dim, feats.shape[1], dev, mesh.n_model):
-                planes = LazyPlanes(feats_train, fsw_shared, lazy_refresh, n_batches,
-                                    pick_refresh_group(fswout_dim, feats.shape[1], dev,
-                                                       mesh.n_model))
+            group = pick_refresh_group(fswout_dim, feats.shape[1], dev, mesh.n_model,
+                                       None if fsw_shared else (k, base_dim))
+            if group > 0:
+                planes = LazyPlanes(feats_train, fsw_shared, lazy_refresh, n_batches, group)
             else:
                 log.info(
                     "FSW lazy-refresh "
@@ -384,12 +388,15 @@ def _train_all(
             lr = step_lr(epoch, lr0, lr_min, lr_decay)
             set_lr(st.opt, lr)
             order = epoch_order(gen, len(train_idx)).to(dev)
-            if planes is None:
-                loss = distance_epoch(st.model, st.opt, feats_train, dist_train, order, batch_size,
-                                      mesh=mesh)
-            else:
-                loss = lazy_distance_epoch(st.model, st.opt, planes, dist_train, order, batch_size,
-                                           mesh=mesh)
+            # the second epoch under KF2VEC_PROFILE_DIR (the first pays for set-up)
+            with (maybe_trace(f"train_model_clade_{c}", dev) if epoch == st.start_epoch + 1
+                  else contextlib.nullcontext()):
+                if planes is None:
+                    loss = distance_epoch(st.model, st.opt, feats_train, dist_train, order,
+                                          batch_size, mesh=mesh)
+                else:
+                    loss = lazy_distance_epoch(st.model, st.opt, planes, dist_train, order,
+                                               batch_size, mesh=mesh)
             loss = float(loss)  # the epoch's one fetch
             if loss != loss:  # NaN watch (train_model_set_chunks.py:431-432)
                 log.info(f"Loss: {loss}")

@@ -36,10 +36,15 @@ keeps the real-step cadence rather than imitate them:
 ``tests/test_torch_fsw_epochs.py`` pins the port's count beside the JAX
 runner's in each case.
 
-Memory: S is a few MB at any k, so the gate is the refresh's transients,
-(3G + 4) f32 buffers of (C, V) for a group of G items; ``pick_refresh_group``
+Memory: S is a few MB at any k, so the gate is the refresh's transients
+for a group of G items (``refresh_transient_bytes``); ``pick_refresh_group``
 halves G from 8 until they fit 3/8 of the device memory, and the route is
-off (``lazy_applicable``) when not even G = 1 fits. On a grid with a model
+off (``lazy_applicable``) when not even G = 1 fits. The shared route counts
+(3G + 4) f32 buffers of (C, V), the JAX package's formula. The per-genome
+route counts its worst stage as the port runs it
+(``pergenome_refresh_bytes``): the forward-mode pass for d delta / d xi
+holds 16 f32 buffers of the group's (G*C, N) rows, which outweighs the
+sort's outputs and, past ``CLUSTER_ELEMS``, its merge scratch. On a grid with a model
 axis C is the rank's d_out / n_model slices: each rank refreshes the planes
 of its own slices (``kf2vecfsw_tpu/train/fsw_lazy.py:87-114,147-190``), so
 a refresh too large for one card may fit on a grid.
@@ -50,6 +55,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.sort import sort_transient_bytes
 from ..models.fsw import (
     FSWDistEmbed,
     fsw_lazy_apply,
@@ -71,30 +77,67 @@ def fsw_lazy_budget_bytes(device: str | torch.device) -> int:
     return hbm_fraction(3, 8, device)
 
 
-def refresh_transient_bytes(d_out: int, vocab: int, group: int) -> int:
-    """The worst-stage live set of one refresh group: ~(3G + 4) f32 buffers
-    of (d_out, vocab) (sorted weights, delta and its derivative, the unsort)."""
+def pergenome_refresh_bytes(d_out: int, n: int, group: int, k: int, base_dim: int) -> int:
+    """The live set of the worst stage of one group of ``fsw_lazy_refresh_
+    pergenome``: G point sets of N k-mers, d_out slices. Its int64 digits
+    (G, N, k) live through every stage; beside them, at most:
+    - the points: the (G, N, k, 4) one-hot in int64 and in f32, then the
+      (G, N, k * base_dim) points beside the f32 one-hot;
+    - the projections: the points and the (G*C, N) product, twice while the
+      product is copied row-major;
+    - the sort: its keys and weight rows, its outputs and, past
+      ``CLUSTER_ELEMS``, its merge scratch (``sort_transient_bytes``);
+    - delta and d delta / d xi by ``torch.func.jvp``: 16 f32 buffers of
+      (G*C, N), the sorted projections, weights and perm among them (the
+      forward-mode pass through the sinc is the peak);
+    - the unsort and the segment sum: delta, perm in int32 and in int64,
+      the unsorted delta, and the one-hot in int64 and in f32."""
+    e = 4 * group * d_out * n  # bytes of one f32 buffer of the group's rows
+    gnk = group * n * k
+    digits = 8 * gnk
+    stages = (
+        digits + max(48 * gnk, 16 * gnk + 4 * gnk * base_dim),
+        digits + 4 * gnk * base_dim + 2 * e,
+        digits + e + 4 * group * n + sort_transient_bytes(group * d_out, n, group),
+        digits + 16 * e,
+        digits + 5 * e + 48 * gnk,
+    )
+    return max(stages)
+
+
+def refresh_transient_bytes(d_out: int, vocab: int, group: int,
+                            points: tuple[int, int] | None = None) -> int:
+    """The worst-stage live set of one refresh group. On the shared route
+    (``points`` None) ~(3G + 4) f32 buffers of (d_out, vocab), the JAX
+    package's count (sorted weights, delta and its derivative, the unsort);
+    on the per-genome route, ``points`` = (k, base_dim) of the point sets
+    and ``vocab`` their padded length N, ``pergenome_refresh_bytes``."""
+    if points is not None:
+        return pergenome_refresh_bytes(d_out, vocab, group, *points)
     return 4 * (3 * group + 4) * d_out * vocab
 
 
 def pick_refresh_group(d_out: int, vocab: int, device: str | torch.device,
-                       n_model: int = 1) -> int:
+                       n_model: int = 1, points: tuple[int, int] | None = None) -> int:
     """The largest group (<= REFRESH_GROUP, halving) whose transients over
     the rank's ceil(d_out / n_model) slices fit ``fsw_lazy_budget_bytes``;
-    0 when not even one item's fit."""
+    0 when not even one item's fit. ``points`` as ``refresh_transient_
+    bytes``: None on the shared route, (k, base_dim) on the per-genome one."""
     d_local = -(-d_out // max(n_model, 1))
     g = REFRESH_GROUP
     while g >= 1:
-        if refresh_transient_bytes(d_local, vocab, g) <= fsw_lazy_budget_bytes(device):
+        if refresh_transient_bytes(d_local, vocab, g, points) <= fsw_lazy_budget_bytes(device):
             return g
         g //= 2
     return 0
 
 
-def lazy_applicable(d_out: int, vocab: int, device: str | torch.device, n_model: int = 1) -> bool:
+def lazy_applicable(d_out: int, vocab: int, device: str | torch.device, n_model: int = 1,
+                    points: tuple[int, int] | None = None) -> bool:
     """Whether the lazy route fits: one item's refresh transients within the
-    budget (``vocab`` is the features' minor length, V or N)."""
-    return pick_refresh_group(d_out, vocab, device, n_model) > 0
+    budget (``vocab`` is the features' minor length, V or N; ``points`` as
+    ``refresh_transient_bytes``)."""
+    return pick_refresh_group(d_out, vocab, device, n_model, points) > 0
 
 
 class LazyPlanes:

@@ -80,8 +80,10 @@ def profile_route(route: str, dev: torch.device) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     if route.startswith("lazy"):
         # R = the three epochs' steps: one refresh, at the warm-up's start
-        planes = LazyPlanes(x, route == "lazy_shared", 3 * STEPS, STEPS,
-                            pick_refresh_group(FSW_OUT_DIM, x.shape[1], dev))
+        shared = route == "lazy_shared"
+        planes = LazyPlanes(x, shared, 3 * STEPS, STEPS,
+                            pick_refresh_group(FSW_OUT_DIM, x.shape[1], dev,
+                                               points=None if shared else (K, FSW_BASE_DIM)))
         epoch = lambda order: lazy_distance_epoch(model, opt, planes, dist, order, BATCH_SIZE)
     else:
         planes = None

@@ -1,0 +1,298 @@
+"""The port's FSW memory budgets count what its sort really allocates.
+
+``sort_rows`` allocates its three outputs and, for rows longer than
+``CLUSTER_ELEMS``, an int64 merge scratch of next_pow2(N) per row. The JAX
+package sizes its sorts for XLA (four f32 buffers an element), and the port
+copied those formulas; these tests hold the repaired budgets:
+- ``sort_transient_bytes`` to the bytes ``_launch`` allocates (read from
+  the one shared ``launch_buffers``);
+- ``auto_slice_chunk`` and ``pick_refresh_group`` past ``CLUSTER_ELEMS`` to
+  hand arithmetic on a faked device (``KF2VEC_HBM_BYTES``), and against the
+  JAX package's values, which they never exceed;
+- the counted stages to the live tensors of the sliced forward and of a
+  per-genome refresh group on the CPU, with the sort replaced by one that
+  allocates what the CUDA launch allocates.
+The parity tests at N <= 131,072 stay in test_torch_fsw.py and
+test_torch_fsw_train.py."""
+
+import contextlib
+import types
+import weakref
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
+from torch.utils._pytree import tree_flatten
+
+from kf2vecfsw_tpu.models.fsw import _auto_slice_chunk as jax_auto_slice_chunk
+from kf2vecfsw_tpu.train import fsw_lazy as jlazy
+from kf2vecfsw_tpu_torch.kernels import sort as sort_mod
+from kf2vecfsw_tpu_torch.kernels.sort import (
+    CLUSTER_ELEMS,
+    launch_buffers,
+    sort_rows_reference,
+    sort_transient_bytes,
+)
+from kf2vecfsw_tpu_torch.models import fsw
+from kf2vecfsw_tpu_torch.train import fsw_lazy as tlazy
+
+GIB = 1 << 30
+D_OUT, B, K, BASE_DIM = 512, 16, 10, 4
+# bytes of small tensors (a chunk's outputs, g2, a tangent) the counts leave out
+SMALL = 4096
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak bytes of the tensor storages that the ops of a region create
+    and keep alive (views share their base's storage), inputs excluded."""
+
+    def __init__(self, *inputs: torch.Tensor):
+        super().__init__()
+        self.refs: dict[int, list[int]] = {}
+        self.live = self.peak = 0
+        self.exclude = {t.untyped_storage().data_ptr() for t in inputs}
+
+    def _release(self, key: int) -> None:
+        entry = self.refs[key]
+        entry[1] -= 1
+        if entry[1] == 0:
+            del self.refs[key]
+            self.live -= entry[0]
+
+    def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if not isinstance(t, torch.Tensor):
+                continue
+            try:
+                key = t.untyped_storage().data_ptr()
+            except RuntimeError:  # a functorch wrapper: its parts are counted
+                continue
+            if key in self.exclude:
+                continue
+            if key in self.refs:
+                self.refs[key][1] += 1
+            else:
+                self.refs[key] = [t.untyped_storage().nbytes(), 1]
+                self.live += self.refs[key][0]
+            weakref.finalize(t, self._release, key)
+        self.peak = max(self.peak, self.live)
+        return out
+
+
+def _card_like_sort(keys, payload):
+    """sort_rows with the CUDA launch's allocations (``launch_buffers``) and
+    the plain version's values."""
+    r, n = keys.shape
+    bufs = {name: torch.empty(shape, dtype=dtype)
+            for name, (shape, dtype) in launch_buffers(r, n, n > CLUSTER_ELEMS).items()}
+    with _disable_current_modes():
+        ref = sort_rows_reference(keys, payload)
+    for name, value in zip(("keys", "payload", "perm"), ref):
+        bufs[name].copy_(value)
+    return bufs["keys"], bufs["payload"], bufs["perm"]
+
+
+def _next_pow2(n):
+    return 1 << (n - 1).bit_length()
+
+
+@pytest.mark.parametrize("r,n,p", [(1, 1, 1), (33, 16_385, 1), (4, 131_072, 4), (3, 131_073, 1),
+                                   (2, 262_144, 2), (1, 300_007, 1)])
+@pytest.mark.parametrize("entry", ["sort_rows_launch", "sort_rows_merge_launch"])
+def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p, entry):
+    """``_launch`` allocates ``launch_buffers``; their bytes are
+    ``sort_transient_bytes`` whenever the merge scratch is what the entry
+    point needs (always for the merge entry, past CLUSTER_ELEMS for the
+    other)."""
+    seen = {}
+
+    def fake_entry(*args):
+        seen["scratch"] = args[5]
+        return 0
+
+    monkeypatch.setattr(sort_mod, "_lib", lambda: types.SimpleNamespace(**{entry: fake_entry}))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    keys, payload = torch.zeros(r, n), torch.zeros(p, n)
+    merge = entry == "sort_rows_merge_launch" or n > CLUSTER_ELEMS
+    with LiveBytes(keys, payload) as live:
+        out = sort_mod._launch(entry, keys, payload, merge)
+    assert [tuple(t.shape) for t in out] == [(r, n)] * 3
+    assert [t.dtype for t in out] == [torch.float32, torch.float32, torch.int32]
+    assert (seen["scratch"] is not None) == merge
+    buffers = launch_buffers(r, n, merge)
+    assert live.peak == sum(np.prod(s) * d.itemsize for s, d in buffers.values())
+    if merge == (n > CLUSTER_ELEMS):
+        assert live.peak == sort_transient_bytes(r, n, p)
+
+
+def test_sort_transient_bytes_by_hand():
+    assert CLUSTER_ELEMS == 131_072
+    assert sort_transient_bytes(512, 8192, 1) == 12 * 512 * 8192
+    assert sort_transient_bytes(33, 131_072, 33) == 12 * 33 * 131_072
+    assert sort_transient_bytes(33, 131_073, 1) == 12 * 33 * 131_073 + 8 * 33 * 262_144
+    # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800
+    assert sort_transient_bytes(4096, 524_800, 8) == 12 * 4096 * 524_800 + 8 * 4096 * 1_048_576
+    for bad in ((0, 8, 1), (8, 0, 1), (8, 8, 3), (8, (1 << 30) + 1, 1)):
+        with pytest.raises(ValueError):
+            sort_transient_bytes(*bad)
+
+
+# B = 16 rows a slice: 16 B an element (keys and outputs) plus 8 B a padded
+# element of scratch; the budget is 1/8 of the card: 2 GiB or 10 GiB.
+#   N = 131,073 (pad 262,144): 33,554,688 + 33,554,432 = 67,109,120 B a slice:
+#     2 GiB / that = 31.99 -> 16; 10 GiB / that = 159.99 -> 128
+#   N = 262,144: 67,108,864 + 33,554,432 = 100,663,296: 21.3 -> 16; 106.7 -> 64
+#   N = 524,800 (pad 1,048,576): 134,348,800 + 134,217,728 = 268,566,528:
+#     7.996 -> the floor, 8 (as in the JAX package); 39.98 -> 32
+@pytest.mark.parametrize("n,hbm_gib,chunk", [
+    (131_073, 16, 16), (131_073, 80, 128), (262_144, 16, 16), (262_144, 80, 64),
+    (524_800, 16, 8), (524_800, 80, 32)])
+def test_auto_slice_chunk_counts_the_merge_scratch(monkeypatch, n, hbm_gib, chunk):
+    monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
+    per_slice = 16 * B * n + 8 * B * _next_pow2(n)
+    assert fsw.slice_sort_bytes(B, n) == per_slice
+    got = fsw.auto_slice_chunk(B, n, D_OUT, "cpu")
+    assert got == chunk
+    budget = hbm_gib * GIB // 8
+    assert got * per_slice <= budget or got == 8  # 8 is the floor
+    assert got == 8 or 2 * got * per_slice > budget  # the largest power of two that fits
+    jax_chunk = jax_auto_slice_chunk(B, n, D_OUT)
+    assert got <= jax_chunk
+    if (n, hbm_gib) == (524_800, 80):
+        assert (got, jax_chunk) == (32, 64)
+
+
+def test_auto_slice_chunk_below_the_merge_path_is_unchanged(monkeypatch):
+    """Up to CLUSTER_ELEMS the count is the JAX package's 16 B an element, so
+    the chunk is its chunk, at the seam too."""
+    for hbm_gib in (1, 16, 80):
+        monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
+        for n in (16_384, 100_000, 131_072):
+            assert fsw.slice_sort_bytes(B, n) == 16 * B * n
+            assert fsw.auto_slice_chunk(B, n, D_OUT, "cpu") == jax_auto_slice_chunk(B, n, D_OUT)
+    assert fsw.auto_slice_chunk(0, 131_073, D_OUT, "cpu") == 0
+
+
+def _refresh_by_hand(group, n):
+    """The per-genome refresh's worst stage at d_out 512 and k = 10: the jvp
+    for d delta / d xi, 16 f32 buffers of (G*512, N), beside the group's
+    int64 digits (G, N, 10)."""
+    return 64 * group * D_OUT * n + 8 * group * n * K
+
+
+# budget 3/8 of the card: 6 GiB = 6,442,450,944 B or 30 GiB = 32,212,254,720 B
+#   N = 131,073: G = 1 takes 4,305,485,904 B: 16 GiB -> 1; 80 GiB -> 4 (8: 34.4e9)
+#   N = 262,144: G = 1 takes 8,610,906,112 B: 16 GiB -> 0; 80 GiB -> 2 (4: 34.4e9)
+#   N = 524,800: G = 1 takes 17,238,630,400 B: 16 GiB -> 0; 80 GiB -> 1 (2: 34.5e9)
+@pytest.mark.parametrize("n,hbm_gib,group", [
+    (131_073, 16, 1), (131_073, 80, 4), (262_144, 16, 0), (262_144, 80, 2),
+    (524_800, 16, 0), (524_800, 80, 1)])
+def test_pick_refresh_group_per_genome(monkeypatch, n, hbm_gib, group):
+    monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
+    points = (K, BASE_DIM)
+    for g in (1, 2, 4, 8):
+        assert tlazy.refresh_transient_bytes(D_OUT, n, g, points) == _refresh_by_hand(g, n)
+    got = tlazy.pick_refresh_group(D_OUT, n, "cpu", points=points)
+    assert got == group
+    assert tlazy.lazy_applicable(D_OUT, n, "cpu", points=points) == (group > 0)
+    budget = 3 * hbm_gib * GIB // 8
+    assert got == 0 or _refresh_by_hand(got, n) <= budget
+    assert got == 8 or _refresh_by_hand(max(2 * got, 1), n) > budget
+    jax_group = jlazy.pick_refresh_group(D_OUT, n)
+    assert got <= jax_group
+    if (n, hbm_gib) == (524_800, 80):
+        # the worked case: the JAX formula admits G = 8 at 30.1 GB; the
+        # group's jvp alone would hold 8 x 17.2 GB
+        assert jax_group == 8 and got == 1
+        assert jlazy.refresh_transient_bytes(D_OUT, n, 8) == 4 * 28 * D_OUT * n == 30_094_131_200
+
+
+def test_shared_route_keeps_the_jax_formula(monkeypatch):
+    monkeypatch.setenv("KF2VEC_HBM_BYTES", str(80 * GIB))
+    for vocab in (8192, 32_896, 131_072):
+        assert tlazy.refresh_transient_bytes(D_OUT, vocab, 3) == 4 * 13 * D_OUT * vocab
+        assert tlazy.pick_refresh_group(D_OUT, vocab, "cpu") == jlazy.pick_refresh_group(D_OUT, vocab)
+
+
+def _point_sets(gen, g, n, k):
+    x = torch.zeros(g, n, k + 1)
+    x[..., :k] = torch.randint(0, 4, (g, n, k), generator=gen).float()
+    x[..., -1] = torch.rand(g, n, generator=gen)
+    return x
+
+
+def _sliced_forward_peak(monkeypatch, b, c, n, chunk):
+    monkeypatch.setattr(fsw, "sort_rows", _card_like_sort)
+    gen = torch.Generator().manual_seed(n)
+    points, w = torch.randn(b, n, K * BASE_DIM, generator=gen), torch.rand(b, n, generator=gen)
+    slices, freqs = torch.randn(c, K * BASE_DIM, generator=gen), torch.arange(c).float()
+    with torch.no_grad(), LiveBytes(points, w, slices, freqs) as live:
+        fsw.fsw_embed(slices, freqs, points, w, chunk)
+    return live.peak
+
+
+@pytest.mark.parametrize("n", [131_073, 262_144, 300_007])
+def test_sliced_forward_peaks_at_its_counted_sort(monkeypatch, n):
+    """Past CLUSTER_ELEMS the live tensors of a sliced no-grad forward peak
+    at the chunk's counted sort (keys, outputs, scratch: at least 24 B an
+    element) beside the weight rows, its payload: the cos/sinc stage after
+    it holds 20 B an element."""
+    b, chunk = 2, 8
+    peak = _sliced_forward_peak(monkeypatch, b, 16, n, chunk)
+    counted = chunk * fsw.slice_sort_bytes(b, n) + 4 * b * n
+    assert counted - SMALL <= peak <= counted + SMALL
+
+
+def test_sliced_forward_below_the_merge_path(monkeypatch):
+    """Up to CLUSTER_ELEMS the count stays the JAX package's 16 B an element
+    (its parity), and the cos/sinc stage's 20 B leads: the forward holds
+    5/4 of the counted sort, beside the weight rows."""
+    b, chunk, n = 2, 8, 1000
+    peak = _sliced_forward_peak(monkeypatch, b, 16, n, chunk)
+    counted = chunk * fsw.slice_sort_bytes(b, n)
+    assert counted == chunk * 16 * b * n
+    assert peak <= counted * 5 // 4 + 4 * b * n + SMALL
+
+
+@pytest.mark.parametrize("g,c,n,k", [(1, 16, 140_000, 10), (2, 32, 1000, 10), (1, 64, 2000, 3),
+                                     (3, 8, 700, 5), (1, 4, 5000, 12)])
+def test_pergenome_refresh_group_fits_its_count(monkeypatch, g, c, n, k):
+    """One group of the per-genome refresh holds no more than
+    ``pergenome_refresh_bytes``, and where the jvp stage leads (d_out of 8
+    and more at these k) exactly that."""
+    monkeypatch.setattr(fsw, "sort_rows", _card_like_sort)
+    gen = torch.Generator().manual_seed(g * n + c)
+    x = _point_sets(gen, g, n, k)
+    slices, freqs = torch.randn(c, k * BASE_DIM, generator=gen), torch.arange(c).float()
+    lookup = torch.randn(4, BASE_DIM, generator=gen)
+    with LiveBytes(x, slices, freqs, lookup) as live:
+        fsw.fsw_lazy_refresh_pergenome(slices, freqs, lookup, x, g)
+    counted = tlazy.pergenome_refresh_bytes(c, n, g, k, BASE_DIM)
+    assert live.peak <= counted + SMALL
+    jvp = 8 * g * n * k + 64 * g * c * n
+    if counted == jvp:
+        assert live.peak >= counted
+
+
+@pytest.mark.parametrize("g,c,n", [(1, 16, 4), (4, 128, 8), (8, 64, 8), (8, 128, 8)])
+def test_shared_refresh_live_set(g, c, n):
+    """The shared route keeps the JAX package's count, (3G + 4) f32 buffers
+    of (C, V), which the parity test pins; the port's ``fsw_lazy_refresh``
+    holds 58-88 B per element of (G, C, V) at its peak (the jvp through the
+    cos/sinc chain; 58 at G = 8), 3.1-4.3x that count (ROADMAP C6, open: its
+    repair changes this reading)."""
+    k, v = 7, 8192
+    gen = torch.Generator().manual_seed(g * c)
+    digits = fsw.vocab_digits(k, torch.device("cpu"))
+    slices, freqs = torch.randn(c, k * BASE_DIM, generator=gen), torch.arange(c).float()
+    points = fsw.lookup_points(torch.randn(4, BASE_DIM, generator=gen), digits)
+    w = torch.rand(n, v, generator=gen)
+    with LiveBytes(slices, freqs, points, digits, w) as live:
+        fsw.fsw_lazy_refresh(slices, freqs, points, digits, w, g)
+    per_element = live.peak / (g * c * v)
+    assert 58 <= per_element <= 88.5
+    assert 3.1 <= live.peak / tlazy.refresh_transient_bytes(c, v, g) <= 4.3

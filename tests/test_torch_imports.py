@@ -50,7 +50,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
                 "train.schedule", "train.resume", "train.classifier", "io.native.lib",
                 "io.kf", "io.fasta", "infer.cache", "infer.classify", "infer.query",
                 "infer.serve", "utils.phases", "utils.prefetch", "utils.cancel",
-                "parallel.mesh", "parallel.counting", "parallel.mp_check"):
+                "parallel.mesh", "parallel.counting", "parallel.mp_check", "models.zoo",
+                "utils.profiling"):
         assert f"kf2vecfsw_tpu_torch.{mod}" in report["modules"]
     assert report["textio"] and not report["jax_native"]
     loaded = report["loaded"]

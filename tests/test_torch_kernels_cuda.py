@@ -9,7 +9,9 @@ warp on one bin).
 ``sort_rows``: a row count that is a multiple of nothing, N around the
 block sizes of the radix tile sort, the cluster path's lengths from 16,385
 to 131,072 with its seams and 131,073 (the first length on the global-merge
-path), ties on every other row, all-equal keys (``perm`` the identity),
+path), the merge path at k = 10's lengths (262,144 to 524,800) with its
+allocations held to ``sort_transient_bytes``, ties on every other row,
+all-equal keys (``perm`` the identity),
 keys at the f32 extremes; ``perm`` equal to the plain (stable) version's on
 every row; ``sort_rows.long_launches`` counting the cluster path's launches
 alone; the global-merge path that the timings hold the cluster path against
@@ -46,12 +48,14 @@ from kf2vecfsw_tpu_torch.kernels.histogram import (
     tile_windows,
 )
 from kf2vecfsw_tpu_torch.kernels.sort import (
+    CLUSTER_ELEMS,
     cluster_elems,
     cluster_shape,
     items_per_thread,
     sort_rows,
     sort_rows_merge,
     sort_rows_reference,
+    sort_transient_bytes,
     tile_elems,
 )
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, count_canonical_numpy
@@ -207,7 +211,7 @@ def test_sort_long_rows_equal_plain_version(card, r, p, n):
     assert sort_rows.launches == before[0] + 1
     on_cluster = tile_elems() < n <= cluster_elems()
     assert sort_rows.long_launches == before[1] + on_cluster
-    assert cluster_elems() == 131_072
+    assert cluster_elems() == 131_072 == CLUSTER_ELEMS
     if on_cluster:
         shape = cluster_shape(n)
         assert 1 <= shape["blocks"] <= 8 and shape["threads"] == 1024
@@ -232,6 +236,36 @@ def test_merge_path_equals_plain_version(card, n):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     with pytest.raises(ValueError, match="longer than"):
         sort_rows_merge(keys[:, :tile_elems()].contiguous(), payload[:, :tile_elems()].contiguous())
+
+
+MERGE_LENGTHS = [262_144, 300_007, 524_800]  # k = 10 point sets, its vocab at 524,800
+
+
+@pytest.mark.parametrize("r", [1, 33])
+@pytest.mark.parametrize("n", MERGE_LENGTHS)
+def test_sort_merge_lengths_equal_plain_version(card, r, n):
+    """Rows past CLUSTER_ELEMS take the merge path: exact, ``perm`` included,
+    counted in ``launches`` and not in ``long_launches``, and the launch's
+    allocations are ``sort_transient_bytes`` (outputs and merge scratch; the
+    caching allocator may hand out up to 1 MiB more per block)."""
+    gen = torch.Generator(device=card).manual_seed(r + n)
+    keys = torch.randn(r, n, generator=gen, device=card)
+    keys[1::2] = torch.round(keys[1::2] * 4) / 4
+    for p in sorted({1, r}):
+        payload = torch.rand(p, n, generator=gen, device=card)
+        before = sort_rows.launches, sort_rows.long_launches
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = sort_rows(keys, payload)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        assert (sort_rows.launches, sort_rows.long_launches) == (before[0] + 1, before[1])
+        assert sort_transient_bytes(r, n, p) <= grown <= sort_transient_bytes(r, n, p) + (4 << 20)
+        ref = sort_rows_reference(keys, payload)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        del got, ref
 
 
 def test_sort_equals_plain_version_around_the_block_sizes(card):
