@@ -15,12 +15,16 @@ non-zero without one. Phases, each of which fails the run if it fails:
      genome);
    - ``sort_rows`` against ``sort_rows_reference`` at R in {1, 33, 4096}
      rows, N from 1 to 131,073 (the cluster path above 16,384 with its
-     seams, the global-merge path above 131,072), one payload row per key
+     seams, the radix path above 131,072), one payload row per key
      row or per 512, on random, tied / signed-zero,
      sorted and reversed keys, and at a model-axis rank's shapes (256 x
-     8,192 with one payload row, 4,096 x 8,192 with 16), and on the merge
+     8,192 with one payload row, 4,096 x 8,192 with 16), and on the radix
      path at k=10's lengths (262,144, 300,007 and 524,800 at R in {1, 33},
-     one payload row or one per key row), with ``cluster_elems()`` equal to
+     one payload row or one per key row), at its tile seams (RADIX_SEAM_*,
+     R = 33), on a row of 1,100,000 (R = 2) and on adversarial keys
+     (RADIX_ADVERSARIAL: all equal, where ``perm`` must be the identity,
+     only +-0.0, ascending, descending, one digit in a whole tile), those
+     with P in {1, R, R/3}, with ``cluster_elems()`` equal to
      the host's ``CLUSTER_ELEMS``: sorted keys
      bit-equal, ``perm`` a permutation that maps keys and payload to the
      outputs exactly, and equal to the plain (stable) version's on every
@@ -118,12 +122,12 @@ non-zero without one. Phases, each of which fails the run if it fails:
      exact training and in the query;
    - fsw_k10: FSW at k=10 (V = 524,800) at full width on a backbone of 16
      random genomes of 300-400 kb (1% N, ``-size 8``), whose point sets of
-     about 230,000-290,000 k-mers put every sort on the merge path:
+     about 230,000-290,000 k-mers put every sort on the radix path:
      ``get_kmers -k 10``, ``train_model_set`` with default flags (the
      per-genome lazy route) on every subtree and ``-fsw_lazy_refresh 0``
      (per-genome exact) on the largest, 2 epochs each, the exact run traced
      through ``KF2VEC_PROFILE_DIR`` into a directory of the phase's own
-     (its second epoch's trace must hold the merge kernels of
+     (its second epoch's trace must hold the radix kernels of
      ``sort_rows.cu``); ``query`` of 4 of the genomes on the card and of 2
      of them with ``-device cpu`` (the plain path on the carried
      checkpoint), whose embeddings, and the export's, agree within
@@ -131,7 +135,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
      query runs and never on the cluster path; then the device memory of
      one refresh group (the group ``pick_refresh_group`` chose) and of one
      sliced forward (``auto_slice_chunk``'s chunk, 16 genomes) against the
-     budgets' counts, beside the counts copied from the JAX package;
+     budgets' counts, beside the counts copied from the JAX package; and
+     (C6) the device memory of a shared-route lazy refresh at k=9 widths
+     (V = 131,072, 512 slices, 16 items in the groups
+     ``pick_refresh_group`` picks) against ``shared_refresh_bytes``;
    - zoo: every ``models/zoo.py`` model at kf2vec's default widths (input
      8,192 from phase 4's `.kf` rows, hidden 2,048, embedding 1,024, 12
      classes, batch 16): ``MLP`` of depth 2, 3 and 4, both classifiers,
@@ -151,10 +158,11 @@ non-zero without one. Phases, each of which fails the run if it fails:
    512 rows of 8,192 with one payload row, a model-axis rank's 256 x 8,192
    and 4,096 x 8,192, and on the cluster path 8,192 rows of 32,896 (a k=8
    query block), 512 of 32,896 and 512 of 131,072 (the shared-vocab sorts
-   at k=8 and k=9), each also on the global-merge path that such rows took
-   before, which the kernel must not trail; on the merge path 512 rows of
-   262,144 (one k=10 genome's refresh) and 1,024 rows of 524,800 with 16
-   payload rows (a k=10 query block); the sort's backward, an unsort
+   at k=8 and k=9), and on the radix path 512 rows of 262,144 (one k=10
+   genome's refresh) and 1,024 rows of 524,800 with 16 payload rows (a
+   k=10 query block), each also on the global-merge path that such rows
+   took before, which the kernel must equal and not trail; the sort's
+   backward, an unsort
    scatter,
    at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
@@ -226,6 +234,7 @@ from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
 from kf2vecfsw_tpu_torch.kernels.sort import (
     CLUSTER_ELEMS,
+    TILE_ELEMS,
     cluster_elems,
     cluster_shape,
     sort_rows,
@@ -292,20 +301,30 @@ SORT_REPLACES = (
 SORT_ROWS = (1, 33, 4096)
 # the tile path to 16,384; the cluster path to 131,072 (1 block of 1024 threads
 # to 17,408, 2 to 34,816, ...; the items a thread step every 1,024 blocks' worth);
-# the merge past it
+# the radix path past it
 SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 16385, 17408, 17409, 24577, 32768,
                 32769, 32896, 34816, 34817, 49153, 131071, 131072, 131073)
-# the merge path's lengths (k = 10 point sets, its vocab of 524,800), at R in
+# the radix path's lengths (k = 10 point sets, its vocab of 524,800), at R in
 # {1, 33}: the lengths phase fsw_k10 sorts
 MERGE_SORT_ROWS, MERGE_SORT_LENGTHS = (1, 33), (262_144, 300_007, 524_800)
 SORT_KINDS = ("normal", "ties_and_signed_zeros", "sorted", "reversed")
+# the radix path past 131,072 at R = 33 and P in {1, R, R/3}: its first
+# length and tile seams 16,384 j +- 1 (9, 16 and 32 tiles); a row of 68 tiles
+# at R = 2; and adversarial keys at 300,007: all equal (perm the identity),
+# only +-0.0, ascending, descending, and sharing their top three bytes (one
+# digit takes every tile in passes 2-4)
+RADIX_SEAM_ROWS, RADIX_SEAM_LENGTHS = 33, (131_073, 147_455, 147_457, 262_143, 262_145,
+                                           524_287, 524_289)
+RADIX_LONG_ROWS, RADIX_LONG_LENGTH = 2, 1_100_000
+RADIX_ADVERSARIAL = (33, 300_007, ("all_equal", "signed_zeros", "sorted", "reversed",
+                                   "top_bytes_shared"))
 PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW query block
-# the cluster path's rows, each also timed on the merge path it replaces: a
+# the cluster path's rows, each also timed on the global-merge path it replaces: a
 # query block at k=8 (V = 32,896), the shared-vocab sort at k=8 and at k=9
 PHASE5_SORT_LONG = ((16 * FSW_OUT_DIM, 32896, 16), (FSW_OUT_DIM, 32896, 1),
                     (FSW_OUT_DIM, 131072, 1))
 LONG_SORT_GOAL_MS = 6.0  # the redesign's goal at 8,192 x 32,896
-# the merge path's rows: one k = 10 genome's refresh sort (512 slices of a
+# the radix path's rows: one k = 10 genome's refresh sort (512 slices of a
 # padded point set) and a k = 10 query block after auto_slice_chunk (16
 # genomes x 64 slices of 524,800)
 PHASE5_SORT_MERGE = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16))
@@ -420,12 +439,15 @@ V8 = canonical_vocab_size(K8)
 # FSW at k=10 (V = 524,800) on a backbone of K10_LEAVES random genomes of
 # 300-400 kb (1% N): each holds about 230,000-290,000 distinct canonical
 # 10-mers, so every point set has CLUSTER_ELEMS < N < V and every sort of its
-# training and queries takes the merge path; K10_QUERIES genomes queried
+# training and queries takes the radix path; K10_QUERIES genomes queried
 K10, FSW_K10_EPOCHS = 10, 2
 V10 = canonical_vocab_size(K10)
 K10_LEAVES, K10_SIZE, K10_GENOME, K10_QUERIES = 16, 8, (300_000, 400_000), 4
-# the merge path's kernels in sort_rows.cu, which the traced k=10 epoch must hold
-MERGE_KERNELS = ("presort_tiles_kernel", "merge_global_kernel", "merge_tiles_kernel")
+# the radix path's kernels in sort_rows.cu, which the traced k=10 epoch must hold
+MERGE_KERNELS = ("radix_upsweep_kernel", "radix_scan_kernel", "radix_downsweep_kernel")
+# C6: one shared-route lazy refresh at k = 9 widths (V = 131,072, 512
+# slices) of C6_ITEMS items in groups of pick_refresh_group's G
+K9, C6_ITEMS = 9, 16
 # a measured device peak against a count: the caching allocator hands out a
 # block up to 1 MiB larger than asked, and a stage holds a few dozen blocks
 C5_ALLOC_SLACK = 64 << 20
@@ -578,6 +600,13 @@ def sort_keys(kind: str, gen, r: int, n: int, dev) -> torch.Tensor:
         keys = torch.sort(keys, dim=1).values
     elif kind == "reversed":
         keys = torch.sort(keys, dim=1, descending=True).values
+    elif kind == "all_equal":
+        keys = torch.full((r, n), 0.5, device=dev)
+    elif kind == "signed_zeros":  # only -0.0 and +0.0
+        keys = torch.where(keys < 0, -0.0, 0.0)
+    elif kind == "top_bytes_shared":  # 1.0f's top three bytes, the low byte random
+        low = torch.randint(0, 256, (r, n), generator=gen, device=dev, dtype=torch.int32)
+        keys = (low | 0x3F800000).view(torch.float32)
     return keys.contiguous()
 
 
@@ -604,9 +633,9 @@ def check_sort(keys: torch.Tensor, payload: torch.Tensor, got, ref) -> int:
 
 def phase_sort_vs_plain(dev) -> float:
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    check(tile_elems() == 16384 and cluster_elems() == 131072 == CLUSTER_ELEMS,
+    check(tile_elems() == 16384 == TILE_ELEMS and cluster_elems() == 131072 == CLUSTER_ELEMS,
           f"tile of {tile_elems()} elements, cluster of {cluster_elems()} (the host's "
-          f"CLUSTER_ELEMS {CLUSTER_ELEMS})")
+          f"TILE_ELEMS {TILE_ELEMS}, CLUSTER_ELEMS {CLUSTER_ELEMS})")
     max_err, cases = 0.0, 0
     for r in SORT_ROWS:
         for n in SORT_LENGTHS:
@@ -655,8 +684,35 @@ def phase_sort_vs_plain(dev) -> float:
                     cases += 1
                     del keys, payload, got, ref
             torch.cuda.empty_cache()
-            log(f"phase sort_vs_plain: merge path R={r} N={n} exact, perm equal on every row "
+            log(f"phase sort_vs_plain: radix path R={r} N={n} exact, perm equal on every row "
                 f"({tied} rows with ties)")
+    r, n, kinds = RADIX_ADVERSARIAL
+    radix_cases = ([(RADIX_SEAM_ROWS, m, kind) for m in RADIX_SEAM_LENGTHS
+                    for kind in ("normal", "ties_and_signed_zeros")]
+                   + [(RADIX_LONG_ROWS, RADIX_LONG_LENGTH, kind) for kind in SORT_KINDS]
+                   + [(r, n, kind) for kind in kinds])
+    for r, n, kind in radix_cases:  # the radix path's seams, a long row, adversarial keys
+        keys = sort_keys(kind, gen, r, n, dev)
+        payload_rows = sorted({1, r} | ({r // 3} if r % 3 == 0 else set()))
+        for p in payload_rows:
+            payload = torch.rand(p, n, generator=gen, device=dev)
+            long_before = sort_rows.long_launches
+            got = sort_rows(keys, payload)
+            torch.cuda.synchronize()
+            check(sort_rows.long_launches == long_before,
+                  f"R={r} N={n}: counted on the cluster path")
+            ref = sort_rows_reference(keys, payload)
+            check_sort(keys, payload, got, ref)
+            if kind == "all_equal":
+                check(torch.equal(got[2], torch.arange(n, dtype=torch.int32, device=dev).expand(r, n)),
+                      f"R={r} N={n}: all-equal keys, perm not the identity")
+            max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
+            cases += 1
+            del payload, got, ref
+        del keys
+        torch.cuda.empty_cache()
+        log(f"phase sort_vs_plain: radix path R={r} N={n} {kind} keys exact at P in "
+            f"{payload_rows}, perm equal on every row")
     log(f"phase sort_vs_plain: {cases} cases exact")
     return max_err
 
@@ -1712,7 +1768,7 @@ def train_fsw_k10(feats: str, tree_dir: str, out_dir: str, route: str,
                   clade: int | None = None) -> dict:
     """train_model_set at k=10 on the card (every subtree, or `clade`) for
     FSW_K10_EPOCHS epochs on the per-genome route; checks its route lines and
-    that sort_rows launched in training on the merge path (none on the
+    that sort_rows launched in training on the radix path (none on the
     cluster path); returns its launches, refreshes and seconds."""
     os.makedirs(out_dir)
     flags = ("-fsw_lazy_refresh", "0") if route == "exact_pergenome" else ()
@@ -1764,7 +1820,7 @@ def c5_readings(lib: str, feats: str, names: list[str], clade: int) -> dict:
     counts (``refresh_transient_bytes`` for the group ``pick_refresh_group``
     chose; the chunk ``auto_slice_chunk`` chose times ``slice_sort_bytes``,
     beside the forward's weight rows) and against the counts copied from the
-    JAX package, which leave out the sort's merge scratch (and, for the
+    JAX package, which leave out the sort's radix scratch (and, for the
     refresh, the port's jvp). Fails if a measured peak passes its count by
     more than C5_ALLOC_SLACK."""
     _, _, params = load_checkpoint(os.path.join(lib, f"model_subtree_{clade}.ckpt"))
@@ -1772,7 +1828,7 @@ def c5_readings(lib: str, feats: str, names: list[str], clade: int) -> dict:
     x = torch.from_numpy(train_distance.pad_point_sets(
         [np.load(os.path.join(feats, f"{g}_k{K10}.npy")) for g in names])).to("cuda")
     n_genomes, n = x.shape[:2]
-    check(CLUSTER_ELEMS < n, f"k=10 point sets padded to {n}: not on the merge path")
+    check(CLUSTER_ELEMS < n, f"k=10 point sets padded to {n}: not on the radix path")
     out = {"point_set_length": n}
     with torch.no_grad():
         dims = (K10, FSW_BASE_DIM)
@@ -1781,7 +1837,7 @@ def c5_readings(lib: str, feats: str, names: list[str], clade: int) -> dict:
         peak = measured_peak(fsw_model.fsw_lazy_refresh_pergenome, model.slices, model.freqs,
                              model.lookup, x[:group], group)
         count = fsw_lazy.refresh_transient_bytes(FSW_OUT_DIM, n, group, dims)
-        old = fsw_lazy.refresh_transient_bytes(FSW_OUT_DIM, n, group)  # the JAX formula
+        old = 4 * (3 * group + 4) * FSW_OUT_DIM * n  # the JAX package's formula
         out["refresh_group"] = {"group": group, "measured": peak, "estimate": count,
                                 "old_estimate": old, "measured_over_estimate": peak / count,
                                 "measured_over_old": peak / old}
@@ -1804,6 +1860,38 @@ def c5_readings(lib: str, feats: str, names: list[str], clade: int) -> dict:
         check(out[key]["measured"] <= out[key]["estimate"] + C5_ALLOC_SLACK,
               f"k=10 {key}: measured {out[key]['measured']} B over its count "
               f"{out[key]['estimate']} B")
+    return out
+
+
+def c6_reading() -> dict:
+    """Device memory of one shared-route lazy refresh at k = 9 widths (V =
+    131,072, FSW_OUT_DIM slices) of C6_ITEMS items of random weights, in
+    groups of the G ``pick_refresh_group`` picks on this card, against
+    ``shared_refresh_bytes`` and against the JAX package's (3G + 4) f32
+    buffers of (C, V). Fails if the measured peak passes its count by more
+    than C5_ALLOC_SLACK."""
+    v = canonical_vocab_size(K9)
+    group = fsw_lazy.pick_refresh_group(FSW_OUT_DIM, v, "cuda", items=C6_ITEMS)
+    check(group >= 1, f"k=9: no shared refresh group fits {C6_ITEMS} items")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    digits = fsw_model.vocab_digits(K9, torch.device("cuda"))
+    model = init_fsw_dist_embed_(FSWDistEmbed(K9, FSW_BASE_DIM, FSW_OUT_DIM, HIDDEN_SIZE_FC1,
+                                              EMBEDDING_SIZE).to("cuda"), gen)
+    with torch.no_grad():
+        points = fsw_model.lookup_points(model.lookup, digits)
+        w = torch.rand(C6_ITEMS, v, generator=gen, device="cuda")
+        peak = measured_peak(fsw_model.fsw_lazy_refresh, model.slices, model.freqs, points, digits,
+                             w, group)
+    count = fsw_lazy.shared_refresh_bytes(FSW_OUT_DIM, v, group, C6_ITEMS)
+    old = 4 * (3 * group + 4) * FSW_OUT_DIM * v  # the JAX package's formula
+    out = {"vocab": v, "items": C6_ITEMS, "group": group, "measured": peak, "estimate": count,
+           "old_estimate": old, "measured_over_estimate": peak / count,
+           "measured_over_old": peak / old}
+    del model, points, w
+    torch.cuda.empty_cache()
+    log(f"phase fsw_k10: C6, a shared refresh at k=9 against its count (bytes) {json.dumps(out)}")
+    check(peak <= count + C5_ALLOC_SLACK, f"k=9 shared refresh: measured {peak} B over its count "
+          f"{count} B")
     return out
 
 
@@ -1876,6 +1964,7 @@ def phase_fsw_k10(work: str) -> dict:
     tol.check_all("FSW k=10 embeddings, cuda vs the CPU's plain path")
     out["query"] = {**query, "tolerance_used": tol.used}
     out["memory"] = c5_readings(lib, feats, sorted(clades), clade)
+    out["memory"]["shared_refresh_k9"] = c6_reading()
     out["seconds"] = time.perf_counter() - t0
     log(f"phase fsw_k10: {json.dumps(out)}")
     return out
@@ -2802,10 +2891,10 @@ def phase_host_text(work: str) -> dict:
 
 def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     """sort_rows at one shape against its plain version, one torch.sort and
-    its bound; a row on the cluster path also against the global-merge path
-    (``sort_rows_merge``: what such rows took before the cluster path), which
-    the kernel must not trail, with the cluster's launch shape. A row past
-    cluster_elems() takes the merge path itself."""
+    its bound; a row on the cluster or the radix path also against the
+    global-merge path (``sort_rows_merge``: what such rows took before
+    those paths), which the kernel must match exactly and not trail, and a
+    row on the cluster path with the cluster's launch shape."""
     r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     keys = torch.randn(r, n, generator=gen, device=dev)
@@ -2818,7 +2907,7 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     got, ref = sort_rows(keys, payload), sort_rows_reference(keys, payload)
     check_sort(keys, payload, got, ref)
     # read 4 B of key per element and the payload rows once; write 4 B each
-    # of sorted key, sorted payload and perm (a long row's scratch pairs are
+    # of sorted key, sorted payload and perm (the radix path's scratch is
     # traffic the function does not need, so none is counted)
     n_bytes = 4 * r * n + 4 * p * n + 12 * r * n
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
@@ -2828,15 +2917,18 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "faster_than_torch_sort": kernel_ms < library_ms,
     }
-    if tile_elems() < n <= cluster_elems():
+    if n > tile_elems():
         out["parent_ms"] = cuda_ms(lambda: sort_rows_merge(keys, payload), reps=reps)
         merged = sort_rows_merge(keys, payload)
+        path = "cluster" if n <= cluster_elems() else "radix"
         check(all(torch.equal(a, b) for a, b in zip(got, merged)),
-              f"{out['shape']}: the cluster path and the merge path differ")
-        out["cluster"] = cluster_shape(n)
-        check(kernel_ms <= out["parent_ms"],
-              f"{out['shape']}: {kernel_ms} ms, slower than the merge path's {out['parent_ms']}")
+              f"{out['shape']}: the {path} path and the global-merge path differ")
+        check(kernel_ms <= out["parent_ms"], f"{out['shape']}: {kernel_ms} ms, slower than "
+              f"the global-merge path's {out['parent_ms']}")
+        if path == "cluster":
+            out["cluster"] = cluster_shape(n)
     log(f"phase timings: sort_rows {json.dumps(out)}")
     return out
 
@@ -3005,8 +3097,8 @@ def main() -> int:
         "long_launches_by_path": {path: fsw_k8["launches"][path]["sort_rows_long"]
                                   for path in ("lazy_shared", "exact_shared", "query")},
         "merge_rows": [{key: timing[key] for key in (
-            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-            for timing in merge_timings],
+            "shape", "ms", "parent_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "faster_than_torch_sort")} for timing in merge_timings],
         "merge_launches_by_path": merge_launches,
         "train_shape": {key: train_sort_timing[key] for key in
                         ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},

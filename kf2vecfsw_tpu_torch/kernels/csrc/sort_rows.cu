@@ -83,8 +83,29 @@
 //   Staging a block's items in digit order so that warps store runs,
 //   explicit st.shared::cluster stores, 512-thread blocks two to an SM and
 //   __match_any_sync in place of the lane masks gained nothing or lost.
-// - n > kClusterElems (per-genome point sets at k >= 10 only): the row is
-//   padded to the next power of two n_pad with (largest key, index >= n),
+// - n > kClusterElems (per-genome point sets at k >= 10 only): an LSD radix
+//   sort through device memory, the same 4 passes of 8-bit digits over
+//   tiles of kTile elements of a row, each pass three launches over the
+//   (row, tile) grid: an upsweep counts each tile's digits into (rows, 256,
+//   tiles) counts; a scan turns each row's counts, digit-major, into the
+//   start of every (digit, tile) run in the sorted row; a downsweep reloads
+//   the tile, ranks its items stably by digit with the tile path's block
+//   machinery (warp_digit_ranks, scan_digit_warp), stages them in digit
+//   order in shared memory and stores each digit's run contiguously (about
+//   64 elements a run) from its start. The first pass reads the f32 keys
+//   (the column is the index), the last writes the outputs and gathers the
+//   payload, so there is no presort and no output pass; between them the
+//   passes alternate between a scratch of 32-bit keys and columns (rows, n)
+//   and the outputs' own storage. No padding: the last tile's items past n
+//   rank after the rest and are not stored. Each pass keeps the order of
+//   equal digits and the first pass's order is the column, so perm is the
+//   tile path's. Traffic: 16 B an element in the first pass, 20 in the
+//   middle two, 24 in the last (80 in all, 5x the 16 B of the bound), where
+//   the bitonic merge it replaces (the global-merge path below, kept
+//   callable for timing only) moved about 430 B a padded element at n_pad =
+//   2^20 through 21 device-memory passes and 6 tile passes.
+// - The global-merge path (sort_rows_merge_launch, any n > kTile): the row
+//   is padded to the next power of two n_pad with (largest key, index >= n),
 //   which sorts after every real element. One block per tile radix-sorts
 //   its tile and stores 64-bit (key, global index) pairs to a scratch row
 //   in device memory, even tiles ascending and odd tiles descending; then,
@@ -114,6 +135,10 @@ constexpr int kClusterElems = kMaxCluster * kTile;  // 131,072: a row a cluster 
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
 constexpr int kGlobalThreads = 256;
+constexpr int kUpThreads = 512;                   // threads of a radix upsweep block
+constexpr int kUpItems = kTile / kUpThreads;      // keys each of them counts
+constexpr int kScanThreads = 1024;                // threads of a radix scan block
+constexpr int kRadixPasses = 32 / kRadixBits;
 constexpr int64_t kMaxGlobalBlocks = int64_t(1) << 20;
 constexpr int64_t kMaxN = int64_t(1) << 30;      // n_pad and indices stay below 2^31
 constexpr uint32_t kFull = 0xFFFFFFFFu;
@@ -179,6 +204,108 @@ __device__ __forceinline__ void load_items(const float* __restrict__ row, int n_
   }
 }
 
+// The rank of each of this thread's kIt items (in the warp-striped order)
+// among the items of its warp with its digit (key >> shift) & 255, in the
+// half i % 2 of rank[i / 2], and the warp's digit counts in wcount. The
+// lanes with one digit find each other through a shared-memory mask (an
+// atomicOr each; faster here than __match_any_sync or one ballot per digit
+// bit); the lowest of them adds their number to the count, clears the mask
+// and hands the count before the add to the others. A warp zeroes, fills
+// and reads back its own counter row, so it waits for no other warp;
+// wmask is zero between items.
+template <int kIt>
+__device__ __forceinline__ void warp_digit_ranks(const uint32_t (&key)[kIt], int shift,
+                                                 uint32_t* wcount, uint32_t* wmask,
+                                                 uint32_t (&rank)[(kIt + 1) / 2]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t lt = lanemask_lt();
+#pragma unroll
+  for (int c = lane; c < kRadix; c += 32) wcount[c] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const uint32_t d = (key[i] >> shift) & (kRadix - 1);
+    atomicOr(&wmask[d], 1u << lane);
+    __syncwarp();
+    const uint32_t peers = wmask[d];
+    __syncwarp();
+    const uint32_t before = __popc(peers & lt);
+    uint32_t seen = 0;
+    if (before == 0) {
+      seen = atomicAdd(&wcount[d], __popc(peers));
+      wmask[d] = 0;
+    }
+    seen = __shfl_sync(kFull, seen, __ffs(peers) - 1);
+    __syncwarp();
+    rank[i / 2] = i % 2 ? rank[i / 2] | ((seen + before) << 16) : seen + before;
+  }
+}
+
+// Exclusive scan of the warps' digit counts in (digit, warp) order, in
+// place: s.counts[w * 256 + d] becomes the first position of warp w's items
+// with digit d in the block's stable order by digit (so warp 0's row holds
+// where each digit starts). Each thread scans the counts of kGroupWarps
+// warps for its digits, one warp scans the (digit, group) sums, and each
+// thread adds its sum's offset. Every thread of the block calls it after
+// warp_digit_ranks (it synchronises before and after).
+template <int kThreads>
+__device__ __forceinline__ void scan_digit_warp(const Layout<kThreads>& s) {
+  using L = Layout<kThreads>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the digits and warp group whose counts this thread scans
+  const int group = kThreads >= kRadix ? threadIdx.x / kRadix : 0;
+  const int digit0 = kThreads >= kRadix ? threadIdx.x % kRadix : threadIdx.x;
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < L::kDigitsPerThread; ++q) {
+    const int d = digit0 + q * kThreads;
+    uint32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < L::kGroupWarps; ++w) {
+      uint32_t* c = &s.counts[(group * L::kGroupWarps + w) * kRadix + d];
+      const uint32_t v = *c;
+      *c = sum;  // the count of this group's earlier warps
+      sum += v;
+    }
+    s.sums[L::skew(d * L::kGroups + group)] = sum;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    constexpr int kPerLane = L::kSums / 32;
+    uint32_t v[kPerLane];
+    uint32_t sum = 0;
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      v[q] = s.sums[L::skew(lane * kPerLane + q)];
+      sum += v[q];
+    }
+    uint32_t incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    uint32_t run = incl - sum;
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      s.sums[L::skew(lane * kPerLane + q)] = run;
+      run += v[q];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < L::kDigitsPerThread; ++q) {
+    const int d = digit0 + q * kThreads;
+    const uint32_t base = s.sums[L::skew(d * L::kGroups + group)];
+#pragma unroll
+    for (int w = 0; w < L::kGroupWarps; ++w) {
+      s.counts[(group * L::kGroupWarps + w) * kRadix + d] += base;
+    }
+  }
+  __syncthreads();
+}
+
 // Sorts the items load_items gave stably by key; item i of this thread is
 // element first + 32 i of the tile. On return s.keys[j] and s.index[j] hold
 // the key and the tile index at sorted position j. Every thread of the
@@ -189,17 +316,12 @@ __device__ __forceinline__ void load_items(const float* __restrict__ row, int n_
 // threads fit on an SM, and more registers would cost that second block.
 template <int kThreads>
 __device__ __forceinline__ void block_radix_sort(uint32_t (&key)[kItems], const Layout<kThreads>& s) {
-  using L = Layout<kThreads>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int first = warp * 32 * kItems + lane;  // item i is element first + 32 i
-  const uint32_t lt = lanemask_lt();
   uint32_t* wcount = s.counts + warp * kRadix;
   uint32_t* wmask = s.masks + warp * kRadix;  // zero between items
   for (int c = lane; c < kRadix; c += 32) wmask[c] = 0;
-  // the digits and warp group whose counts this thread scans
-  const int group = kThreads >= kRadix ? threadIdx.x / kRadix : 0;
-  const int digit0 = kThreads >= kRadix ? threadIdx.x % kRadix : threadIdx.x;
   // the rank of item i among the items of its warp with its digit, in the
   // half i % 2 of rank[i / 2]
   uint32_t rank[kItems / 2];
@@ -210,85 +332,8 @@ __device__ __forceinline__ void block_radix_sort(uint32_t (&key)[kItems], const 
     // positions) and scatters them into `out`; the last pass into s.index
     const uint16_t* in = shift & kRadixBits ? s.spare : s.index;
     uint16_t* out = shift & kRadixBits ? s.index : s.spare;
-    // a warp zeroes, fills and reads back its own counter row until the
-    // scan, so it waits for no other warp here
-#pragma unroll
-    for (int c = lane; c < kRadix; c += 32) wcount[c] = 0;
-    __syncwarp();
-    // warp-private counts, in item order: each item learns how many items of
-    // its warp with its digit come before it. The lanes with one digit find
-    // each other through a shared-memory mask (an atomicOr each; faster here
-    // than __match_any_sync or one ballot per digit bit); the lowest of them
-    // adds their number to the count, clears the mask and hands the count
-    // before the add to the others.
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const uint32_t d = (key[i] >> shift) & (kRadix - 1);
-      atomicOr(&wmask[d], 1u << lane);
-      __syncwarp();
-      const uint32_t peers = wmask[d];
-      __syncwarp();
-      const uint32_t before = __popc(peers & lt);
-      uint32_t seen = 0;
-      if (before == 0) {
-        seen = atomicAdd(&wcount[d], __popc(peers));
-        wmask[d] = 0;
-      }
-      seen = __shfl_sync(kFull, seen, __ffs(peers) - 1);
-      __syncwarp();
-      rank[i / 2] = i % 2 ? rank[i / 2] | ((seen + before) << 16) : seen + before;
-    }
-    __syncthreads();
-    // exclusive scan of the counts in (digit, warp) order: each thread scans
-    // the counts of kGroupWarps warps for its digits in place, one warp scans
-    // the (digit, group) sums, and each thread adds its sum's offset
-#pragma unroll
-    for (int q = 0; q < L::kDigitsPerThread; ++q) {
-      const int d = digit0 + q * kThreads;
-      uint32_t sum = 0;
-#pragma unroll
-      for (int w = 0; w < L::kGroupWarps; ++w) {
-        uint32_t* c = &s.counts[(group * L::kGroupWarps + w) * kRadix + d];
-        const uint32_t v = *c;
-        *c = sum;  // the count of this group's earlier warps
-        sum += v;
-      }
-      s.sums[L::skew(d * L::kGroups + group)] = sum;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      constexpr int kPerLane = L::kSums / 32;
-      uint32_t v[kPerLane];
-      uint32_t sum = 0;
-#pragma unroll
-      for (int q = 0; q < kPerLane; ++q) {
-        v[q] = s.sums[L::skew(lane * kPerLane + q)];
-        sum += v[q];
-      }
-      uint32_t incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      uint32_t run = incl - sum;
-#pragma unroll
-      for (int q = 0; q < kPerLane; ++q) {
-        s.sums[L::skew(lane * kPerLane + q)] = run;
-        run += v[q];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < L::kDigitsPerThread; ++q) {
-      const int d = digit0 + q * kThreads;
-      const uint32_t base = s.sums[L::skew(d * L::kGroups + group)];
-#pragma unroll
-      for (int w = 0; w < L::kGroupWarps; ++w) {
-        s.counts[(group * L::kGroupWarps + w) * kRadix + d] += base;
-      }
-    }
-    __syncthreads();
+    warp_digit_ranks<kItems>(key, shift, wcount, wmask, rank);
+    scan_digit_warp<kThreads>(s);
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const int j = first + 32 * i;
@@ -449,6 +494,167 @@ merge_tiles_kernel(uint64_t* __restrict__ scratch, const float* __restrict__ pay
     out_keys[out0 + j] = unordered(static_cast<uint32_t>(c >> 32));
     perm[out0 + j] = static_cast<int32_t>(idx);
     out_payload[out0 + j] = prow[idx];
+  }
+}
+
+// n > kClusterElems, step 1 of a radix pass: block (row, tile) counts the
+// digits (key >> shift) & 255 of the tile's keys (on the first pass the
+// f32 keys as ordered()) into counts[row][digit][tile], one shared-memory
+// counter row per warp. Every key is loaded before any is counted.
+template <bool kFirst>
+__global__ void __launch_bounds__(kUpThreads)
+radix_upsweep_kernel(const uint32_t* __restrict__ keys, uint32_t* __restrict__ counts, int64_t n,
+                     int64_t n_tiles, int shift) {
+  constexpr int kWarps = kUpThreads / 32;
+  __shared__ uint32_t hist[kWarps * kRadix];
+  for (int i = threadIdx.x; i < kWarps * kRadix; i += kUpThreads) hist[i] = 0;
+  const int64_t row = blockIdx.x / n_tiles;
+  const int64_t tile = blockIdx.x - row * n_tiles;
+  const int64_t base = tile * kTile;
+  const int n_valid = n - base < kTile ? static_cast<int>(n - base) : kTile;
+  const uint32_t* in = keys + row * n + base;
+  uint32_t v[kUpItems];
+#pragma unroll
+  for (int m = 0; m < kUpItems; ++m) {
+    const int j = threadIdx.x + m * kUpThreads;
+    v[m] = j < n_valid ? __ldg(in + j) : 0u;
+  }
+  __syncthreads();
+  uint32_t* whist = hist + (threadIdx.x >> 5) * kRadix;
+#pragma unroll
+  for (int m = 0; m < kUpItems; ++m) {
+    if (threadIdx.x + m * kUpThreads < n_valid) {
+      const uint32_t k = kFirst ? ordered(__uint_as_float(v[m])) : v[m];
+      atomicAdd(&whist[(k >> shift) & (kRadix - 1)], 1u);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kRadix) {
+    uint32_t sum = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += hist[w * kRadix + threadIdx.x];
+    counts[(row * kRadix + threadIdx.x) * n_tiles + tile] = sum;
+  }
+}
+
+// n > kClusterElems, step 2 of a radix pass: block r turns row r's `len`
+// counts, (digit, tile) in digit-major order, into their exclusive prefix
+// sums in place: where tile t's run of digit d starts in the sorted row.
+// Each thread sums a stretch of them, the block scans the threads' sums.
+__global__ void __launch_bounds__(kScanThreads)
+radix_scan_kernel(uint32_t* __restrict__ counts, int64_t len) {
+  __shared__ uint32_t wsum[kScanThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint32_t* c = counts + blockIdx.x * len;
+  const int64_t per = (len + kScanThreads - 1) / kScanThreads;
+  const int64_t lo = threadIdx.x * per < len ? threadIdx.x * per : len;
+  const int64_t hi = lo + per < len ? lo + per : len;
+  uint32_t sum = 0;
+  for (int64_t i = lo; i < hi; ++i) sum += c[i];
+  uint32_t incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const uint32_t w = wsum[lane];
+    uint32_t winc = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, winc, o);
+      if (lane >= o) winc += y;
+    }
+    wsum[lane] = winc - w;
+  }
+  __syncthreads();
+  uint32_t run = wsum[warp] + incl - sum;
+  for (int64_t i = lo; i < hi; ++i) {
+    const uint32_t v = c[i];
+    c[i] = run;
+    run += v;
+  }
+}
+
+// n > kClusterElems, step 3 of a radix pass: block (row, tile) ranks the
+// tile's items stably by digit in shared memory (one pass of
+// block_radix_sort over 32-bit columns), stages them in that order and
+// stores each digit's run, contiguous, from where the scan placed it in
+// the row. Items past n are padding (largest key), which ranks after every
+// item of the tile. On the first pass the keys are the f32 keys, as
+// ordered(), and the columns implicit; a middle pass writes the ordered
+// keys and their columns to out_keys and out_index; the last (kLast)
+// writes the function's outputs: out_keys as floats, out_index as perm, and
+// the payload row (row / group) gathered by column.
+template <bool kFirst, bool kLast>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+radix_downsweep_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ index,
+                       const uint32_t* __restrict__ offsets, uint32_t* __restrict__ out_keys,
+                       uint32_t* __restrict__ out_index, const float* __restrict__ payload,
+                       float* __restrict__ out_payload, int64_t n, int64_t n_tiles, int shift,
+                       int64_t group) {
+  using L = Layout<kMaxThreads>;
+  extern __shared__ uint4 smem_raw[];
+  const L s(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x / n_tiles;
+  const int64_t tile = blockIdx.x - row * n_tiles;
+  const int64_t base = tile * kTile;
+  const int n_valid = n - base < kTile ? static_cast<int>(n - base) : kTile;
+  const int64_t in0 = row * n + base;
+  const int first = warp * 32 * kItems + lane;  // item i is element first + 32 i
+  uint32_t key[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int j = first + 32 * i;
+    const uint32_t v = j < n_valid ? __ldcs(keys + in0 + j) : 0u;
+    key[i] = j >= n_valid ? 0xFFFFFFFFu : kFirst ? ordered(__uint_as_float(v)) : v;
+  }
+  uint32_t* wcount = s.counts + warp * kRadix;
+  uint32_t* wmask = s.masks + warp * kRadix;
+  for (int c = lane; c < kRadix; c += 32) wmask[c] = 0;
+  uint32_t rank[kItems / 2];
+  warp_digit_ranks<kItems>(key, shift, wcount, wmask, rank);
+  scan_digit_warp<kMaxThreads>(s);
+  // per digit: its run's start in the row less its start in the tile (warp
+  // 0's offset), in the spent mask rows
+  int32_t* to = reinterpret_cast<int32_t*>(s.masks);
+  if (threadIdx.x < kRadix) {
+    to[threadIdx.x] = static_cast<int32_t>(offsets[(row * kRadix + threadIdx.x) * n_tiles + tile]) -
+                      static_cast<int32_t>(s.counts[threadIdx.x]);
+  }
+  uint32_t* staged = reinterpret_cast<uint32_t*>(s.index);  // index and spare: kCap columns
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int j = first + 32 * i;
+    const uint32_t d = (key[i] >> shift) & (kRadix - 1);
+    const uint32_t at = wcount[d] + ((rank[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
+    s.keys[at] = key[i];
+    staged[at] = kFirst ? static_cast<uint32_t>(base + j) : (j < n_valid ? __ldcs(index + in0 + j) : 0u);
+  }
+  __syncthreads();
+  const int64_t out0 = row * n;
+  const float* prow = payload + (row / group) * n;
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int j = threadIdx.x + m * kMaxThreads;
+    if (j < n_valid) {
+      const uint32_t k = s.keys[j];
+      const int64_t at = out0 + to[(k >> shift) & (kRadix - 1)] + j;
+      const uint32_t idx = staged[j];
+      if (kLast) {
+        __stcs(reinterpret_cast<float*>(out_keys) + at, unordered(k));
+        __stcs(reinterpret_cast<int32_t*>(out_index) + at, static_cast<int32_t>(idx));
+        __stcs(out_payload + at, __ldg(prow + idx));
+      } else {
+        out_keys[at] = k;
+        out_index[at] = idx;
+      }
+    }
   }
 }
 
@@ -764,7 +970,8 @@ int64_t next_pow2(int64_t n) {
   return p;
 }
 
-// n > kTile through device memory: presort, then the bitonic merges.
+// The global-merge path (n > kTile) through device memory: presort, then the
+// bitonic merges.
 cudaError_t launch_merge(const float* k, const float* p, float* ok, float* op, int32_t* pm,
                          uint64_t* sc, int64_t rows, int64_t n, int64_t group, cudaStream_t s) {
   if (sc == nullptr) return cudaErrorInvalidValue;
@@ -802,6 +1009,94 @@ cudaError_t launch_merge(const float* k, const float* p, float* ok, float* op, i
   return cudaSuccess;
 }
 
+// The radix path's buffers: the keys, payload and outputs of
+// sort_rows_launch, and the scratch keys and columns, (rows, n) each, and
+// the digit counts, (rows, 256, n_tiles).
+struct RadixArgs {
+  const float* keys;
+  const float* payload;
+  float* out_keys;
+  float* out_payload;
+  int32_t* perm;
+  uint32_t* scratch_keys;
+  uint32_t* scratch_index;
+  uint32_t* counts;
+  int64_t rows, n, group, n_tiles;
+};
+
+// Step `step` (0 upsweep, 1 scan, 2 downsweep) of radix pass `pass` (0 to 3,
+// digit 8 pass from the lowest). The passes alternate between the scratch
+// and the outputs' storage (out_keys' bits, perm): pass 0 reads the f32
+// keys and writes the scratch, pass 1 the outputs' storage, pass 2 the
+// scratch, and pass 3 the outputs themselves.
+cudaError_t radix_step(const RadixArgs& a, int pass, int step, cudaStream_t s) {
+  const int shift = pass * kRadixBits;
+  uint32_t* out_bits = reinterpret_cast<uint32_t*>(a.out_keys);
+  uint32_t* perm_bits = reinterpret_cast<uint32_t*>(a.perm);
+  const uint32_t* in_keys = pass == 0 ? reinterpret_cast<const uint32_t*>(a.keys)
+                            : pass == 2 ? out_bits : a.scratch_keys;
+  const uint32_t* in_index = pass == 2 ? perm_bits : a.scratch_index;
+  uint32_t* to_keys = pass % 2 ? out_bits : a.scratch_keys;
+  uint32_t* to_index = pass % 2 ? perm_bits : a.scratch_index;
+  const unsigned blocks = static_cast<unsigned>(a.rows * a.n_tiles);
+  constexpr int smem = Layout<kMaxThreads>::kBytes;
+  if (step == 0) {
+    if (pass == 0) {
+      radix_upsweep_kernel<true><<<blocks, kUpThreads, 0, s>>>(in_keys, a.counts, a.n, a.n_tiles,
+                                                               shift);
+    } else {
+      radix_upsweep_kernel<false><<<blocks, kUpThreads, 0, s>>>(in_keys, a.counts, a.n, a.n_tiles,
+                                                                shift);
+    }
+  } else if (step == 1) {
+    radix_scan_kernel<<<static_cast<unsigned>(a.rows), kScanThreads, 0, s>>>(a.counts,
+                                                                          kRadix * a.n_tiles);
+  } else if (pass == 0) {
+    radix_downsweep_kernel<true, false><<<blocks, kMaxThreads, smem, s>>>(
+        in_keys, nullptr, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
+        shift, a.group);
+  } else if (pass < kRadixPasses - 1) {
+    radix_downsweep_kernel<false, false><<<blocks, kMaxThreads, smem, s>>>(
+        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
+        shift, a.group);
+  } else {
+    radix_downsweep_kernel<false, true><<<blocks, kMaxThreads, smem, s>>>(
+        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
+        shift, a.group);
+  }
+  return cudaGetLastError();
+}
+
+// Checks the radix path's arguments and admits the downsweep's shared memory.
+cudaError_t radix_prepare(RadixArgs& a) {
+  if (a.scratch_keys == nullptr || a.scratch_index == nullptr || a.counts == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  a.n_tiles = (a.n + kTile - 1) / kTile;
+  if (a.rows > INT_MAX / a.n_tiles) return cudaErrorInvalidValue;
+  constexpr int smem = Layout<kMaxThreads>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(radix_downsweep_kernel<true, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(radix_downsweep_kernel<false, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(radix_downsweep_kernel<false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  return err;
+}
+
+// n > kClusterElems through device memory: the radix passes' 12 launches.
+cudaError_t launch_radix(RadixArgs a, cudaStream_t s) {
+  cudaError_t err = radix_prepare(a);
+  for (int pass = 0; pass < kRadixPasses && err == cudaSuccess; ++pass) {
+    for (int step = 0; step < 3 && err == cudaSuccess; ++step) err = radix_step(a, pass, step, s);
+  }
+  return err;
+}
+
 bool valid_shape(int64_t rows, int64_t n, int64_t payload_rows) {
   return rows >= 1 && n >= 1 && n <= kMaxN && payload_rows >= 1 && rows % payload_rows == 0;
 }
@@ -815,7 +1110,7 @@ extern "C" {
 int64_t sort_rows_tile_elems() { return kTile; }
 
 // Elements a cluster sorts in distributed shared memory: rows longer than
-// this take the global-merge path.
+// this take the radix path through device memory.
 int64_t sort_rows_cluster_elems() { return kClusterElems; }
 
 // Keys each thread of the tile path holds: a row of n <= kTile elements is
@@ -852,10 +1147,11 @@ int sort_rows_cluster_shape(int64_t n, int64_t* blocks, int64_t* threads, int64_
 // cluster of the row's shape, 0 on success.
 // keys: f32 (rows, n); payload: f32 (payload_rows, n) with rows % payload_rows
 // == 0; out_keys, out_payload: f32 (rows, n); perm: int32 (rows, n);
-// scratch: (rows, next_pow2(n)) 64-bit, needed only when n > kClusterElems.
+// scratch_keys, scratch_index: 32-bit (rows, n) and counts: 32-bit (rows,
+// 256 * ceil(n / kTile)), needed only when n > kClusterElems.
 int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void* out_payload,
-                     void* perm, void* scratch, int64_t rows, int64_t n, int64_t payload_rows,
-                     void* stream) {
+                     void* perm, void* scratch_keys, void* scratch_index, void* counts,
+                     int64_t rows, int64_t n, int64_t payload_rows, void* stream) {
   if (!valid_shape(rows, n, payload_rows)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t group = rows / payload_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -887,15 +1183,42 @@ int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void
     }));
   }
 
-  return static_cast<int>(launch_merge(k, p, ok, op, pm, static_cast<uint64_t*>(scratch), rows, n,
-                                       group, s));
+  return static_cast<int>(launch_radix(
+      RadixArgs{k, p, ok, op, pm, static_cast<uint32_t*>(scratch_keys),
+                static_cast<uint32_t*>(scratch_index), static_cast<uint32_t*>(counts), rows, n,
+                group, 0},
+      s));
+}
+
+// One step of the radix path (n > kClusterElems) alone: step `step` (0
+// upsweep, 1 scan, 2 downsweep) of pass `pass` (0 to 3), so that a timing
+// can put events between the 12 launches sort_rows_launch makes. Called in
+// that order on the same buffers it computes what sort_rows_launch does.
+// Arguments as sort_rows_launch's.
+int sort_rows_radix_step(const void* keys, const void* payload, void* out_keys, void* out_payload,
+                         void* perm, void* scratch_keys, void* scratch_index, void* counts,
+                         int64_t rows, int64_t n, int64_t payload_rows, int pass, int step,
+                         void* stream) {
+  if (!valid_shape(rows, n, payload_rows) || n <= kClusterElems || pass < 0 ||
+      pass >= kRadixPasses || step < 0 || step > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RadixArgs a{static_cast<const float*>(keys), static_cast<const float*>(payload),
+              static_cast<float*>(out_keys), static_cast<float*>(out_payload),
+              static_cast<int32_t*>(perm), static_cast<uint32_t*>(scratch_keys),
+              static_cast<uint32_t*>(scratch_index), static_cast<uint32_t*>(counts), rows, n,
+              rows / payload_rows, 0};
+  cudaError_t err = radix_prepare(a);
+  if (err == cudaSuccess) err = radix_step(a, pass, step, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 // The global-merge path for any n > kTile: what rows of kTile < n <=
-// kClusterElems took before the cluster path, kept callable so that a
-// timing can hold the cluster path against it on one card. sort_rows_launch
-// never calls it for such rows. Arguments as sort_rows_launch's; scratch is
-// always needed.
+// kClusterElems took before the cluster path and rows past kClusterElems
+// before the radix path, kept callable so that a timing can hold those
+// paths against it on one card; sort_rows_launch never calls it. Arguments
+// as sort_rows_launch's, but one scratch of (rows, next_pow2(n)) 64-bit
+// pairs, always needed.
 int sort_rows_merge_launch(const void* keys, const void* payload, void* out_keys,
                            void* out_payload, void* perm, void* scratch, int64_t rows, int64_t n,
                            int64_t payload_rows, void* stream) {

@@ -18,16 +18,18 @@ agree on every row, the payload and ``perm`` on rows without ties.)
 The kernel takes a row by its length: up to ``tile_elems()`` (16,384) one
 thread block sorts it in shared memory; up to ``cluster_elems()`` (131,072:
 the k = 8 and k = 9 point sets and vocabularies) one thread block cluster
-sorts it in distributed shared memory; longer rows merge through device
-memory. ``sort_rows.launches`` counts every launch, ``sort_rows.
-long_launches`` those of the cluster path.
+sorts it in distributed shared memory; longer rows take an LSD radix sort
+through device memory, 4 passes over tiles of ``tile_elems()``.
+``sort_rows.launches`` counts every launch, ``sort_rows.long_launches``
+those of the cluster path.
 
-Memory: a launch allocates its three outputs and, on the merge path, an
-int64 scratch row of next_pow2(N) pairs per key row (``launch_buffers``).
-``sort_transient_bytes`` sums them; the FSW memory budgets
-(``models.fsw.auto_slice_chunk``, ``train.fsw_lazy.pick_refresh_group``)
-count the sort through it, and on the CPU too, where the kernel library is
-not built: ``CLUSTER_ELEMS`` mirrors the kernel's ``kClusterElems``.
+Memory: a launch allocates its three outputs and, on the radix path, a
+scratch of 32-bit keys and columns per element and the tiles' digit counts
+(``launch_buffers``). ``sort_transient_bytes`` sums them; the FSW memory
+budgets (``models.fsw.auto_slice_chunk``, ``train.fsw_lazy.
+pick_refresh_group``) count the sort through it, and on the CPU too, where
+the kernel library is not built: ``TILE_ELEMS`` and ``CLUSTER_ELEMS``
+mirror the kernel's ``kTile`` and ``kClusterElems``.
 
 On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it runs ``sort_rows_reference``, the same function in plain tensor ops.
@@ -41,8 +43,13 @@ import math
 
 import torch
 
-MAX_N = 1 << 30  # the merge path pads long rows to a power of two and indexes in int32
-CLUSTER_ELEMS = 131_072  # kClusterElems of csrc/sort_rows.cu: longer rows take the merge path
+MAX_N = 1 << 30  # the global-merge path pads long rows to a power of two and indexes in int32
+TILE_ELEMS = 16_384  # kTile of csrc/sort_rows.cu: the radix path's tile
+CLUSTER_ELEMS = 131_072  # kClusterElems of csrc/sort_rows.cu: longer rows take the radix path
+RADIX = 256  # digits of a radix pass: the radix path counts (R, RADIX, tiles)
+# the scratch buffers each C entry point takes, in its argument order
+SCRATCH = {"sort_rows_launch": ("scratch_keys", "scratch_index", "counts"),
+           "sort_rows_merge_launch": ("scratch",)}
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -88,9 +95,11 @@ def _lib() -> ctypes.CDLL:
     from .build import load
 
     lib = load("sort_rows")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name in ("sort_rows_launch", "sort_rows_merge_launch"):
-        getattr(lib, name).argtypes = [p, p, p, p, p, p, i64, i64, i64, p]
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.sort_rows_launch.argtypes = [p] * 8 + [i64, i64, i64, p]
+    lib.sort_rows_merge_launch.argtypes = [p] * 6 + [i64, i64, i64, p]
+    lib.sort_rows_radix_step.argtypes = [p] * 8 + [i64, i64, i64, i32, i32, p]
+    for name in ("sort_rows_launch", "sort_rows_merge_launch", "sort_rows_radix_step"):
         getattr(lib, name).restype = ctypes.c_int
     lib.sort_rows_error_string.argtypes = [ctypes.c_int]
     lib.sort_rows_error_string.restype = ctypes.c_char_p
@@ -110,8 +119,8 @@ def tile_elems() -> int:
 
 def cluster_elems() -> int:
     """Elements a thread block cluster sorts in distributed shared memory;
-    longer rows take the kernel's global-merge path (``CLUSTER_ELEMS``, the
-    host's copy, which the card-only tests hold to it)."""
+    longer rows take the kernel's radix path (``CLUSTER_ELEMS``, the host's
+    copy, which the card-only tests hold to it)."""
     return int(_lib().sort_rows_cluster_elems())
 
 
@@ -137,26 +146,35 @@ def items_per_thread() -> int:
     return int(_lib().sort_rows_items_per_thread())
 
 
-def launch_buffers(r: int, n: int, scratch: bool) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
-    """(shape, dtype) of each buffer one launch on (R, N) keys allocates:
-    the sorted keys and payload, ``perm``, and with ``scratch`` the merge
-    path's (R, next_pow2(N)) int64 pairs."""
+def launch_buffers(r: int, n: int, entry: str = "sort_rows_launch",
+                   ) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
+    """(shape, dtype) of each buffer one launch of the C entry point
+    ``entry`` on (R, N) keys allocates: the sorted keys and payload,
+    ``perm``, and the scratch its path needs: for ``sort_rows_launch`` past
+    ``CLUSTER_ELEMS`` the radix path's (R, N) keys and columns and its
+    (R, RADIX * ceil(N / TILE_ELEMS)) digit counts, all 32-bit; for
+    ``sort_rows_merge_launch`` the global-merge path's (R, next_pow2(N))
+    int64 pairs."""
     out = {"keys": ((r, n), torch.float32), "payload": ((r, n), torch.float32),
            "perm": ((r, n), torch.int32)}
-    if scratch:
+    if entry == "sort_rows_merge_launch":
         out["scratch"] = ((r, 1 << (n - 1).bit_length()), torch.int64)
+    elif n > CLUSTER_ELEMS:
+        out["scratch_keys"] = ((r, n), torch.int32)
+        out["scratch_index"] = ((r, n), torch.int32)
+        out["counts"] = ((r, RADIX * -(-n // TILE_ELEMS)), torch.int32)
     return out
 
 
 def sort_transient_bytes(r: int, n: int, p: int) -> int:
     """Bytes a ``sort_rows`` launch on (R, N) keys with (P, N) payload rows
     allocates beyond its inputs: the three outputs, 12 B an element, and
-    past ``CLUSTER_ELEMS`` the merge path's scratch, 8 B a padded element."""
+    past ``CLUSTER_ELEMS`` the radix path's scratch, 8 B an element and 4 B
+    a digit of a tile (1/16 B an element)."""
     if r < 1 or not 1 <= n <= MAX_N or p < 1 or r % p:
         raise ValueError(f"sort_rows takes R >= 1 rows of 1 <= N <= {MAX_N} with R % P == 0, "
                          f"got {(r, n, p)}")
-    return sum(math.prod(shape) * dtype.itemsize
-               for shape, dtype in launch_buffers(r, n, n > CLUSTER_ELEMS).values())
+    return sum(math.prod(shape) * dtype.itemsize for shape, dtype in launch_buffers(r, n).values())
 
 
 def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
@@ -169,7 +187,7 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         return sort_rows_reference(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
-    out = _launch("sort_rows_launch", keys, payload, keys.shape[1] > CLUSTER_ELEMS)
+    out = _launch("sort_rows_launch", keys, payload)
     sort_rows.launches += 1
     if tile_elems() < keys.shape[1] <= CLUSTER_ELEMS:
         sort_rows.long_launches += 1
@@ -180,37 +198,37 @@ sort_rows.launches = 0  # kernel launches in this process
 sort_rows.long_launches = 0  # those of them on the cluster path
 
 
-def _launch(entry: str, keys: torch.Tensor, payload: torch.Tensor, with_scratch: bool):
-    """Outputs allocated and one launch of the C entry point ``entry`` on
-    the current stream of the keys' card; raises on a launch error."""
+def _launch(entry: str, keys: torch.Tensor, payload: torch.Tensor):
+    """Buffers allocated (``launch_buffers``) and one launch of the C entry
+    point ``entry`` on the current stream of the keys' card; raises on a
+    launch error."""
     (r, n), p = keys.shape, payload.shape[0]
     bufs = {name: torch.empty(shape, dtype=dtype, device=keys.device)
-            for name, (shape, dtype) in launch_buffers(r, n, with_scratch).items()}
-    out_keys, out_payload, perm = bufs["keys"], bufs["payload"], bufs["perm"]
-    scratch = bufs.get("scratch")
+            for name, (shape, dtype) in launch_buffers(r, n, entry).items()}
+    scratch = [bufs[name].data_ptr() if name in bufs else None for name in SCRATCH[entry]]
     lib = _lib()
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = getattr(lib, entry)(
-            keys.data_ptr(), payload.data_ptr(), out_keys.data_ptr(), out_payload.data_ptr(),
-            perm.data_ptr(), None if scratch is None else scratch.data_ptr(), r, n, p, stream,
+            keys.data_ptr(), payload.data_ptr(), bufs["keys"].data_ptr(),
+            bufs["payload"].data_ptr(), bufs["perm"].data_ptr(), *scratch, r, n, p, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"sort_rows launch failed: {lib.sort_rows_error_string(err).decode()} ({err})"
         )
-    return out_keys, out_payload, perm
+    return bufs["keys"], bufs["payload"], bufs["perm"]
 
 
 def sort_rows_merge(keys: torch.Tensor, payload: torch.Tensor):
     """``sort_rows`` of CUDA tensors with N > tile_elems() through the
     global-merge path, whatever N: the path rows of tile_elems() < N <=
-    cluster_elems() took before the cluster path. No caller in the package
-    uses it; a timing holds the cluster path against it on one card.
-    Counts no launch."""
+    cluster_elems() took before the cluster path, and longer rows before
+    the radix path. No caller in the package uses it; a timing holds those
+    paths against it on one card. Counts no launch."""
     _check(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows_merge takes CUDA tensors, not {keys.device}")
     if keys.shape[1] <= tile_elems():
         raise ValueError(f"sort_rows_merge takes rows longer than {tile_elems()}")
-    return _launch("sort_rows_merge_launch", keys, payload, True)
+    return _launch("sort_rows_merge_launch", keys, payload)

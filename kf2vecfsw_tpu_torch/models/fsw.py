@@ -229,7 +229,8 @@ def slice_sort_bytes(b: int, n: int) -> int:
     """Bytes one slice adds to the sliced forward's sort: its B key rows of
     N and what ``sort_rows`` allocates for them (``sort_transient_bytes``).
     16 B an element up to ``CLUSTER_ELEMS``, the JAX package's four f32
-    buffers; past it the merge path's scratch adds 8 B a padded element."""
+    buffers; past it the radix path's scratch adds 8 B an element and 1 KiB
+    a row per tile of 16,384 of digit counts."""
     return 4 * b * n + sort_transient_bytes(b, n, b)
 
 
@@ -238,7 +239,7 @@ def auto_slice_chunk(b: int, n: int, d_out: int, device: str | torch.device) -> 
     ``slice_sort_bytes`` a slice, fits ``fsw_sort_budget_bytes``; 0 when all
     d_out slices fit. Equal to the JAX package's ``_auto_slice_chunk`` up to
     N = ``CLUSTER_ELEMS``, never larger beyond it (that one sizes XLA's sort,
-    which has no merge scratch)."""
+    which has no radix scratch)."""
     if b < 1 or n < 1:
         return 0
     chunk = max(8, fsw_sort_budget_bytes(device) // slice_sort_bytes(b, n))

@@ -359,7 +359,8 @@ def _train_all(
             # the refresh transients scale with the features' minor length,
             # V (vocab weights) or N (padded point sets)
             group = pick_refresh_group(fswout_dim, feats.shape[1], dev, mesh.n_model,
-                                       None if fsw_shared else (k, base_dim))
+                                       None if fsw_shared else (k, base_dim),
+                                       items=len(train_idx))
             if group > 0:
                 planes = LazyPlanes(feats_train, fsw_shared, lazy_refresh, n_batches, group)
             else:

@@ -39,12 +39,15 @@ runner's in each case.
 Memory: S is a few MB at any k, so the gate is the refresh's transients
 for a group of G items (``refresh_transient_bytes``); ``pick_refresh_group``
 halves G from 8 until they fit 3/8 of the device memory, and the route is
-off (``lazy_applicable``) when not even G = 1 fits. The shared route counts
-(3G + 4) f32 buffers of (C, V), the JAX package's formula. The per-genome
-route counts its worst stage as the port runs it
-(``pergenome_refresh_bytes``): the forward-mode pass for d delta / d xi
-holds 16 f32 buffers of the group's (G*C, N) rows, which outweighs the
-sort's outputs and, past ``CLUSTER_ELEMS``, its merge scratch. On a grid with a model
+off (``lazy_applicable``) when not even G = 1 fits. Each route counts its
+worst stage as the port runs it. On the shared route
+(``shared_refresh_bytes``) the forward-mode pass for d delta / d xi holds
+14 f32 buffers of the group's (G, C, V) rows, and 16 in every group after
+the first, whose delta and d delta / d xi are still held; the JAX package's
+(3G + 4) buffers of (C, V) count a third of that. On the per-genome route
+(``pergenome_refresh_bytes``) the same pass holds 16 f32 buffers of the
+group's (G*C, N) rows, which outweighs the sort's outputs and, past
+``CLUSTER_ELEMS``, its radix scratch. On a grid with a model
 axis C is the rank's d_out / n_model slices: each rank refreshes the planes
 of its own slices (``kf2vecfsw_tpu/train/fsw_lazy.py:87-114,147-190``), so
 a refresh too large for one card may fit on a grid.
@@ -56,6 +59,7 @@ import torch
 from torch import nn
 
 from ..kernels.sort import sort_transient_bytes
+from ..kmer.vocab import canonical_vocab_size
 from ..models.fsw import (
     FSWDistEmbed,
     fsw_lazy_apply,
@@ -86,7 +90,7 @@ def pergenome_refresh_bytes(d_out: int, n: int, group: int, k: int, base_dim: in
     - the projections: the points and the (G*C, N) product, twice while the
       product is copied row-major;
     - the sort: its keys and weight rows, its outputs and, past
-      ``CLUSTER_ELEMS``, its merge scratch (``sort_transient_bytes``);
+      ``CLUSTER_ELEMS``, its radix scratch (``sort_transient_bytes``);
     - delta and d delta / d xi by ``torch.func.jvp``: 16 f32 buffers of
       (G*C, N), the sorted projections, weights and perm among them (the
       forward-mode pass through the sinc is the peak);
@@ -105,39 +109,83 @@ def pergenome_refresh_bytes(d_out: int, n: int, group: int, k: int, base_dim: in
     return max(stages)
 
 
+def shared_refresh_bytes(d_out: int, vocab: int, group: int, items: int) -> int:
+    """The live set of the worst stage of one group of ``fsw_lazy_refresh``:
+    ``items`` (n) weight rows over a canonical vocab of V k-mers, d_out
+    slices, groups of G. Through every group it holds the normalised
+    weights wn (n, V), the sorted projections ps and the sort's payload
+    output (C, V) in f32, perm (C, V) in int64 and the (V, 4k) one-hot in
+    f32; beside them, at most:
+    - the sort: its (C, V) keys and what it allocates (``sort_transient_
+      bytes``);
+    - perm in int32 and in int64, while one is cast to the other;
+    - the one-hot in int64 and in f32;
+    - delta and d delta / d xi by ``torch.func.jvp``: the gathered (G, C, V)
+      weights wsb and 13 f32 buffers of (G, C, V) for the primals and
+      tangents through ``quantile_coefficients`` (the cos beside the sinc's
+      is the peak), and in every group after the first the last group's
+      delta and d delta / d xi, still bound while the next is computed, and
+      the earlier groups' S and g2 rows, 4 (4k + 1) C B an item (at most
+      n - G items precede a full group; a shorter last group's jvp is
+      smaller by far more than its extra rows);
+    - the row sums for g2 and the unsort, 4 buffers of (G, C, V) at most.
+    k is the smallest whose canonical vocab holds V (exact for the vocabs
+    the shared route runs on)."""
+    k = 1
+    while canonical_vocab_size(k) < vocab:
+        k += 1
+    g = min(group, items)
+    e = 4 * g * d_out * vocab  # bytes of one f32 buffer of the group's rows
+    cv = 4 * d_out * vocab
+    wn = 4 * items * vocab
+    onehot = 16 * k * vocab
+    held = wn + 4 * cv + onehot
+    stages = (
+        wn + cv + sort_transient_bytes(d_out, vocab, 1),  # the sort
+        wn + 5 * cv,  # perm cast to int64
+        wn + 4 * cv + 32 * k * vocab + onehot,  # the one-hot cast to f32
+        held + 4 * (items - g) * d_out * (4 * k + 1) + (16 if items > group else 14) * e,  # the jvp
+    )
+    return max(stages)
+
+
 def refresh_transient_bytes(d_out: int, vocab: int, group: int,
-                            points: tuple[int, int] | None = None) -> int:
+                            points: tuple[int, int] | None = None,
+                            items: int | None = None) -> int:
     """The worst-stage live set of one refresh group. On the shared route
-    (``points`` None) ~(3G + 4) f32 buffers of (d_out, vocab), the JAX
-    package's count (sorted weights, delta and its derivative, the unsort);
+    (``points`` None) ``shared_refresh_bytes`` of ``items`` training items;
     on the per-genome route, ``points`` = (k, base_dim) of the point sets
     and ``vocab`` their padded length N, ``pergenome_refresh_bytes``."""
     if points is not None:
         return pergenome_refresh_bytes(d_out, vocab, group, *points)
-    return 4 * (3 * group + 4) * d_out * vocab
+    if items is None:
+        raise ValueError("the shared route's refresh count needs the number of items")
+    return shared_refresh_bytes(d_out, vocab, group, items)
 
 
 def pick_refresh_group(d_out: int, vocab: int, device: str | torch.device,
-                       n_model: int = 1, points: tuple[int, int] | None = None) -> int:
+                       n_model: int = 1, points: tuple[int, int] | None = None,
+                       items: int | None = None) -> int:
     """The largest group (<= REFRESH_GROUP, halving) whose transients over
     the rank's ceil(d_out / n_model) slices fit ``fsw_lazy_budget_bytes``;
-    0 when not even one item's fit. ``points`` as ``refresh_transient_
-    bytes``: None on the shared route, (k, base_dim) on the per-genome one."""
+    0 when not even one item's fit. ``points`` and ``items`` as
+    ``refresh_transient_bytes``: the shared route (``points`` None) needs
+    ``items``, the per-genome one (``points`` = (k, base_dim)) not."""
     d_local = -(-d_out // max(n_model, 1))
     g = REFRESH_GROUP
     while g >= 1:
-        if refresh_transient_bytes(d_local, vocab, g, points) <= fsw_lazy_budget_bytes(device):
+        if refresh_transient_bytes(d_local, vocab, g, points, items) <= fsw_lazy_budget_bytes(device):
             return g
         g //= 2
     return 0
 
 
 def lazy_applicable(d_out: int, vocab: int, device: str | torch.device, n_model: int = 1,
-                    points: tuple[int, int] | None = None) -> bool:
+                    points: tuple[int, int] | None = None, items: int | None = None) -> bool:
     """Whether the lazy route fits: one item's refresh transients within the
-    budget (``vocab`` is the features' minor length, V or N; ``points`` as
-    ``refresh_transient_bytes``)."""
-    return pick_refresh_group(d_out, vocab, device, n_model, points) > 0
+    budget (``vocab`` is the features' minor length, V or N; ``points`` and
+    ``items`` as ``refresh_transient_bytes``)."""
+    return pick_refresh_group(d_out, vocab, device, n_model, points, items) > 0
 
 
 class LazyPlanes:

@@ -83,7 +83,8 @@ def profile_route(route: str, dev: torch.device) -> dict:
         shared = route == "lazy_shared"
         planes = LazyPlanes(x, shared, 3 * STEPS, STEPS,
                             pick_refresh_group(FSW_OUT_DIM, x.shape[1], dev,
-                                               points=None if shared else (K, FSW_BASE_DIM)))
+                                               points=None if shared else (K, FSW_BASE_DIM),
+                                               items=x.shape[0]))
         epoch = lambda order: lazy_distance_epoch(model, opt, planes, dist, order, BATCH_SIZE)
     else:
         planes = None

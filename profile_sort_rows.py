@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where ``sort_rows``' cluster path spends its time, and the kernel's times
-beside other checkouts' on one card:
+"""Where ``sort_rows``' cluster and radix paths spend their time, and the
+kernel's times beside other checkouts' on one card:
 ``python3 profile_sort_rows.py [--roots DIR ...]`` (one NVIDIA card; exits
 non-zero without one).
 
@@ -12,7 +12,14 @@ shared-vocab sorts at k=8 and k=9), on seeded random keys:
    counter after every barrier of the cluster kernel (thread 0 of each
    block adds the cycles since its last mark), one launch each; prints each
    phase's share of the summed cycles and the launch's time;
-2. with ``--roots``, the kernel's time at the same shapes in each
+2. the radix path's breakdown at its shapes (MERGE_SHAPES: a k = 10
+   genome's refresh sort, 512 rows of 262,144, and a k = 10 query block,
+   1,024 rows of 524,800 with 16 payload rows): each of its 12 launches
+   (upsweep, scan and downsweep of 4 passes) alone through
+   ``sort_rows_radix_step``, with CUDA events between them, the mean of
+   RADIX_REPS sorts after a warm-up, with the bytes each launch moves and
+   its rate, beside one ``sort_rows`` call;
+3. with ``--roots``, the kernel's time at all these shapes in each
    checkout, in the order given (one process each, its own build; pass
    the parent and this checkout as ``P . . P`` to time them in turns),
    with CUDA events over REPS launches after a warm-up.
@@ -31,7 +38,10 @@ import subprocess
 import sys
 
 SHAPES = ((8192, 32896, 16), (512, 32896, 1), (512, 131072, 1))
-REPS = {8192: 5, 512: 30}
+MERGE_SHAPES = ((512, 262_144, 1), (1024, 524_800, 16))
+REPS = {8192: 5, 512: 30, 1024: 3}
+RADIX_REPS = 5
+STEPS = ("upsweep", "scan", "downsweep")
 SEED = 20261016
 MARK = ("#define MARK(k) do { if (threadIdx.x == 0) { long long now_ = clock64(); "
         "atomicAdd(&g_phase[k], (unsigned long long)(now_ - t_prev)); t_prev = now_; } } while (0)\n")
@@ -119,7 +129,15 @@ def breakdown() -> None:
         getattr(phased, name).restype = getattr(lib, name).restype
     phased.sort_rows_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     phased.sort_rows_phases.restype = ctypes.c_int
+    real = sort._lib
     sort._lib = lambda: phased
+    try:
+        _phase_shares(torch, sort, phased)
+    finally:
+        sort._lib = real
+
+
+def _phase_shares(torch, sort, phased) -> None:
     counts = (ctypes.c_ulonglong * 16)()
     for shape in SHAPES:
         keys, payload = inputs(torch, shape)
@@ -143,14 +161,75 @@ def breakdown() -> None:
               flush=True)
 
 
+def radix_step_bytes(r: int, n: int, p: int, step: int, radix_pass: int) -> int:
+    """Bytes one launch of the radix path moves at least: an upsweep reads
+    the keys; a scan reads and writes the digit counts; a downsweep reads
+    keys and columns (the first pass the keys alone) and writes them (the
+    last pass the keys, perm and the payload, and reads the payload rows)."""
+    if step == 0:
+        return 4 * r * n
+    if step == 1:
+        return 2 * 4 * r * 256 * -(-n // 16_384)
+    read = 4 * r * n if radix_pass == 0 else 8 * r * n
+    write = 12 * r * n if radix_pass == 3 else 8 * r * n
+    return read + write + (4 * p * n if radix_pass == 3 else 0)
+
+
+def radix_breakdown() -> None:
+    import torch
+
+    from kf2vecfsw_tpu_torch.kernels import sort
+
+    lib = sort._lib()
+    for shape in MERGE_SHAPES:
+        r, n, p = shape
+        keys, payload = inputs(torch, shape)
+        bufs = {name: torch.empty(size, dtype=dtype, device="cuda")
+                for name, (size, dtype) in sort.launch_buffers(r, n).items()}
+        ptrs = [keys.data_ptr(), payload.data_ptr()] + [
+            bufs[name].data_ptr() for name in ("keys", "payload", "perm", *sort.SCRATCH["sort_rows_launch"])]
+        stream = torch.cuda.current_stream().cuda_stream
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(13)]
+        total = [0.0] * 12
+        for rep in range(RADIX_REPS + 1):  # the first is the warm-up
+            marks[0].record()
+            for i in range(12):
+                err = lib.sort_rows_radix_step(*ptrs, r, n, p, i // 3, i % 3, stream)
+                if err != 0:
+                    raise RuntimeError(f"radix step {i}: {lib.sort_rows_error_string(err).decode()}")
+                marks[i + 1].record()
+            torch.cuda.synchronize()
+            if rep:
+                total = [t + marks[i].elapsed_time(marks[i + 1]) for i, t in enumerate(total)]
+        ref = sort.sort_rows_reference(keys, payload)
+        if not all(torch.equal(a, b) for a, b in zip((bufs["keys"], bufs["payload"], bufs["perm"]), ref)):
+            raise AssertionError(f"the radix steps != plain version at {shape}")
+        launches = {}
+        for i, t in enumerate(total):
+            ms = t / RADIX_REPS
+            moved = radix_step_bytes(r, n, p, i % 3, i // 3)
+            launches[f"pass {i // 3} {STEPS[i % 3]}"] = {"ms": ms, "bytes": moved,
+                                                         "tb_per_s": moved / ms / 1e9}
+        print(json.dumps({
+            "shape": f"R={r} x N={n}, P={p}", "launches": launches,
+            "by_step_ms": {step: sum(v["ms"] for k, v in launches.items() if k.endswith(step))
+                           for step in STEPS},
+            "sum_ms": sum(v["ms"] for v in launches.values()),
+            "sort_rows_ms": cuda_ms(torch, lambda: sort.sort_rows(keys, payload), RADIX_REPS)}),
+            flush=True)
+        del keys, payload, bufs, ref
+        torch.cuda.empty_cache()
+
+
 def time_here() -> None:
-    """The current checkout's sort_rows at SHAPES (run from its root)."""
+    """The current checkout's sort_rows at SHAPES and MERGE_SHAPES (run from
+    its root)."""
     sys.path.insert(0, os.getcwd())  # ahead of this script's own directory
     import torch
 
     from kf2vecfsw_tpu_torch.kernels.sort import sort_rows
 
-    for shape in SHAPES:
+    for shape in SHAPES + MERGE_SHAPES:
         keys, payload = inputs(torch, shape)
         ms = cuda_ms(torch, lambda: sort_rows(keys, payload), REPS[shape[0]])
         print(json.dumps({"root": os.path.basename(os.getcwd()),
@@ -172,6 +251,7 @@ def main() -> int:
         time_here()
         return 0
     breakdown()
+    radix_breakdown()
     for root in args.roots:
         root = os.path.abspath(root)
         subprocess.run([sys.executable, os.path.abspath(__file__), "--time-here"], cwd=root,

@@ -1,7 +1,8 @@
 """The port's FSW memory budgets count what its sort really allocates.
 
 ``sort_rows`` allocates its three outputs and, for rows longer than
-``CLUSTER_ELEMS``, an int64 merge scratch of next_pow2(N) per row. The JAX
+``CLUSTER_ELEMS``, the radix path's scratch: 32-bit keys and columns per
+element and each tile's digit counts. The JAX
 package sizes its sorts for XLA (four f32 buffers an element), and the port
 copied those formulas; these tests hold the repaired budgets:
 - ``sort_transient_bytes`` to the bytes ``_launch`` allocates (read from
@@ -10,8 +11,8 @@ copied those formulas; these tests hold the repaired budgets:
   hand arithmetic on a faked device (``KF2VEC_HBM_BYTES``), and against the
   JAX package's values, which they never exceed;
 - the counted stages to the live tensors of the sliced forward and of a
-  per-genome refresh group on the CPU, with the sort replaced by one that
-  allocates what the CUDA launch allocates.
+  refresh group (per genome and shared) on the CPU, with the sort replaced
+  by one that allocates what the CUDA launch allocates.
 The parity tests at N <= 131,072 stay in test_torch_fsw.py and
 test_torch_fsw_train.py."""
 
@@ -86,7 +87,7 @@ def _card_like_sort(keys, payload):
     the plain version's values."""
     r, n = keys.shape
     bufs = {name: torch.empty(shape, dtype=dtype)
-            for name, (shape, dtype) in launch_buffers(r, n, n > CLUSTER_ELEMS).items()}
+            for name, (shape, dtype) in launch_buffers(r, n).items()}
     with _disable_current_modes():
         ref = sort_rows_reference(keys, payload)
     for name, value in zip(("keys", "payload", "perm"), ref):
@@ -102,14 +103,15 @@ def _next_pow2(n):
                                    (2, 262_144, 2), (1, 300_007, 1)])
 @pytest.mark.parametrize("entry", ["sort_rows_launch", "sort_rows_merge_launch"])
 def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p, entry):
-    """``_launch`` allocates ``launch_buffers``; their bytes are
-    ``sort_transient_bytes`` whenever the merge scratch is what the entry
-    point needs (always for the merge entry, past CLUSTER_ELEMS for the
-    other)."""
+    """``_launch`` allocates ``launch_buffers`` and hands the entry point
+    the scratch its path needs (the merge entry always its pairs,
+    ``sort_rows_launch`` past CLUSTER_ELEMS the radix path's three
+    buffers); for ``sort_rows_launch`` their bytes are
+    ``sort_transient_bytes``."""
     seen = {}
 
     def fake_entry(*args):
-        seen["scratch"] = args[5]
+        seen["scratch"] = args[5:-4]
         return 0
 
     monkeypatch.setattr(sort_mod, "_lib", lambda: types.SimpleNamespace(**{entry: fake_entry}))
@@ -117,43 +119,53 @@ def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p, ent
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     keys, payload = torch.zeros(r, n), torch.zeros(p, n)
-    merge = entry == "sort_rows_merge_launch" or n > CLUSTER_ELEMS
+    scratch = entry == "sort_rows_merge_launch" or n > CLUSTER_ELEMS
     with LiveBytes(keys, payload) as live:
-        out = sort_mod._launch(entry, keys, payload, merge)
+        out = sort_mod._launch(entry, keys, payload)
     assert [tuple(t.shape) for t in out] == [(r, n)] * 3
     assert [t.dtype for t in out] == [torch.float32, torch.float32, torch.int32]
-    assert (seen["scratch"] is not None) == merge
-    buffers = launch_buffers(r, n, merge)
+    assert [ptr is not None for ptr in seen["scratch"]] == [scratch] * len(sort_mod.SCRATCH[entry])
+    buffers = launch_buffers(r, n, entry)
     assert live.peak == sum(np.prod(s) * d.itemsize for s, d in buffers.values())
-    if merge == (n > CLUSTER_ELEMS):
+    if entry == "sort_rows_launch":
         assert live.peak == sort_transient_bytes(r, n, p)
 
 
 def test_sort_transient_bytes_by_hand():
-    assert CLUSTER_ELEMS == 131_072
+    """12 B an element of outputs; past CLUSTER_ELEMS 8 B an element of
+    radix scratch (keys and columns) and 4 B for each of 256 digits of
+    each tile of 16,384."""
+    assert CLUSTER_ELEMS == 131_072 and sort_mod.TILE_ELEMS == 16_384
     assert sort_transient_bytes(512, 8192, 1) == 12 * 512 * 8192
     assert sort_transient_bytes(33, 131_072, 33) == 12 * 33 * 131_072
-    assert sort_transient_bytes(33, 131_073, 1) == 12 * 33 * 131_073 + 8 * 33 * 262_144
-    # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800
-    assert sort_transient_bytes(4096, 524_800, 8) == 12 * 4096 * 524_800 + 8 * 4096 * 1_048_576
+    # 9 tiles of 131,073: 86,507,520 + 304,128
+    assert sort_transient_bytes(33, 131_073, 1) == 20 * 33 * 131_073 + 4 * 33 * 256 * 9 == 86_812_308
+    # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800, 33 tiles
+    assert sort_transient_bytes(4096, 524_800, 8) == 20 * 4096 * 524_800 + 4 * 4096 * 256 * 33
+    assert sort_transient_bytes(4096, 524_800, 8) == 43_130_028_032
+    # the global-merge path (the parent's, timing only) keeps its padded pairs
+    assert launch_buffers(33, 131_073, "sort_rows_merge_launch")["scratch"] == (
+        (33, 262_144), torch.int64)
     for bad in ((0, 8, 1), (8, 0, 1), (8, 8, 3), (8, (1 << 30) + 1, 1)):
         with pytest.raises(ValueError):
             sort_transient_bytes(*bad)
 
 
-# B = 16 rows a slice: 16 B an element (keys and outputs) plus 8 B a padded
-# element of scratch; the budget is 1/8 of the card: 2 GiB or 10 GiB.
-#   N = 131,073 (pad 262,144): 33,554,688 + 33,554,432 = 67,109,120 B a slice:
-#     2 GiB / that = 31.99 -> 16; 10 GiB / that = 159.99 -> 128
-#   N = 262,144: 67,108,864 + 33,554,432 = 100,663,296: 21.3 -> 16; 106.7 -> 64
-#   N = 524,800 (pad 1,048,576): 134,348,800 + 134,217,728 = 268,566,528:
-#     7.996 -> the floor, 8 (as in the JAX package); 39.98 -> 32
+# B = 16 rows a slice: 24 B an element (keys, outputs, radix scratch) plus
+# 1 KiB a row and tile of digit counts; the budget is 1/8 of the card: 2 GiB
+# or 10 GiB.
+#   N = 131,073 (9 tiles): 50,332,032 + 147,456 = 50,479,488 B a slice:
+#     2 GiB / that = 42.5 -> 32; 10 GiB / that = 212.7 -> 128
+#   N = 262,144 (16 tiles): 100,663,296 + 262,144 = 100,925,440: 21.3 -> 16;
+#     106.4 -> 64
+#   N = 524,800 (33 tiles): 201,523,200 + 540,672 = 202,063,872: 10.6 -> 8;
+#     53.1 -> 32
 @pytest.mark.parametrize("n,hbm_gib,chunk", [
-    (131_073, 16, 16), (131_073, 80, 128), (262_144, 16, 16), (262_144, 80, 64),
+    (131_073, 16, 32), (131_073, 80, 128), (262_144, 16, 16), (262_144, 80, 64),
     (524_800, 16, 8), (524_800, 80, 32)])
 def test_auto_slice_chunk_counts_the_merge_scratch(monkeypatch, n, hbm_gib, chunk):
     monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
-    per_slice = 16 * B * n + 8 * B * _next_pow2(n)
+    per_slice = 24 * B * n + 1024 * B * -(-n // 16_384)
     assert fsw.slice_sort_bytes(B, n) == per_slice
     got = fsw.auto_slice_chunk(B, n, D_OUT, "cpu")
     assert got == chunk
@@ -196,6 +208,13 @@ def test_pick_refresh_group_per_genome(monkeypatch, n, hbm_gib, group):
     points = (K, BASE_DIM)
     for g in (1, 2, 4, 8):
         assert tlazy.refresh_transient_bytes(D_OUT, n, g, points) == _refresh_by_hand(g, n)
+        # the sort stage (digits, keys, weight rows, outputs, radix scratch:
+        # 20 B an element and 1 KiB a row and tile) stays below the jvp's
+        sort_stage = (8 * g * n * K + 4 * g * D_OUT * n + 4 * g * n + 20 * g * D_OUT * n
+                      + 1024 * g * D_OUT * -(-n // 16_384))
+        assert sort_stage == (8 * g * n * K + 4 * g * D_OUT * n + 4 * g * n
+                              + sort_transient_bytes(g * D_OUT, n, g))
+        assert sort_stage < _refresh_by_hand(g, n)
     got = tlazy.pick_refresh_group(D_OUT, n, "cpu", points=points)
     assert got == group
     assert tlazy.lazy_applicable(D_OUT, n, "cpu", points=points) == (group > 0)
@@ -211,11 +230,45 @@ def test_pick_refresh_group_per_genome(monkeypatch, n, hbm_gib, group):
         assert jlazy.refresh_transient_bytes(D_OUT, n, 8) == 4 * 28 * D_OUT * n == 30_094_131_200
 
 
-def test_shared_route_keeps_the_jax_formula(monkeypatch):
-    monkeypatch.setenv("KF2VEC_HBM_BYTES", str(80 * GIB))
-    for vocab in (8192, 32_896, 131_072):
-        assert tlazy.refresh_transient_bytes(D_OUT, vocab, 3) == 4 * 13 * D_OUT * vocab
-        assert tlazy.pick_refresh_group(D_OUT, vocab, "cpu") == jlazy.pick_refresh_group(D_OUT, vocab)
+def _shared_by_hand(vocab, k, group, items, d_out=D_OUT):
+    """The shared refresh's jvp stage: the held (n, V) weights,
+    (C, V) ps, sort payload and int64 perm (4 buffers of 4 C V), the f32
+    (V, 4k) one-hot, the earlier groups' S and g2 rows, and 14 f32 buffers
+    of (G, C, V), 16 in a group after the first."""
+    cv = 4 * d_out * vocab
+    held = 4 * items * vocab + 4 * cv + 16 * k * vocab
+    g = min(group, items)
+    return held + 4 * (items - g) * d_out * (4 * k + 1) + (16 if items > group else 14) * g * cv
+
+
+# V = 8,192 (k = 7), 32,896 (k = 8), 131,072 (k = 9); budget 3/8 of the card
+# k = 9, one group of 8 (n = 8): 4,194,304 + 1,073,741,824 + 18,874,368 held
+#   + 14 x 2,147,483,648 = 31,161,581,568 B, under 30 GiB = 32,212,254,720;
+#   n = 64: 33,554,432 + 1,073,741,824 + 18,874,368 + 4 x 56 x 512 x 37
+#   (4,243,456) + 16 x 2,147,483,648 = 35,490,152,448: over, so G = 4
+#   (18,310,586,368); at 16 GiB (6 GiB budget) G = 1 (5,425,911,808;
+#   G = 2 takes 9,720,803,328), where the JAX formula's 4 x 16 x 268,435,456
+#   = 4,294,967,296 admits 4
+@pytest.mark.parametrize("vocab,k,hbm_gib,items,group,jax_group", [
+    (8192, 7, 16, 64, 8, 8), (32_896, 8, 16, 64, 4, 8), (32_896, 8, 80, 64, 8, 8),
+    (131_072, 9, 80, 8, 8, 8), (131_072, 9, 80, 64, 4, 8), (131_072, 9, 16, 64, 1, 4)])
+def test_shared_refresh_bytes_by_hand(monkeypatch, vocab, k, hbm_gib, items, group, jax_group):
+    monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
+    for g in (1, 2, 4, 8):
+        assert tlazy.shared_refresh_bytes(D_OUT, vocab, g, items) == _shared_by_hand(vocab, k, g, items)
+        assert tlazy.refresh_transient_bytes(D_OUT, vocab, g, items=items) == _shared_by_hand(
+            vocab, k, g, items)
+    got = tlazy.pick_refresh_group(D_OUT, vocab, "cpu", items=items)
+    assert got == group
+    assert jlazy.pick_refresh_group(D_OUT, vocab) == jax_group
+    budget = 3 * hbm_gib * GIB // 8
+    assert _shared_by_hand(vocab, k, got, items) <= budget
+    assert got == 8 or _shared_by_hand(vocab, k, 2 * got, items) > budget
+    if vocab == 131_072:
+        assert _shared_by_hand(vocab, k, 8, 8) == 31_161_581_568
+        assert _shared_by_hand(vocab, k, 8, 64) == 35_490_152_448
+    with pytest.raises(ValueError):
+        tlazy.refresh_transient_bytes(D_OUT, vocab, 1)
 
 
 def _point_sets(gen, g, n, k):
@@ -279,12 +332,13 @@ def test_pergenome_refresh_group_fits_its_count(monkeypatch, g, c, n, k):
 
 
 @pytest.mark.parametrize("g,c,n", [(1, 16, 4), (4, 128, 8), (8, 64, 8), (8, 128, 8)])
-def test_shared_refresh_live_set(g, c, n):
-    """The shared route keeps the JAX package's count, (3G + 4) f32 buffers
-    of (C, V), which the parity test pins; the port's ``fsw_lazy_refresh``
-    holds 58-88 B per element of (G, C, V) at its peak (the jvp through the
-    cos/sinc chain; 58 at G = 8), 3.1-4.3x that count (ROADMAP C6, open: its
-    repair changes this reading)."""
+def test_shared_refresh_live_set(monkeypatch, g, c, n):
+    """One shared refresh of n items in groups of g holds no more than
+    ``shared_refresh_bytes`` and, where the jvp stage leads (here in every
+    case), exactly that: 14 f32 buffers of (G, C, V) in the first group, 16
+    in a later one, beside the held weights, ps, perm and one-hot. The JAX
+    package's (3G + 4) buffers of (C, V) count a third of it."""
+    monkeypatch.setattr(fsw, "sort_rows", _card_like_sort)
     k, v = 7, 8192
     gen = torch.Generator().manual_seed(g * c)
     digits = fsw.vocab_digits(k, torch.device("cpu"))
@@ -293,6 +347,8 @@ def test_shared_refresh_live_set(g, c, n):
     w = torch.rand(n, v, generator=gen)
     with LiveBytes(slices, freqs, points, digits, w) as live:
         fsw.fsw_lazy_refresh(slices, freqs, points, digits, w, g)
-    per_element = live.peak / (g * c * v)
-    assert 58 <= per_element <= 88.5
-    assert 3.1 <= live.peak / tlazy.refresh_transient_bytes(c, v, g) <= 4.3
+    counted = tlazy.shared_refresh_bytes(c, v, g, n)
+    assert live.peak <= counted + SMALL
+    if counted == _shared_by_hand(v, k, g, n, c):
+        assert live.peak >= counted
+    assert live.peak >= 2.9 * jlazy.refresh_transient_bytes(c, v, g)

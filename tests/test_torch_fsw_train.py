@@ -261,10 +261,16 @@ def test_lazy_apply_at_a_fresh_permutation_equals_the_exact_forward(route):
 @pytest.mark.parametrize("hbm_gib", [0.001, 0.05, 1, 16, 80])
 @pytest.mark.parametrize("d_out,vocab", [(512, 8192), (512, 131_072), (16, 136), (512, 640)])
 def test_lazy_gate_equals_jax(monkeypatch, hbm_gib, d_out, vocab):
+    """The shared route's gate counts the port's own refresh
+    (``shared_refresh_bytes``), about three times the JAX package's (3G + 4)
+    buffers of (C, V): its group is never larger, and where the port takes
+    the lazy route the JAX package does too."""
     monkeypatch.setenv("KF2VEC_HBM_BYTES", str(int(hbm_gib * (1 << 30))))
-    assert tlazy.pick_refresh_group(d_out, vocab, "cpu") == jlazy.pick_refresh_group(d_out, vocab)
-    assert tlazy.lazy_applicable(d_out, vocab, "cpu") == jlazy.lazy_applicable(64, d_out, vocab)
-    assert tlazy.refresh_transient_bytes(d_out, vocab, 3) == jlazy.refresh_transient_bytes(
+    group = tlazy.pick_refresh_group(d_out, vocab, "cpu", items=64)
+    assert group <= jlazy.pick_refresh_group(d_out, vocab)
+    if tlazy.lazy_applicable(d_out, vocab, "cpu", items=64):
+        assert jlazy.lazy_applicable(64, d_out, vocab)
+    assert tlazy.refresh_transient_bytes(d_out, vocab, 3, items=64) > jlazy.refresh_transient_bytes(
         d_out, vocab, 3)
     assert tlazy.REFRESH_GROUP == jlazy.REFRESH_GROUP
 

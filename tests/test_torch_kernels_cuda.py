@@ -8,9 +8,11 @@ seams, and on 5 Mb homopolymers and dinucleotide repeats (many lanes of a
 warp on one bin).
 ``sort_rows``: a row count that is a multiple of nothing, N around the
 block sizes of the radix tile sort, the cluster path's lengths from 16,385
-to 131,072 with its seams and 131,073 (the first length on the global-merge
-path), the merge path at k = 10's lengths (262,144 to 524,800) with its
-allocations held to ``sort_transient_bytes``, ties on every other row,
+to 131,072 with its seams and 131,073 (the first length on the radix
+path), the radix path at k = 10's lengths (262,144 to 524,800), its tile
+seams and adversarial keys, with its allocations held to
+``sort_transient_bytes`` and against the global-merge path it replaced,
+ties on every other row,
 all-equal keys (``perm`` the identity),
 keys at the f32 extremes; ``perm`` equal to the plain (stable) version's on
 every row; ``sort_rows.long_launches`` counting the cluster path's launches
@@ -49,6 +51,7 @@ from kf2vecfsw_tpu_torch.kernels.histogram import (
 )
 from kf2vecfsw_tpu_torch.kernels.sort import (
     CLUSTER_ELEMS,
+    TILE_ELEMS,
     cluster_elems,
     cluster_shape,
     items_per_thread,
@@ -212,6 +215,7 @@ def test_sort_long_rows_equal_plain_version(card, r, p, n):
     on_cluster = tile_elems() < n <= cluster_elems()
     assert sort_rows.long_launches == before[1] + on_cluster
     assert cluster_elems() == 131_072 == CLUSTER_ELEMS
+    assert tile_elems() == 16_384 == TILE_ELEMS  # the radix path's tile too
     if on_cluster:
         shape = cluster_shape(n)
         assert 1 <= shape["blocks"] <= 8 and shape["threads"] == 1024
@@ -239,19 +243,47 @@ def test_merge_path_equals_plain_version(card, n):
 
 
 MERGE_LENGTHS = [262_144, 300_007, 524_800]  # k = 10 point sets, its vocab at 524,800
+# the radix path's seams (131,073: the first length on it; a tile of
+# 16,384 +- 1 at 9, 16 and 32 tiles), a row of 67 tiles, and adversarial
+# keys at 300,007: all equal (perm the identity), only +-0.0, ascending,
+# descending, and sharing their top three bytes (one digit takes every
+# tile in passes 2-4)
+MERGE_CASES = ([(r, n, "ties") for r in (1, 33) for n in MERGE_LENGTHS]
+               + [(33, n, "ties") for n in (131_073, 147_455, 147_457, 262_143, 262_145,
+                                            524_287, 524_289)]
+               + [(2, 1_100_000, "ties")]
+               + [(33, 300_007, kind) for kind in ("all_equal", "signed_zeros", "ascending",
+                                                   "descending", "top_bytes_shared")])
 
 
-@pytest.mark.parametrize("r", [1, 33])
-@pytest.mark.parametrize("n", MERGE_LENGTHS)
-def test_sort_merge_lengths_equal_plain_version(card, r, n):
-    """Rows past CLUSTER_ELEMS take the merge path: exact, ``perm`` included,
-    counted in ``launches`` and not in ``long_launches``, and the launch's
-    allocations are ``sort_transient_bytes`` (outputs and merge scratch; the
+def _merge_keys(kind, gen, r, n, card):
+    keys = torch.randn(r, n, generator=gen, device=card)
+    if kind == "ties":  # ties on every other row
+        keys[1::2] = torch.round(keys[1::2] * 4) / 4
+    elif kind == "all_equal":
+        keys = torch.full((r, n), 0.5, device=card)
+    elif kind == "signed_zeros":
+        keys = torch.where(keys < 0, -0.0, 0.0)
+    elif kind == "ascending":
+        keys = torch.sort(keys, dim=1).values
+    elif kind == "descending":
+        keys = torch.sort(keys, dim=1, descending=True).values
+    elif kind == "top_bytes_shared":  # 1.0f's top three bytes, the low byte random
+        low = torch.randint(0, 256, (r, n), generator=gen, device=card, dtype=torch.int32)
+        keys = (low | 0x3F800000).view(torch.float32)
+    return keys.contiguous()
+
+
+@pytest.mark.parametrize("r,n,kind", MERGE_CASES)
+def test_sort_merge_lengths_equal_plain_version(card, r, n, kind):
+    """Rows past CLUSTER_ELEMS take the radix path: exact, ``perm`` included,
+    at payload rows P in {1, R, R/3}, counted in ``launches`` and not in
+    ``long_launches``, and the launch's allocations are
+    ``sort_transient_bytes`` (outputs, radix scratch and digit counts; the
     caching allocator may hand out up to 1 MiB more per block)."""
     gen = torch.Generator(device=card).manual_seed(r + n)
-    keys = torch.randn(r, n, generator=gen, device=card)
-    keys[1::2] = torch.round(keys[1::2] * 4) / 4
-    for p in sorted({1, r}):
+    keys = _merge_keys(kind, gen, r, n, card)
+    for p in sorted({1, r} | ({r // 3} if r % 3 == 0 else set())):
         payload = torch.rand(p, n, generator=gen, device=card)
         before = sort_rows.launches, sort_rows.long_launches
         torch.cuda.synchronize()
@@ -265,7 +297,22 @@ def test_sort_merge_lengths_equal_plain_version(card, r, n):
         ref = sort_rows_reference(keys, payload)
         for a, b in zip(got, ref):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if kind == "all_equal":
+            assert torch.equal(got[2], torch.arange(n, dtype=torch.int32, device=card).expand(r, n))
         del got, ref
+
+
+def test_radix_path_equals_the_parent_merge(card):
+    """The radix path gives what the global-merge path it replaced gives,
+    bit for bit, at a k = 10 point set's length with ties."""
+    n = 300_007
+    gen = torch.Generator(device=card).manual_seed(n)
+    keys = _merge_keys("ties", gen, 66, n, card)
+    payload = torch.rand(6, n, generator=gen, device=card)
+    got, parent = sort_rows(keys, payload), sort_rows_merge(keys, payload)
+    torch.cuda.synchronize()
+    for a, b in zip(got, parent):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_sort_equals_plain_version_around_the_block_sizes(card):
