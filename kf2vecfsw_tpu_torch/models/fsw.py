@@ -77,6 +77,7 @@ from ..kmer.vocab import (
     codes_to_digit_matrix,
 )
 from ..utils.membudget import hbm_fraction
+from ..utils.phases import phase
 from .mlp import enter_model_axis, init_params_, row_parallel
 
 _SQRT2 = math.sqrt(2.0)
@@ -352,19 +353,25 @@ def fsw_lazy_refresh(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Te
     order. One ``sort_rows`` of the shared (C, V) projections serves every
     item; per group of ``group`` items the sorted weights are gathered by its
     ``perm``, delta and d delta / d xi computed, delta unsorted and
-    segment-summed by one matmul with the (V, 4k) one-hot digit matrix."""
+    segment-summed by one matmul with the (V, 4k) one-hot digit matrix.
+    Spans: ``fsw.refresh.sort`` once, ``.gather``, ``.jvp`` and ``.reduce``
+    per group."""
     n, v = w.shape
     k = digits.shape[1]
     wn = _normalized(w)
-    ps, _, perm = sort_rows((slices @ points.T).contiguous(), wn[:1])
-    perm = perm.long()
-    onehot = F.one_hot(digits, 4).reshape(v, 4 * k).to(torch.float32)
+    with phase("fsw.refresh.sort"):
+        ps, _, perm = sort_rows((slices @ points.T).contiguous(), wn[:1])
+        perm = perm.long()
+        onehot = F.one_hot(digits, 4).reshape(v, 4 * k).to(torch.float32)
     s_out, g2_out = [], []
     for rows in _refresh_groups(n, group):
-        wsb = wn[rows][:, perm]  # (G, C, V) sorted weights
-        delta, gdelta = _delta_and_gdelta(wsb, freqs, (1, -1, 1))
-        g2_out.append(torch.sum(ps[None] * gdelta, dim=-1))
-        s_out.append(unsort(delta, perm) @ onehot)
+        with phase("fsw.refresh.gather"):
+            wsb = wn[rows][:, perm]  # (G, C, V) sorted weights
+        with phase("fsw.refresh.jvp"):
+            delta, gdelta = _delta_and_gdelta(wsb, freqs, (1, -1, 1))
+        with phase("fsw.refresh.reduce"):
+            g2_out.append(torch.sum(ps[None] * gdelta, dim=-1))
+            s_out.append(unsort(delta, perm) @ onehot)
     c = slices.shape[0]
     return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
 
@@ -379,24 +386,29 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
     delta and d delta / d xi, the unsort, and each item's own one-hot digit
     matrix. Zero-weight padding rows add nothing to S or g2. Only one
     group's buffers live at a time, each dropped once spent
-    (``train.fsw_lazy.refresh_transient_bytes`` counts the worst stage)."""
+    (``train.fsw_lazy.refresh_transient_bytes`` counts the worst stage).
+    Spans per group: ``fsw.refresh.sort``, ``.jvp`` and ``.reduce``."""
     n, npts, kp1 = x.shape
     k = kp1 - 1
     c = slices.shape[0]
     s_out, g2_out = [], []
     for rows in _refresh_groups(n, group):
-        km = x[rows, :, :k].long()
-        g = km.shape[0]
-        keys = torch.einsum("cd,gnd->gcn", slices, lookup_points(lookup, km)).reshape(g * c, npts)
-        ps, ws, perm = sort_rows(keys.contiguous(), _normalized(x[rows, :, -1]))
-        del keys
-        ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
-        delta, gdelta = _delta_and_gdelta(ws, freqs, (1, -1, 1))
+        with phase("fsw.refresh.sort"):
+            km = x[rows, :, :k].long()
+            g = km.shape[0]
+            keys = torch.einsum("cd,gnd->gcn", slices,
+                                lookup_points(lookup, km)).reshape(g * c, npts)
+            ps, ws, perm = sort_rows(keys.contiguous(), _normalized(x[rows, :, -1]))
+            del keys
+            ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
+        with phase("fsw.refresh.jvp"):
+            delta, gdelta = _delta_and_gdelta(ws, freqs, (1, -1, 1))
         del ws
-        g2_out.append(torch.sum(ps * gdelta, dim=-1))
-        del ps, gdelta
-        onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
-        s_out.append(torch.bmm(unsort(delta, perm), onehot))
+        with phase("fsw.refresh.reduce"):
+            g2_out.append(torch.sum(ps * gdelta, dim=-1))
+            del ps, gdelta
+            onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
+            s_out.append(torch.bmm(unsort(delta, perm), onehot))
     return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
 
 

@@ -70,6 +70,7 @@ from ..models.fsw import (
 )
 from ..parallel.mesh import DataMesh
 from ..utils.membudget import hbm_fraction
+from ..utils.phases import phase
 from .step import distance_steps
 
 # items per refresh group; halved until one group's transients fit
@@ -206,15 +207,18 @@ class LazyPlanes:
         self.s = self.g2 = None
 
     def refresh(self, model: FSWDistEmbed) -> None:
-        if self.shared:
-            digits = vocab_digits(model.k, self.feats.device)
-            with torch.no_grad():
-                points = lookup_points(model.lookup, digits)
-            self.s, self.g2 = fsw_lazy_refresh(model.slices, model.freqs, points, digits,
-                                               self.feats, self.group)
-        else:
-            self.s, self.g2 = fsw_lazy_refresh_pergenome(model.slices, model.freqs, model.lookup,
-                                                         self.feats, self.group)
+        """New planes on the model's current params; the span
+        ``fsw.refresh`` carries the run's step number that it precedes."""
+        with phase("fsw.refresh", str(self.step)):
+            if self.shared:
+                digits = vocab_digits(model.k, self.feats.device)
+                with torch.no_grad():
+                    points = lookup_points(model.lookup, digits)
+                self.s, self.g2 = fsw_lazy_refresh(model.slices, model.freqs, points, digits,
+                                                   self.feats, self.group)
+            else:
+                self.s, self.g2 = fsw_lazy_refresh_pergenome(model.slices, model.freqs,
+                                                             model.lookup, self.feats, self.group)
         self.refreshes += 1
 
     def tick(self, model: FSWDistEmbed) -> None:

@@ -63,6 +63,7 @@ from torch import nn
 from ..ops.losses import nll_sum, weighted_sqrt_mse
 from ..ops.pairwise import pairwise_l2_exact
 from ..parallel.mesh import DataMesh, all_reduce_, gather_rows
+from ..utils.phases import phase
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -122,11 +123,12 @@ def all_reduce_grads(model: nn.Module, mesh: DataMesh | None) -> None:
     over a process group."""
     if mesh is None or not mesh.distributed:
         return
-    params = list(model.parameters())
-    flat = data_sum_(torch.cat([
-        (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1) for p in params]), mesh)
-    for p, g in zip(params, flat.split([p.numel() for p in params])):
-        p.grad = g.view_as(p)
+    with phase("train.grad_sum"):
+        params = list(model.parameters())
+        flat = data_sum_(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                    .reshape(-1) for p in params]), mesh)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
 
 def gathered_embeddings(own: torch.Tensor, lo: int, n_rows: int,
@@ -145,13 +147,19 @@ def sharded_step(model: nn.Module, opt: torch.optim.Optimizer, loss_fn, has_rows
                  mesh: DataMesh | None) -> torch.Tensor:
     """One Adam step of the sharded plan: ``loss_fn()`` is the batch's loss,
     whose backward runs where the rank holds rows, then the gradients are
-    summed over the data group; returns the loss."""
-    opt.zero_grad(set_to_none=True)
-    loss = loss_fn()
+    summed over the data group; returns the loss. Spans: ``train.loss``,
+    ``train.backward``, and ``train.adam`` twice (the zero_grad before the
+    loss, the step after the gradients' sum)."""
+    with phase("train.adam"):
+        opt.zero_grad(set_to_none=True)
+    with phase("train.loss"):
+        loss = loss_fn()
     if has_rows:
-        loss.backward()
+        with phase("train.backward"):
+            loss.backward()
     all_reduce_grads(model, mesh)
-    opt.step()
+    with phase("train.adam"):
+        opt.step()
     return loss
 
 
@@ -168,19 +176,22 @@ def distance_steps(embed, model: nn.Module, opt: torch.optim.Optimizer, dist: to
     the embeddings of a batch's items; ``before_step()``, when given, runs
     before every batch step on every rank. ``mesh`` is the trainer's grid
     (None or a mesh of one: every row); returns the epoch loss as a device
-    scalar."""
+    scalar. A batch's span ``train.step`` leaves ``before_step()`` out, so
+    that a step and a refresh never overlap."""
     model.train()
     total = torch.zeros((), dtype=torch.float32, device=dist.device)
     for idx in torch.split(order, batch_size):
         if before_step is not None:
             before_step()
-        lo, hi = local_rows(idx.numel(), batch_size, mesh)
-        own = (embed(idx[lo:hi]) if hi > lo else
-               torch.zeros((0, model.fc2.out_features), device=dist.device))
-        loss = sharded_step(model, opt, lambda: _distance_batch_loss(
-            gathered_embeddings(own, lo, idx.numel(), mesh), dist, idx, weight_offset), hi > lo,
-            mesh)
-        total += loss.detach() * idx.numel()
+        with phase("train.step"):
+            lo, hi = local_rows(idx.numel(), batch_size, mesh)
+            with phase("train.forward"):
+                own = (embed(idx[lo:hi]) if hi > lo else
+                       torch.zeros((0, model.fc2.out_features), device=dist.device))
+            loss = sharded_step(model, opt, lambda: _distance_batch_loss(
+                gathered_embeddings(own, lo, idx.numel(), mesh), dist, idx, weight_offset),
+                hi > lo, mesh)
+            total += loss.detach() * idx.numel()
     return total / max(order.numel(), 1)
 
 
@@ -203,12 +214,15 @@ def classifier_epoch(model: nn.Module, opt: torch.optim.Optimizer, feats: torch.
     total = torch.zeros((), dtype=torch.float32, device=feats.device)
     correct = torch.zeros((), dtype=torch.int64, device=feats.device)
     for idx in torch.split(order, batch_size):
-        lo, hi = local_rows(idx.numel(), batch_size, mesh)
-        log_probs = model(feats.index_select(0, idx[lo:hi]))
-        y = labels.index_select(0, idx[lo:hi])
-        loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True, mesh)
-        total += loss.detach() * idx.numel()
-        correct += (log_probs.detach().argmax(dim=1) == y).sum()
+        with phase("train.step"):
+            lo, hi = local_rows(idx.numel(), batch_size, mesh)
+            with phase("train.forward"):
+                log_probs = model(feats.index_select(0, idx[lo:hi]))
+            y = labels.index_select(0, idx[lo:hi])
+            loss = sharded_step(model, opt, lambda: nll_sum(log_probs, y) / idx.numel(), True,
+                                mesh)
+            total += loss.detach() * idx.numel()
+            correct += (log_probs.detach().argmax(dim=1) == y).sum()
     sums = data_sum_(torch.stack([total.double(), correct.double()]), mesh)
     n = max(order.numel(), 1)
     return sums[0].float() / n, sums[1].to(torch.float32) / n
