@@ -138,7 +138,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
      budgets' counts, beside the counts copied from the JAX package; and
      (C6) the device memory of a shared-route lazy refresh at k=9 widths
      (V = 131,072, 512 slices, 16 items in the groups
-     ``pick_refresh_group`` picks) against ``shared_refresh_bytes``;
+     ``pick_refresh_group`` picks) against ``shared_refresh_bytes``, the
+     plain version's count and an upper bound where ``refresh_planes``'
+     kernel runs (the peak must not pass it), and against the kernel
+     route's own stages, with one ``refresh_planes`` launch;
    - zoo: every ``models/zoo.py`` model at kf2vec's default widths (input
      8,192 from phase 4's `.kf` rows, hidden 2,048, embedding 1,024, 12
      classes, batch 16): ``MLP`` of depth 2, 3 and 4, both classifiers,
@@ -164,7 +167,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
    took before, which the kernel must equal and not trail; the sort's
    backward, an unsort
    scatter,
-   at 512 and 8,192 rows of 8,192), with CUDA events; the stage wall times
+   at 512 and 8,192 rows of 8,192; ``refresh_planes`` at the lazy training
+   cell's 850 items x 512 slices x 8,192, against its plain version, beside
+   its operations bound and its 30 ms goal), with CUDA events; the stage
+   wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
    exports' seconds (str(np.float32) formatting apart) and its peak device
    memory; each FSW training route's seconds, steps per second (with and
@@ -231,6 +237,11 @@ from kf2vecfsw_tpu_torch.io import kf as kf_io
 from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases, read_sequences_raw
 from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
+from kf2vecfsw_tpu_torch.kernels.refresh import (
+    refresh_planes,
+    refresh_planes_reference,
+    scratch_bytes,
+)
 from kf2vecfsw_tpu_torch.kernels.histogram import kmer_hist, kmer_hist_reference, tile_windows
 from kf2vecfsw_tpu_torch.kernels.sort import (
     CLUSTER_ELEMS,
@@ -324,6 +335,18 @@ PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW que
 PHASE5_SORT_LONG = ((16 * FSW_OUT_DIM, 32896, 16), (FSW_OUT_DIM, 32896, 1),
                     (FSW_OUT_DIM, 131072, 1))
 LONG_SORT_GOAL_MS = 6.0  # the redesign's goal at 8,192 x 32,896
+REFRESH_SOURCE = "kf2vecfsw_tpu_torch/kernels/csrc/lazy_refresh.cu"
+REFRESH_REPLACES = ("no Pallas kernel: the shared lazy refresh's XLA ops at "
+                    "kf2vecfsw_tpu/models/fsw.py:337 (fsw_lazy_refresh)")
+# phase 5: the shared lazy refresh's planes at the training cell's shape:
+# items, slices (k = K_MAIN, V = V_MAIN)
+PHASE5_REFRESH = (850, FSW_OUT_DIM)
+# its bound: lane instructions a coefficient needs (two sincospif, about 30
+# f32 operations for delta and d delta / d xi, 4k = 28 segment adds) over
+# the card's issue rate, 132 SMs x 128 lanes x 1.98 GHz
+REFRESH_INSTR_PER_COEFF = 120
+H100_LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+REFRESH_GOAL_MS = 30.0  # the kernel's goal at PHASE5_REFRESH
 # the radix path's rows: one k = 10 genome's refresh sort (512 slices of a
 # padded point set) and a k = 10 query block after auto_slice_chunk (16
 # genomes x 64 slices of 524,800)
@@ -522,7 +545,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> float:
-    names = ["kmer_hist", "sort_rows"]
+    names = ["kmer_hist", "sort_rows", "lazy_refresh"]
     t0 = time.perf_counter()
     build.build_all(names)
     seconds = time.perf_counter() - t0
@@ -845,9 +868,11 @@ def counted(fn, *args):
     its result and the counts just after (``sort_rows_long``: the cluster
     path's launches among sort_rows')."""
     kmer_hist.launches = sort_rows.launches = sort_rows.long_launches = 0
+    refresh_planes.launches = 0
     out = fn(*args)
     return out, {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
-                 "sort_rows_long": sort_rows.long_launches}
+                 "sort_rows_long": sort_rows.long_launches,
+                 "refresh_planes": refresh_planes.launches}
 
 
 def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
@@ -1541,14 +1566,15 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     os.makedirs(out_dir)
     release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
-    kmer_hist.launches = sort_rows.launches = 0
+    kmer_hist.launches = sort_rows.launches = refresh_planes.launches = 0
     t0 = time.perf_counter()
     with TrainerClock() as clock:
         cli_main(["train_model_set", "-input_dir", feats, "-subtrees",
                   os.path.join(tree_dir, "tree.subtrees"), "-true_dist", tree_dir, "-o", out_dir,
                   "-e", str(FSW_EPOCHS), *flags])
     seconds = time.perf_counter() - t0
-    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches}
+    launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
+                "refresh_planes": refresh_planes.launches}
     peak = torch.cuda.max_memory_allocated()
     lines = route_lines(out_dir)
     check(lines == list(FSW_ROUTES[route]) * n_clades,
@@ -1567,6 +1593,9 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     }
     check(out["launches_outside_exports"] >= 1, f"{route}: sort_rows did not launch in training")
     check(("lazy" in route) == (out["refreshes"] > 0), f"{route}: {out['refreshes']} refreshes")
+    check(launches["refresh_planes"] == (out["refreshes"] if route == "lazy_shared" else 0),
+          f"{route}: refresh_planes launched {launches['refresh_planes']} times over "
+          f"{out['refreshes']} refreshes")
     check(peak >= 2 * FSW_MODEL_BYTES, f"{route}: peak device memory {peak} B")
     log(f"phase train_fsw {route}: {json.dumps(out)}")
     return out
@@ -1706,6 +1735,8 @@ def train_fsw_k8(feats: str, tree_dir: str, out_dir: str, dev: str, route: str,
     else:
         check(launches["sort_rows_long"] >= 1,
               f"k=8 {route}: the cluster path of sort_rows did not launch ({launches})")
+        check((launches["refresh_planes"] >= 1) == (route == "lazy_shared"),
+              f"k=8 {route}: refresh_planes launches ({launches})")
     return launches
 
 
@@ -1880,18 +1911,32 @@ def c6_reading() -> dict:
     with torch.no_grad():
         points = fsw_model.lookup_points(model.lookup, digits)
         w = torch.rand(C6_ITEMS, v, generator=gen, device="cuda")
+        refresh_planes.launches = 0
         peak = measured_peak(fsw_model.fsw_lazy_refresh, model.slices, model.freqs, points, digits,
                              w, group)
+    # the plain version's count, an upper bound where the kernel runs
     count = fsw_lazy.shared_refresh_bytes(FSW_OUT_DIM, v, group, C6_ITEMS)
+    # the kernel route's stages: the sort (weights, keys, its outputs), then
+    # the weights, the sort's outputs, the kernel's records and the planes
+    cv = 4 * FSW_OUT_DIM * v
+    kernel_count = max(
+        4 * C6_ITEMS * v + cv + sort_transient_bytes(FSW_OUT_DIM, v, 1),
+        4 * C6_ITEMS * v + 3 * cv + scratch_bytes(FSW_OUT_DIM, v)
+        + 4 * C6_ITEMS * FSW_OUT_DIM * (4 * K9 + 1))
     old = 4 * (3 * group + 4) * FSW_OUT_DIM * v  # the JAX package's formula
     out = {"vocab": v, "items": C6_ITEMS, "group": group, "measured": peak, "estimate": count,
-           "old_estimate": old, "measured_over_estimate": peak / count,
-           "measured_over_old": peak / old}
+           "kernel_estimate": kernel_count, "old_estimate": old,
+           "measured_over_estimate": peak / count,
+           "measured_over_kernel_estimate": peak / kernel_count,
+           "measured_over_old": peak / old, "launches": refresh_planes.launches}
     del model, points, w
     torch.cuda.empty_cache()
     log(f"phase fsw_k10: C6, a shared refresh at k=9 against its count (bytes) {json.dumps(out)}")
-    check(peak <= count + C5_ALLOC_SLACK, f"k=9 shared refresh: measured {peak} B over its count "
-          f"{count} B")
+    check(out["launches"] == 1, f"k=9 shared refresh: refresh_planes launched {out['launches']} "
+          "times")
+    check(peak <= count, f"k=9 shared refresh: measured {peak} B over its count {count} B")
+    check(peak <= kernel_count + C5_ALLOC_SLACK, f"k=9 shared refresh: measured {peak} B over "
+          f"the kernel route's count {kernel_count} B")
     return out
 
 
@@ -2384,12 +2429,13 @@ def run_in_process(trainers: list[RankedTrainer], root: str) -> dict[str, dict]:
     out = {}
     for t in trainers:
         os.makedirs(os.path.join(root, t.name))
-        kmer_hist.launches = sort_rows.launches = 0
+        kmer_hist.launches = sort_rows.launches = refresh_planes.launches = 0
         all_reduce_.bytes = all_reduce_.calls = 0
         with TrainerClock() as clock:
             cli_main(t.argv(os.path.join(root, t.name)))
         out[t.name] = {"steps_per_s": clock.steps_per_s(t.kind, RANKS_EPOCHS),
-                       "launches": {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches},
+                       "launches": {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
+                                    "refresh_planes": refresh_planes.launches},
                        "all_reduce_bytes_per_step": all_reduce_.bytes / t.steps,
                        "all_reduce_calls": all_reduce_.calls}
     return out
@@ -2578,7 +2624,7 @@ def rank_steps(report_path: str, steps: list[list[str]]) -> None:
     (by group), launches and sort rows on this rank."""
     report = []
     for argv in steps:
-        kmer_hist.launches = sort_rows.launches = 0
+        kmer_hist.launches = sort_rows.launches = refresh_planes.launches = 0
         all_reduce_.bytes = all_reduce_.calls = 0
         all_reduce_.bytes_by.clear()
         t0 = time.perf_counter()
@@ -2597,7 +2643,8 @@ def rank_steps(report_path: str, steps: list[list[str]]) -> None:
                        "all_reduce_calls": all_reduce_.calls, "all_reduce_bytes": all_reduce_.bytes,
                        "all_reduce_bytes_by": dict(all_reduce_.bytes_by),
                        "launches": {"kmer_hist": kmer_hist.launches,
-                                    "sort_rows": sort_rows.launches},
+                                    "sort_rows": sort_rows.launches,
+                                    "refresh_planes": refresh_planes.launches},
                        "sort_rows_rows": {str(r): n for r, n in sorted(sorts.rows.items())}})
     rank = dist.get_rank()
     with open(report_path.format(rank=rank), "w") as f:
@@ -2718,6 +2765,7 @@ def phase_model_axis(work: str, ranked: list[RankedTrainer]) -> dict:
                 for group in ("data", "model", "world")},
             "sort_rows_launches": [step["launches"]["sort_rows"] for step in steps],
             "kmer_hist_launches": [step["launches"]["kmer_hist"] for step in steps],
+            "refresh_planes_launches": [step["launches"]["refresh_planes"] for step in steps],
             "sort_rows_rows": [step["sort_rows_rows"] for step in steps],
             "seconds": steps[0]["seconds"]}
     out["vs_no_group"] = compare_ranked(trainers, os.path.join(work, "ranks", "plain"), rank0)
@@ -2933,6 +2981,36 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     return out
 
 
+def phase_refresh_timings(dev) -> dict:
+    """The shared lazy refresh's planes at PHASE5_REFRESH: the kernel against
+    its plain version on the card (each item's planes within twice the
+    planes' float32 tolerance, 1e-5 + 1e-7 C relative, of the plain
+    version's), its time beside its bound and the plain version's."""
+    n, c = PHASE5_REFRESH
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    digits = fsw_model.vocab_digits(K_MAIN, dev)
+    w = torch.rand(n, V_MAIN, generator=gen, device=dev)
+    w[w < 0.2] = 0.0  # absent k-mers
+    wn = fsw_model._normalized(w)
+    ps, _, perm = sort_rows(torch.randn(c, V_MAIN, generator=gen, device=dev), wn[:1])
+    args = (ps, perm, wn, torch.arange(c, dtype=torch.float32, device=dev), digits)
+    got = refresh_planes(*args)
+    want = refresh_planes_reference(*args, 8)
+    err = max((torch.linalg.vector_norm(a[i] - b[i]) / torch.linalg.vector_norm(b[i])).item()
+              for a, b in zip(got, want) for i in range(n))
+    check(err <= 2 * (1e-5 + 1e-7 * c), f"refresh_planes at {(n, c, V_MAIN)}: relative error "
+          f"{err} against the plain version")
+    del got, want
+    ms = cuda_ms(lambda: refresh_planes(*args), reps=20)
+    plain_ms = cuda_ms(lambda: refresh_planes_reference(*args, 8), reps=2, warmup=1)
+    bound_ms = 1e3 * n * c * V_MAIN * REFRESH_INSTR_PER_COEFF / H100_LANE_INSTR_PER_S
+    out = {"shape": [n, c, V_MAIN], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "operations", "max_rel_err_vs_plain": err, "goal_ms": REFRESH_GOAL_MS,
+           "goal_met": ms <= REFRESH_GOAL_MS}
+    log(f"phase timings: refresh_planes {json.dumps(out)}")
+    return out
+
+
 def phase_unsort_timings(dev) -> list[dict]:
     """The sort's backward at FSW training shapes: ``unsort`` (one library
     scatter_ by ``perm``) of a cotangent, bound by reading it and perm and
@@ -2990,6 +3068,7 @@ def main() -> int:
     merge_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 10)
                      for shape in PHASE5_SORT_MERGE]
     unsort_timing = phase_unsort_timings(dev)
+    refresh_timing = phase_refresh_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
         res = serve[tag]
@@ -3068,6 +3147,16 @@ def main() -> int:
                       "fsw_k10_exact": fsw_k10["exact"]["launches"]["sort_rows"],
                       "fsw_k10_query": fsw_k10["query"]["cuda"]["sort_rows"]}
     by_path["sort_rows"].update(merge_launches)
+    refresh_by_path = {
+        "train_fsw": sum(run["launches"]["refresh_planes"] for run in fsw["routes"].values()),
+        "fsw_k8_lazy_shared": fsw_k8["launches"]["lazy_shared"]["refresh_planes"],
+        "train_ddp": sum(run["launches"]["refresh_planes"]
+                         for run in ranks["world_size_1"].values()),
+        "train_ddp_two_ranks_rank0": sum(run["launches"]["refresh_planes"]
+                                         for run in ranks["two_ranks_gloo"].values()),
+        "train_model_axis": sum(sum(run["refresh_planes_launches"])
+                                for run in model_axis["trainers"].values()),
+        "fsw_k10_c6": fsw_k10["memory"]["shared_refresh_k9"]["launches"]}
     goal = long_timings[0]
     report = {"kernels": [{
         "name": "kmer_hist", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -3111,6 +3200,11 @@ def main() -> int:
             "launches_outside_exports", "export_launches", "refreshes")}
             for route, run in fsw["routes"].items()},
         "unsort": unsort_timing,
+    }, {
+        "name": "lazy_refresh", "route": "cuda", "source": REFRESH_SOURCE,
+        "replaces": REFRESH_REPLACES, "tpu_kernels": [],
+        "launches": refresh_by_path["train_fsw"], "launches_by_path": refresh_by_path,
+        **refresh_timing,
     }]}
     print(json.dumps(report))
     print(smi)

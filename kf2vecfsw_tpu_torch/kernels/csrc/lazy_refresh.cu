@@ -1,0 +1,390 @@
+// The shared lazy refresh's planes, for Hopper (sm_90a).
+//
+// Replaces no Pallas kernel. The JAX package computes the shared-vocab lazy
+// refresh with XLA ops (kf2vecfsw_tpu/models/fsw.py:337, fsw_lazy_refresh),
+// and the port ran it as plain torch (kernels/refresh.py,
+// refresh_planes_reference): per group of G items a gather of the sorted
+// weights (G, C, V), a jvp of the cos/sinc coefficients in about 50
+// elementwise passes, a row sum, an unsort and a product with the one-hot
+// digit matrix, each pass a round trip of (G, C, V) f32 through device
+// memory. On an H100 that took 0.51 s a refresh at 850 items, 512 slices and
+// V = 8,192, most of a lazy training window, and held 2.1 GB. This kernel
+// computes the same planes in one walk that keeps every per-position value
+// in registers and writes only the planes.
+//
+// Function: for item i < n, slice c < C and the sorted order p = 0..V-1 of
+// slice c (perm, the stable sort of the shared projections; ps the sorted
+// projections), with w_p = wn[i, perm[c, p]] and xi = freqs[c]:
+//   cbar_p  = sum_{q <= p} w_q - w_p / 2,   u = xi w_p / 2,
+//   delta_p = sqrt2 w_p cos(pi xi cbar_p) sinc(u),
+//   ddelta_p = d delta_p / d xi
+//           = sqrt2 w_p [-pi cbar_p sin(pi xi cbar_p) sinc(u)
+//                        + cos(pi xi cbar_p) sinc'(u) w_p / 2],
+//   g2[i, c]      = sum_p ps[c, p] ddelta_p,
+//   S[i, c, j, a] = sum_p delta_p [digit j of vocab entry perm[c, p] == a],
+// with sinc the normalised sinc and sinc'(u) = (cos(pi u) - sinc(u)) / u, both
+// from their series for |u| < kSmallU. S is (n, C, k, 4) and g2 (n, C), f32.
+//
+// Bound on an H100 SXM: operations, not bytes. A refresh evaluates n C V
+// coefficients (3.57e9 at the training cell's 850 x 512 x 8,192), each a
+// sincospif of the phase, the sinc and its slope, a dozen products and
+// 3k + 1 fused multiply-adds into the segment sums, and the compensated
+// prefix: about 85 instructions, 3.0e11 lane instructions against the
+// card's 3.3e13 a second (132 SMs x 128 lanes x 1.98 GHz), about 9 ms (a
+// count of 120 a coefficient gives 12.8 ms; the kernel takes 17.3 ms on an
+// H100 SXM at 700 W). The bytes are small beside that: the weights (n V
+// f32) are read once per slice tile and the sorted records (12 B a
+// position of C V) once per item group, both mostly from L2.
+//
+// Design:
+// - A records pass writes, for each slice, the sorted column, projection
+//   and packed digits (2 bits a base, k <= 9) in the order in which the main
+//   kernel's lanes read them, so every read of the walk is coalesced and the
+//   digits are gathered once a slice rather than once an item.
+// - A block carries kItems = 4 items. Where their weight rows fit in shared
+//   memory (16 B a vocab entry, V <= 14,527 on an H100: k <= 7), it stages
+//   them interleaved, one float4 an entry, so a position's four weights are
+//   one 128-bit shared load; past that it gathers them from device memory.
+// - A warp walks one slice at a time. Lane l takes positions
+//   [l R, (l + 1) R), R = ceil(V / 32). A first walk sums the lane's weights
+//   (unrolled, so its loads are in flight together), a warp scan turns the
+//   sums into each lane's starting prefix, both in double, and the second
+//   walk computes the coefficients with the prefix carried in two registers
+//   and compensated (Kahan): summed serially in float, a lane's R weights
+//   would round the prefix by up to R/2 ulps where torch's scan rounds it by
+//   a few, and the phase multiplies that by up to 511 pi. A position's digit
+//   masks serve the four items. Each item keeps 3k + 1 segment sums (the
+//   total and the sums over the positions whose digit has bit 0, bit 1,
+//   both) and g2 in registers, reduced across the warp once per (item,
+//   slice); no (item, slice, position) value reaches memory.
+// - One launch of each kernel covers every item and slice. The main grid
+//   runs over item groups (fastest) and slice tiles, so the blocks that run
+//   together read one tile's records from L2.
+// Numerics: float32 throughout, but for the compensated prefix, and no
+// fast-math intrinsics (the phase reaches 511 pi); sincospif folds pi in and
+// reduces the range exactly. The
+// prefix sums and the segment sums run in another order than the plain
+// version's, so the two agree to float32 rounding, not bit for bit.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kItems = 4;  // items of a block: one float4 of weights a position
+constexpr int kWarps = 12;  // 3 a scheduler: 8 or 16 warps ran 14-15% slower on an H100
+constexpr int kLanes = 32;
+constexpr int kThreads = kWarps * kLanes;
+constexpr int kRecordThreads = 256;
+constexpr int kMaxK = 9;  // 2 bits a base in a 32-bit code; the shared route's k <= 9
+constexpr int64_t kMaxVocab = int64_t(1) << 18;  // models/fsw.py FSW_SHARED_VOCAB_MAX
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kSqrt2 = 1.41421356237309504880f;
+// Below it sinc and sinc' come from their series (through (pi u)^8: the next
+// terms are under 3e-9 relative at pi u = pi / 4); above it from sincospif,
+// where cos(pi u) - sinc(u) loses under 1e-6 of its value to cancellation.
+constexpr float kSmallU = 0.25f;
+
+__device__ __forceinline__ void sinc_and_slope(float u, float& s, float& ds) {
+  const float pu = kPi * u;
+  if (fabsf(u) < kSmallU) {
+    const float z = pu * pu;
+    s = 1.f - z * (1.f / 6.f) *
+                  (1.f - z * (1.f / 20.f) * (1.f - z * (1.f / 42.f) * (1.f - z * (1.f / 72.f))));
+    ds = -(kPi * pu * (1.f / 3.f)) *
+         (1.f - z * (1.f / 10.f - z * (1.f / 280.f - z * (1.f / 15120.f - z * (1.f / 1330560.f)))));
+  } else {
+    float sn, cs;
+    sincospif(u, &sn, &cs);
+    const float inv = 1.f / pu;
+    s = sn * inv;
+    ds = (cs - s) * (kPi * inv);
+  }
+}
+
+// Records of slice c in lane order: entry q = r * 32 + l holds position
+// p = l R + r of the sorted row (column, projection, digits of the column's
+// vocab entry); positions p >= V hold column V, projection 0 and digits 0,
+// and read a zero weight.
+__global__ void __launch_bounds__(kRecordThreads)
+records_kernel(const int32_t* __restrict__ perm, const float* __restrict__ ps,
+               const int64_t* __restrict__ digits, int32_t* __restrict__ rec_col,
+               float* __restrict__ rec_ps, int32_t* __restrict__ rec_code, int64_t c_total,
+               int64_t v, int64_t r_len, int k) {
+  const int64_t vp = kLanes * r_len;
+  const int64_t t = int64_t(blockIdx.x) * kRecordThreads + threadIdx.x;
+  if (t >= c_total * vp) return;
+  const int64_t c = t / vp, q = t - c * vp;
+  const int64_t p = (q % kLanes) * r_len + q / kLanes;
+  int32_t col = static_cast<int32_t>(v), code = 0;
+  float x = 0.f;
+  if (p < v) {
+    col = perm[c * v + p];
+    x = ps[c * v + p];
+    const int64_t* d = digits + int64_t(col) * k;
+    for (int j = 0; j < k; ++j) code |= static_cast<int32_t>(d[j] & 3) << (2 * j);
+  }
+  rec_col[t] = col;
+  rec_ps[t] = x;
+  rec_code[t] = code;
+}
+
+template <bool kStaged>
+__device__ __forceinline__ float4 item_weights(const float4* w_smem, const float* __restrict__ wn,
+                                               int64_t i0, int64_t n, int64_t v, int32_t col) {
+  if (kStaged) return w_smem[col];
+  float e[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    e[it] = (col < v && i0 + it < n) ? __ldg(wn + (i0 + it) * v + col) : 0.f;
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+template <int K, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 1)
+planes_kernel(const float* __restrict__ wn, const int32_t* __restrict__ rec_col,
+              const float* __restrict__ rec_ps, const int32_t* __restrict__ rec_code,
+              const float* __restrict__ freqs, float* __restrict__ s_out,
+              float* __restrict__ g2_out, int64_t n, int64_t c_total, int64_t v, int r_len,
+              int64_t slices_per_block) {
+  constexpr int kSums = 3 * K + 1;  // the total, then per base j: bit 0, bit 1, both
+  extern __shared__ float4 w_smem[];  // kStaged: V + 1 entries, the last one zero
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int64_t i0 = int64_t(blockIdx.x) * kItems;
+  if (kStaged) {
+    for (int64_t col = threadIdx.x; col <= v; col += kThreads) {
+      float e[kItems];
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        e[it] = (col < v && i0 + it < n) ? wn[(i0 + it) * v + col] : 0.f;
+      }
+      w_smem[col] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    __syncthreads();
+  }
+  const int64_t vp = int64_t(kLanes) * r_len;
+  const int64_t c_begin = int64_t(blockIdx.y) * slices_per_block;
+  const int64_t c_end = c_begin + slices_per_block < c_total ? c_begin + slices_per_block : c_total;
+  for (int64_t c = c_begin + warp; c < c_end; c += kWarps) {
+    const float xi = freqs[c], half_xi = 0.5f * xi;
+    const int32_t* cols = rec_col + c * vp + lane;
+    const float* pss = rec_ps + c * vp + lane;
+    const int32_t* codes = rec_code + c * vp + lane;
+
+    // first walk: the lane's sums and each lane's starting prefix, in
+    // double; the prefix enters the second walk as hi + lo
+    double run[kItems] = {};
+#pragma unroll 16
+    for (int r = 0; r < r_len; ++r) {
+      const float4 w = item_weights<kStaged>(w_smem, wn, i0, n, v, cols[r * kLanes]);
+      run[0] += w.x;
+      run[1] += w.y;
+      run[2] += w.z;
+      run[3] += w.w;
+    }
+    float hi[kItems], lo[kItems];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      double incl = run[it];
+#pragma unroll
+      for (int d = 1; d < kLanes; d *= 2) {
+        const double up = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const double before = __shfl_up_sync(0xffffffffu, incl, 1);
+      const double start = lane == 0 ? 0.0 : before;
+      hi[it] = static_cast<float>(start);
+      lo[it] = static_cast<float>(start - static_cast<double>(hi[it]));
+    }
+
+    // second walk: the coefficients, g2 and the segment sums
+    float sums[kItems][kSums] = {};
+    float g2[kItems] = {};
+    int32_t col = cols[0], code = codes[0];
+    float proj = pss[0];
+#pragma unroll 1
+    for (int r = 0; r < r_len; ++r) {
+      const int next = r + 1 < r_len ? r + 1 : r;
+      const int32_t col_next = cols[next * kLanes], code_next = codes[next * kLanes];
+      const float proj_next = pss[next * kLanes];
+      const float4 w4 = item_weights<kStaged>(w_smem, wn, i0, n, v, col);
+      const float ws[kItems] = {w4.x, w4.y, w4.z, w4.w};
+      float mask[3 * K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int d = (code >> (2 * j)) & 3;
+        mask[3 * j] = (d & 1) ? 1.f : 0.f;
+        mask[3 * j + 1] = (d & 2) ? 1.f : 0.f;
+        mask[3 * j + 2] = d == 3 ? 1.f : 0.f;
+      }
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        const float w = ws[it];
+        // the prefix hi + lo, compensated (Kahan): a lane adds R weights in
+        // a row, whose rounding the phase would multiply by up to 511 pi
+        const float y = w + lo[it], t = hi[it] + y;
+        lo[it] = y - (t - hi[it]);
+        hi[it] = t;
+        const float cbar = fmaf(-0.5f, w, hi[it]) + lo[it];
+        float sa, ca;
+        sincospif(xi * cbar, &sa, &ca);
+        float sn, dsn;
+        sinc_and_slope(half_xi * w, sn, dsn);
+        const float sw = kSqrt2 * w;
+        const float delta = sw * ca * sn;
+        const float ddelta = sw * fmaf(-kPi * cbar * sa, sn, ca * dsn * (0.5f * w));
+        g2[it] = fmaf(proj, ddelta, g2[it]);
+        sums[it][0] += delta;
+#pragma unroll
+        for (int m = 0; m < 3 * K; ++m) sums[it][m + 1] = fmaf(delta, mask[m], sums[it][m + 1]);
+      }
+      col = col_next;
+      code = code_next;
+      proj = proj_next;
+    }
+
+    // the warp's sums, then lane `it` writes item it's planes
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+#pragma unroll
+      for (int d = kLanes / 2; d > 0; d /= 2) {
+        g2[it] += __shfl_xor_sync(0xffffffffu, g2[it], d);
+#pragma unroll
+        for (int m = 0; m < kSums; ++m) sums[it][m] += __shfl_xor_sync(0xffffffffu, sums[it][m], d);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      if (lane != it || i0 + it >= n) continue;
+      float4* s = reinterpret_cast<float4*>(s_out + ((i0 + it) * c_total + c) * (4 * K));
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float total = sums[it][0], b0 = sums[it][3 * j + 1], b1 = sums[it][3 * j + 2],
+                    both = sums[it][3 * j + 3];
+        s[j] = make_float4((total - b0) - (b1 - both), b0 - both, b1 - both, both);
+      }
+      g2_out[(i0 + it) * c_total + c] = g2[it];
+    }
+  }
+}
+
+int device_attribute(cudaDeviceAttr attr, int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out, attr, dev);
+  return static_cast<int>(err);
+}
+
+int64_t record_len(int64_t v) { return kLanes * ((v + kLanes - 1) / kLanes); }
+
+template <int K>
+cudaError_t launch_planes(bool staged, dim3 grid, cudaStream_t s, const float* wn,
+                          const int32_t* rec_col, const float* rec_ps, const int32_t* rec_code,
+                          const float* freqs, float* s_out, float* g2_out, int64_t n,
+                          int64_t c_total, int64_t v, int r_len, int64_t slices_per_block) {
+  if (staged) {
+    const int smem = static_cast<int>((v + 1) * sizeof(float4));
+    cudaError_t err = cudaFuncSetAttribute(planes_kernel<K, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    planes_kernel<K, true><<<grid, kThreads, smem, s>>>(wn, rec_col, rec_ps, rec_code, freqs, s_out,
+                                                        g2_out, n, c_total, v, r_len,
+                                                        slices_per_block);
+  } else {
+    planes_kernel<K, false><<<grid, kThreads, 0, s>>>(wn, rec_col, rec_ps, rec_code, freqs, s_out,
+                                                      g2_out, n, c_total, v, r_len,
+                                                      slices_per_block);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lazy_refresh_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The largest V whose weight rows a block stages in shared memory on the
+// current card (16 B an entry and one zero entry); -1 if the card cannot be
+// queried.
+int64_t lazy_refresh_staged_vocab_max() {
+  int smem = 0;
+  if (device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &smem) != 0) return -1;
+  return int64_t(smem) / int64_t(sizeof(float4)) - 1;
+}
+
+// Launches the records pass and the planes kernel on `stream` without
+// synchronising; returns the first error of a device query,
+// cudaFuncSetAttribute or a launch, 0 on success.
+// wn: f32 (n, V) normalised weight rows; ps: f32 (C, V) sorted projections;
+// perm: int32 (C, V), a permutation of [0, V) in every row; digits: int64
+// (V, k) bases in 0..3; freqs: f32 (C,); records: int32 (3, C, rec_len)
+// scratch, rec_len = V rounded up to a multiple of 32; s_out: f32
+// (n, C, k, 4); g2_out: f32 (n, C). Every row is contiguous.
+int lazy_refresh_launch(const void* wn, const void* ps, const void* perm, const void* digits,
+                        const void* freqs, void* records, void* s_out, void* g2_out, int64_t n,
+                        int64_t c_total, int64_t v, int k, int64_t rec_len, void* stream) {
+  if (n < 1 || c_total < 1 || v < 1 || v > kMaxVocab || k < 1 || k > kMaxK ||
+      rec_len != record_len(v)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int sms = 0, smem_max = 0;
+  int err = device_attribute(cudaDevAttrMultiProcessorCount, &sms);
+  if (err == 0) err = device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &smem_max);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* rec_col = static_cast<int32_t*>(records);
+  float* rec_ps = reinterpret_cast<float*>(rec_col + c_total * rec_len);
+  int32_t* rec_code = rec_col + 2 * c_total * rec_len;
+  const int64_t r_len = rec_len / kLanes;
+
+  const int64_t entries = c_total * rec_len;
+  records_kernel<<<static_cast<unsigned>((entries + kRecordThreads - 1) / kRecordThreads),
+                   kRecordThreads, 0, s>>>(
+      static_cast<const int32_t*>(perm), static_cast<const float*>(ps),
+      static_cast<const int64_t*>(digits), rec_col, rec_ps, rec_code, c_total, v, r_len, k);
+  cudaError_t launch = cudaGetLastError();
+  if (launch != cudaSuccess) return static_cast<int>(launch);
+
+  // slices a block: 4 a warp where that leaves at least 4 blocks an SM,
+  // fewer for small problems so that every SM gets work
+  const int64_t groups = (n + kItems - 1) / kItems;
+  int64_t per_warp = 4;
+  while (per_warp > 1 && groups * ((c_total + kWarps * per_warp - 1) / (kWarps * per_warp)) <
+                             4 * int64_t(sms)) {
+    per_warp /= 2;
+  }
+  const int64_t slices_per_block = kWarps * per_warp;
+  const int64_t tiles = (c_total + slices_per_block - 1) / slices_per_block;
+  if (groups > 0x7fffffff || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(tiles));
+  const bool staged = (v + 1) * int64_t(sizeof(float4)) <= smem_max;
+  const float* w = static_cast<const float*>(wn);
+  const float* f = static_cast<const float*>(freqs);
+  float* so = static_cast<float*>(s_out);
+  float* go = static_cast<float*>(g2_out);
+  const int r = static_cast<int>(r_len);
+  switch (k) {
+#define LAZY_REFRESH_CASE(K)                                                                   \
+  case K:                                                                                      \
+    launch = launch_planes<K>(staged, grid, s, w, rec_col, rec_ps, rec_code, f, so, go, n,      \
+                              c_total, v, r, slices_per_block);                                \
+    break;
+    LAZY_REFRESH_CASE(1)
+    LAZY_REFRESH_CASE(2)
+    LAZY_REFRESH_CASE(3)
+    LAZY_REFRESH_CASE(4)
+    LAZY_REFRESH_CASE(5)
+    LAZY_REFRESH_CASE(6)
+    LAZY_REFRESH_CASE(7)
+    LAZY_REFRESH_CASE(8)
+    LAZY_REFRESH_CASE(9)
+#undef LAZY_REFRESH_CASE
+  }
+  return static_cast<int>(launch);
+}
+
+}  // extern "C"

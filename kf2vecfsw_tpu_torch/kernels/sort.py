@@ -78,6 +78,11 @@ def _check(keys: torch.Tensor, payload: torch.Tensor) -> None:
         raise ValueError(f"payload {tuple(payload.shape)} must be (P, {n}) with {r} % P == 0")
 
 
+def unsort(d: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """The transpose of a row permutation: out[..., perm[..., j]] = d[..., j]."""
+    return torch.empty_like(d).scatter_(-1, perm.long().expand(d.shape), d)
+
+
 def sort_rows_reference(keys: torch.Tensor, payload: torch.Tensor):
     """Plain-ops version: a stable ``torch.sort`` of the ``f2i_keys``
     integers, then a gather of each row's payload row. Returns (sorted keys

@@ -37,7 +37,13 @@ Three forwards train the model:
   is a: an (n, C, k, 4) plane, whatever the vocab. The frequencies train
   through (xi - xi.detach()) * g2, zero in value, where g2 = dE/dxi at the
   refresh. At a fresh order the value and every gradient equal the exact
-  forward's.
+  forward's. On the shared route one hand-written CUDA kernel computes the
+  planes from the refresh's sort (``kernels.refresh.refresh_planes``,
+  ``csrc/lazy_refresh.cu``, under the span ``fsw.refresh.planes``): the
+  sorted-weight gather, the cos/sinc coefficients, their xi-derivative, g2
+  and the segment sums in one walk, with no (items, C, V) buffer; on the CPU
+  its plain version takes the jvp of the exact forward's coefficients per
+  group of items. The per-genome refresh keeps torch ops on the card too.
 
 On a grid with a model axis (``parallel.mesh.shard_module``) each rank
 holds d_out / n_model of the slices and frequencies and the matching input
@@ -55,7 +61,6 @@ its replicated copies drift apart.)
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
@@ -63,11 +68,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.refresh import (
+    delta_and_gdelta,
+    quantile_coefficients,
+    refresh_groups,
+    refresh_planes,
+)
 from ..kernels.sort import (  # noqa: F401  (f2i_keys, i2f_keys: the JAX module's names)
     f2i_keys,
     i2f_keys,
     sort_rows,
     sort_transient_bytes,
+    unsort,
 )
 from ..kmer.vocab import (
     FSW_BASE_MAP,
@@ -80,17 +92,10 @@ from ..utils.membudget import hbm_fraction
 from ..utils.phases import phase
 from .mlp import enter_model_axis, init_params_, row_parallel
 
-_SQRT2 = math.sqrt(2.0)
-
 # shared-vocab gate: V beyond this would blow the sort transients; a batch
 # beyond this is not the reference's (its FSW batch is 16)
 FSW_SHARED_VOCAB_MAX = 1 << 18
 FSW_SHARED_BATCH_MAX = 64
-
-
-def unsort(d: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """The transpose of a row permutation: out[..., perm[..., j]] = d[..., j]."""
-    return torch.empty_like(d).scatter_(-1, perm.long().expand(d.shape), d)
 
 
 class SortPW(torch.autograd.Function):
@@ -132,18 +137,6 @@ class SortShared(torch.autograd.Function):
     def backward(ctx, d_ps, _d_wsb):
         (perm,) = ctx.saved_tensors
         return unsort(d_ps, perm), None
-
-
-def quantile_coefficients(ws: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-    """delta = sqrt(2) w cos(pi xi cbar) sinc(xi w / 2) of sorted weights ws
-    (..., N), xi broadcast against them; E = sum(ps * delta, -1). Evaluated
-    so that at most three buffers of ws's size live beside ws at a time
-    (cbar is dropped before the sinc; ws (xi / 2) equals (xi ws) / 2 bit for
-    bit), which keeps the sliced forward's peak at its sort."""
-    cos = torch.cos(math.pi * xi * (torch.cumsum(ws, dim=-1) - ws / 2.0))
-    head = _SQRT2 * ws * cos
-    del cos
-    return head * torch.sinc(ws * (xi / 2.0))
 
 
 def _normalized(weights: torch.Tensor) -> torch.Tensor:
@@ -330,16 +323,6 @@ class FSWDistEmbed(nn.Module):
         return self.fc2(F.relu(row_parallel(self.fc1, e, self.model_axis)))
 
 
-def _delta_and_gdelta(ws: torch.Tensor, freqs: torch.Tensor, xi_shape):
-    """delta = quantile_coefficients(ws, xi) and d delta / d xi, by jvp."""
-    return torch.func.jvp(lambda xi: quantile_coefficients(ws, xi.view(xi_shape)),
-                          (freqs.detach(),), (torch.ones_like(freqs),))
-
-
-def _refresh_groups(n: int, group: int):
-    return (slice(g0, min(g0 + max(group, 1), n)) for g0 in range(0, n, max(group, 1)))
-
-
 @torch.no_grad()
 def fsw_lazy_refresh(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
                      digits: torch.Tensor, w: torch.Tensor, group: int = 8):
@@ -350,30 +333,21 @@ def fsw_lazy_refresh(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Te
     w: (n, V) nonnegative weights (all-zero rows give S = 0).
     S[i,c,j,a] sums delta over the vocab entries whose j-th base is a;
     g2[i,c] = sum_v ps[c,v] d delta[i,c,v] / d xi_c, contracted in sorted
-    order. One ``sort_rows`` of the shared (C, V) projections serves every
-    item; per group of ``group`` items the sorted weights are gathered by its
-    ``perm``, delta and d delta / d xi computed, delta unsorted and
-    segment-summed by one matmul with the (V, 4k) one-hot digit matrix.
-    Spans: ``fsw.refresh.sort`` once, ``.gather``, ``.jvp`` and ``.reduce``
-    per group."""
-    n, v = w.shape
-    k = digits.shape[1]
+    order. One ``sort_rows`` of the shared (C, V) projections (span
+    ``fsw.refresh.sort``) serves every item; ``kernels.refresh.
+    refresh_planes`` computes the planes from its order: on the card one
+    launch of ``csrc/lazy_refresh.cu`` over every item (span
+    ``fsw.refresh.planes``), on the CPU the plain version, per group of
+    ``group`` items the sorted weights gathered by ``perm``, delta and
+    d delta / d xi computed, delta unsorted and segment-summed by one
+    matmul with the (V, 4k) one-hot digit matrix (spans ``.gather``,
+    ``.jvp`` and ``.reduce``)."""
     wn = _normalized(w)
     with phase("fsw.refresh.sort"):
         ps, _, perm = sort_rows((slices @ points.T).contiguous(), wn[:1])
-        perm = perm.long()
-        onehot = F.one_hot(digits, 4).reshape(v, 4 * k).to(torch.float32)
-    s_out, g2_out = [], []
-    for rows in _refresh_groups(n, group):
-        with phase("fsw.refresh.gather"):
-            wsb = wn[rows][:, perm]  # (G, C, V) sorted weights
-        with phase("fsw.refresh.jvp"):
-            delta, gdelta = _delta_and_gdelta(wsb, freqs, (1, -1, 1))
-        with phase("fsw.refresh.reduce"):
-            g2_out.append(torch.sum(ps[None] * gdelta, dim=-1))
-            s_out.append(unsort(delta, perm) @ onehot)
-    c = slices.shape[0]
-    return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
+        if not perm.is_cuda:
+            perm = perm.long()  # the plain version's index; its int32 dies here
+    return refresh_planes(ps, perm, wn, freqs, digits, group)
 
 
 @torch.no_grad()
@@ -392,7 +366,7 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
     k = kp1 - 1
     c = slices.shape[0]
     s_out, g2_out = [], []
-    for rows in _refresh_groups(n, group):
+    for rows in refresh_groups(n, group):
         with phase("fsw.refresh.sort"):
             km = x[rows, :, :k].long()
             g = km.shape[0]
@@ -402,7 +376,7 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
             del keys
             ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
         with phase("fsw.refresh.jvp"):
-            delta, gdelta = _delta_and_gdelta(ws, freqs, (1, -1, 1))
+            delta, gdelta = delta_and_gdelta(ws, freqs, (1, -1, 1))
         del ws
         with phase("fsw.refresh.reduce"):
             g2_out.append(torch.sum(ps * gdelta, dim=-1))

@@ -40,11 +40,14 @@ Memory: S is a few MB at any k, so the gate is the refresh's transients
 for a group of G items (``refresh_transient_bytes``); ``pick_refresh_group``
 halves G from 8 until they fit 3/8 of the device memory, and the route is
 off (``lazy_applicable``) when not even G = 1 fits. Each route counts its
-worst stage as the port runs it. On the shared route
+worst stage as the port's plain torch ops run it. On the shared route
 (``shared_refresh_bytes``) the forward-mode pass for d delta / d xi holds
 14 f32 buffers of the group's (G, C, V) rows, and 16 in every group after
 the first, whose delta and d delta / d xi are still held; the JAX package's
-(3G + 4) buffers of (C, V) count a third of that. On the per-genome route
+(3G + 4) buffers of (C, V) count a third of that. On the card the shared
+route's planes come from one kernel (``kernels.refresh.refresh_planes``)
+that holds no (G, C, V) buffer, so there the count is an upper bound and
+the gate admits the same clades as before. On the per-genome route
 (``pergenome_refresh_bytes``) the same pass holds 16 f32 buffers of the
 group's (G*C, N) rows, which outweighs the sort's outputs and, past
 ``CLUSTER_ELEMS``, its radix scratch. On a grid with a model
@@ -111,12 +114,13 @@ def pergenome_refresh_bytes(d_out: int, n: int, group: int, k: int, base_dim: in
 
 
 def shared_refresh_bytes(d_out: int, vocab: int, group: int, items: int) -> int:
-    """The live set of the worst stage of one group of ``fsw_lazy_refresh``:
-    ``items`` (n) weight rows over a canonical vocab of V k-mers, d_out
-    slices, groups of G. Through every group it holds the normalised
-    weights wn (n, V), the sorted projections ps and the sort's payload
-    output (C, V) in f32, perm (C, V) in int64 and the (V, 4k) one-hot in
-    f32; beside them, at most:
+    """The live set of the worst stage of one group of ``fsw_lazy_refresh``
+    in plain torch ops (its CPU path; on the card, where the planes' kernel
+    runs, an upper bound): ``items`` (n) weight rows over a canonical vocab
+    of V k-mers, d_out slices, groups of G. Through every group it holds
+    the normalised weights wn (n, V), the sorted projections ps and the
+    sort's payload output (C, V) in f32, perm (C, V) in int64 and the
+    (V, 4k) one-hot in f32; beside them, at most:
     - the sort: its (C, V) keys and what it allocates (``sort_transient_
       bytes``);
     - perm in int32 and in int64, while one is cast to the other;

@@ -20,6 +20,12 @@ alone; the global-merge path that the timings hold the cluster path against
 equal to the plain version; and
 the FSW model on the card against the CPU at d_out 512; the sort under
 autograd (``SortPW``, ``SortShared``) forward and backward against the CPU.
+``refresh_planes`` (``csrc/lazy_refresh.cu``): against the float64
+reference of ``tests/torch_refresh_cases.py`` and against its plain version
+on the card, at the training cell's 850 x 512 x 8,192, a model-axis rank's
+C = 256, k = 8 (V = 32,896) and k = 9 (V = 131,072) on a few items, V at
+either side of the shared-memory staging's limit, with an all-zero item
+every time; its device memory held to its count; one launch a refresh.
 Trainers: two epochs of ``train_classifier``, of the dense
 ``train_model_set``, of each FSW training route (shared-vocab and
 per-genome, lazy and exact) and of each chunk trainer on the card against
@@ -61,8 +67,18 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     sort_transient_bytes,
     tile_elems,
 )
+from kf2vecfsw_tpu_torch.kernels.refresh import (
+    refresh_planes,
+    refresh_planes_reference,
+    scratch_bytes,
+    staged_vocab_max,
+)
 from kf2vecfsw_tpu_torch.kmer.counter import KmerCounter, count_canonical_numpy
+from kf2vecfsw_tpu_torch.models import fsw as fsw_model
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
+from kf2vecfsw_tpu_torch.train.fsw_lazy import LazyPlanes
+
+from .torch_refresh_cases import plane_tolerance, planes_float64, refresh_inputs, rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -791,3 +807,90 @@ def test_serve_place_features_on_the_card_equals_cpu(card, tmp_path, fsw_k):
             np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=f"{g} {name}")
         compared += 1
     assert compared >= 3
+
+
+# (k, C, n, vocab): the training cell, a model-axis rank's slices, k = 8 and
+# k = 9 (weights gathered from device memory), a small k; vocab None is the
+# canonical vocab at k
+REFRESH_CASES = [(7, 512, 850, None), (7, 256, 9, None), (8, 512, 5, None), (9, 512, 3, None),
+                 (3, 16, 6, None)]
+
+
+def _refresh_against_references(inputs, got):
+    """Every item's planes within ``plane_tolerance`` of float64, and within
+    twice that of the plain version on the card (both float32, summed in
+    other orders); the all-zero last item exactly zero."""
+    ps, perm, wn, freqs, digits = inputs
+    s, g2 = got
+    n, c = g2.shape
+    s64, g64 = planes_float64(*inputs)
+    plain_s, plain_g2 = refresh_planes_reference(*inputs, 8)
+    tol = plane_tolerance(c)
+    worst = {"float64": 0.0, "plain": 0.0}
+    for i in range(n - 1):
+        worst["float64"] = max(worst["float64"], rel_err(s[i], s64[i]), rel_err(g2[i], g64[i]))
+        worst["plain"] = max(worst["plain"], rel_err(s[i], plain_s[i]),
+                             rel_err(g2[i], plain_g2[i]))
+    assert worst["float64"] <= tol and worst["plain"] <= 2 * tol, (worst, tol)
+    assert torch.equal(s[-1], torch.zeros_like(s[-1]))
+    assert torch.equal(g2[-1], torch.zeros_like(g2[-1]))
+
+
+@pytest.mark.parametrize("k,c,n,vocab", REFRESH_CASES)
+def test_refresh_kernel_equals_float64_and_plain_version(card, k, c, n, vocab):
+    inputs = refresh_inputs(k, c, n, 1000 * k + c, card, vocab)
+    before = refresh_planes.launches
+    got = refresh_planes(*inputs)
+    torch.cuda.synchronize()
+    assert refresh_planes.launches == before + 1
+    assert got[0].shape == (n, c, k, 4) and got[1].shape == (n, c)
+    _refresh_against_references(inputs, got)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_refresh_kernel_at_the_staging_limit(card, side):
+    """V at the largest that a block stages in shared memory (side 0) and one
+    past it (side 1: the weights gathered from device memory), random digits."""
+    v = staged_vocab_max() + side
+    inputs = refresh_inputs(7, 64, 6, 77 + side, card, vocab=v)
+    got = refresh_planes(*inputs)
+    torch.cuda.synchronize()
+    _refresh_against_references(inputs, got)
+
+
+def test_refresh_kernel_memory_is_its_outputs_and_records(card):
+    """The launch allocates its records (``scratch_bytes``) and its planes:
+    at the training cell's shape 50 MB of each, where the plain version's
+    groups hold 2.1 GB."""
+    k, c, n = 7, 512, 850
+    inputs = refresh_inputs(k, c, n, 9, card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    refresh_planes(*inputs)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown <= scratch_bytes(c, inputs[0].shape[1]) + 4 * n * c * (4 * k + 1) + 2 * 512
+
+
+def test_lazy_planes_launch_the_kernel_once_a_refresh(card):
+    """A shared-route refresh is one sort and one planes launch, whatever the
+    group, and its planes are the wrapper's on that sort, bit for bit (the
+    kernel sums in a fixed order)."""
+    k, c, n = 5, 64, 11
+    gen = torch.Generator().manual_seed(11)
+    model = init_fsw_dist_embed_(FSWDistEmbed(k, 2, c, 16, 8), gen).to(card)
+    w = torch.rand(n, fsw_model.canonical_vocab_size(k), generator=gen).to(card)
+    planes = LazyPlanes(w, True, 4, 3, 4)
+    sorts, launches = sort_rows.launches, refresh_planes.launches
+    for _ in range(2):
+        planes.refresh(model)
+    torch.cuda.synchronize()
+    assert sort_rows.launches == sorts + 2 and refresh_planes.launches == launches + 2
+    with torch.no_grad():
+        digits = fsw_model.vocab_digits(k, card)
+        wn = fsw_model._normalized(w)
+        keys = (model.slices @ fsw_model.lookup_points(model.lookup, digits).T).contiguous()
+        ps, _, perm = sort_rows(keys, wn[:1])
+        s, g2 = refresh_planes(ps, perm, wn, model.freqs, digits)
+    assert torch.equal(planes.s, s) and torch.equal(planes.g2, g2)
