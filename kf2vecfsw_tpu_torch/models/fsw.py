@@ -383,6 +383,7 @@ def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup
             del ps, gdelta
             onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
             s_out.append(torch.bmm(unsort(delta, perm), onehot))
+            del km, delta, perm, onehot  # not alive beside the next group's jvp
     return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
 
 

@@ -73,7 +73,7 @@ from ..models.fsw import (
 )
 from ..parallel.mesh import DataMesh
 from ..utils.membudget import hbm_fraction
-from ..utils.phases import phase
+from ..utils.phases import count, phase
 from .step import distance_steps
 
 # items per refresh group; halved until one group's transients fit
@@ -199,11 +199,18 @@ class LazyPlanes:
     module docstring): ``interval`` is R when R < n_batches, else
     (R // n_batches) * n_batches, so a refresh falls on an epoch's first
     step. ``feats`` are the train rows: (n, V) vocab weights when
-    ``shared``, else (n, N, k+1) point sets."""
+    ``shared``, else (n, N, k+1) point sets.
+
+    Every refresh counts into the active ``utils.phases`` collector
+    ``fsw.refresh.items``, the items refreshed, and on the per-genome route
+    ``fsw.refresh.points``, their real points (weight > 0), and
+    ``fsw.refresh.slots``, the padded slots sorted (items x N). The real
+    points are counted once, here."""
 
     def __init__(self, feats: torch.Tensor, shared: bool, refresh_steps: int, n_batches: int,
                  group: int):
         self.feats, self.shared, self.group = feats, shared, group
+        self.points = None if shared else int((feats[..., -1] > 0).sum())
         r = max(1, refresh_steps)
         self.interval = r if r < n_batches else (r // n_batches) * n_batches
         self.step = 0  # batch steps since the start of the run
@@ -223,6 +230,10 @@ class LazyPlanes:
             else:
                 self.s, self.g2 = fsw_lazy_refresh_pergenome(model.slices, model.freqs,
                                                              model.lookup, self.feats, self.group)
+        count("fsw.refresh.items", self.feats.shape[0])
+        if not self.shared:
+            count("fsw.refresh.points", self.points)
+            count("fsw.refresh.slots", self.feats.shape[0] * self.feats.shape[1])
         self.refreshes += 1
 
     def tick(self, model: FSWDistEmbed) -> None:

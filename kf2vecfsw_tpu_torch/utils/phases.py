@@ -98,6 +98,8 @@ def phase(name: str, args: str | None = None):
 
 
 def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``name`` in the active collector; with none, one global
+    read and nothing else (``n`` is a host number: nothing synchronises)."""
     sink = _active
     if sink is None:
         return

@@ -331,6 +331,25 @@ def test_pergenome_refresh_group_fits_its_count(monkeypatch, g, c, n, k):
         assert live.peak >= counted
 
 
+@pytest.mark.parametrize("g,c,n,k,groups", [(1, 16, 140_000, 10, 3), (2, 32, 1000, 10, 3),
+                                            (1, 64, 2000, 3, 4)])
+def test_pergenome_refresh_later_groups_fit_the_count(monkeypatch, g, c, n, k, groups):
+    """Every group of the per-genome refresh, not only the first, holds no
+    more than ``pergenome_refresh_bytes`` beside the earlier groups' S and
+    g2 rows (4 (4k + 1) C B an item): the last group's delta, perm and
+    one-hot are gone before the next group's jvp."""
+    monkeypatch.setattr(fsw, "sort_rows", _card_like_sort)
+    gen = torch.Generator().manual_seed(groups * n + c)
+    x = _point_sets(gen, groups * g, n, k)
+    slices, freqs = torch.randn(c, k * BASE_DIM, generator=gen), torch.arange(c).float()
+    lookup = torch.randn(4, BASE_DIM, generator=gen)
+    with LiveBytes(x, slices, freqs, lookup) as live:
+        fsw.fsw_lazy_refresh_pergenome(slices, freqs, lookup, x, g)
+    counted = tlazy.pergenome_refresh_bytes(c, n, g, k, BASE_DIM)
+    earlier = 4 * (4 * k + 1) * c * (groups - 1) * g
+    assert counted <= live.peak <= counted + earlier + SMALL
+
+
 @pytest.mark.parametrize("g,c,n", [(1, 16, 4), (4, 128, 8), (8, 64, 8), (8, 128, 8)])
 def test_shared_refresh_live_set(monkeypatch, g, c, n):
     """One shared refresh of n items in groups of g holds no more than
