@@ -169,7 +169,9 @@ non-zero without one. Phases, each of which fails the run if it fails:
    scatter,
    at 512 and 8,192 rows of 8,192; ``refresh_planes`` at the lazy training
    cell's 850 items x 512 slices x 8,192, against its plain version, beside
-   its operations bound and its 30 ms goal), with CUDA events; the stage
+   its operations bound and its 30 ms goal; ``pergenome_planes`` at the k=10
+   cell's group, 512 slices x 646,000 points (503,934 real) at k=10, against
+   its plain version, beside its bytes bound), with CUDA events; the stage
    wall times
    of build_library, its trainers' steps per second over epochs 2-5, its
    exports' seconds (str(np.float32) formatting apart) and its peak device
@@ -238,6 +240,8 @@ from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases, read_sequences_r
 from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.refresh import (
+    pergenome_planes,
+    pergenome_planes_reference,
     refresh_planes,
     refresh_planes_reference,
     scratch_bytes,
@@ -347,6 +351,11 @@ PHASE5_REFRESH = (850, FSW_OUT_DIM)
 REFRESH_INSTR_PER_COEFF = 120
 H100_LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 REFRESH_GOAL_MS = 30.0  # the kernel's goal at PHASE5_REFRESH
+PERGENOME_REPLACES = ("no Pallas kernel: the per-genome lazy refresh's XLA ops at "
+                      "kf2vecfsw_tpu/models/fsw.py:468 (fsw_lazy_refresh_pergenome)")
+# phase 5: the per-genome refresh's planes at fsw_k10.train_lazy's group: slices,
+# N (the cell's padded point sets), real points (its longest genome's), k = K10
+PHASE5_PERGENOME = (FSW_OUT_DIM, 646_000, 503_934)
 # the radix path's rows: one k = 10 genome's refresh sort (512 slices of a
 # padded point set) and a k = 10 query block after auto_slice_chunk (16
 # genomes x 64 slices of 524,800)
@@ -868,11 +877,12 @@ def counted(fn, *args):
     its result and the counts just after (``sort_rows_long``: the cluster
     path's launches among sort_rows')."""
     kmer_hist.launches = sort_rows.launches = sort_rows.long_launches = 0
-    refresh_planes.launches = 0
+    refresh_planes.launches = pergenome_planes.launches = 0
     out = fn(*args)
     return out, {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
                  "sort_rows_long": sort_rows.long_launches,
-                 "refresh_planes": refresh_planes.launches}
+                 "refresh_planes": refresh_planes.launches,
+                 "pergenome_planes": pergenome_planes.launches}
 
 
 def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
@@ -1567,6 +1577,7 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = refresh_planes.launches = 0
+    pergenome_planes.launches = 0
     t0 = time.perf_counter()
     with TrainerClock() as clock:
         cli_main(["train_model_set", "-input_dir", feats, "-subtrees",
@@ -1574,7 +1585,8 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
                   "-e", str(FSW_EPOCHS), *flags])
     seconds = time.perf_counter() - t0
     launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
-                "refresh_planes": refresh_planes.launches}
+                "refresh_planes": refresh_planes.launches,
+                "pergenome_planes": pergenome_planes.launches}
     peak = torch.cuda.max_memory_allocated()
     lines = route_lines(out_dir)
     check(lines == list(FSW_ROUTES[route]) * n_clades,
@@ -1596,9 +1608,20 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     check(launches["refresh_planes"] == (out["refreshes"] if route == "lazy_shared" else 0),
           f"{route}: refresh_planes launched {launches['refresh_planes']} times over "
           f"{out['refreshes']} refreshes")
+    check(pergenome_launches_fit(route, launches, out["refreshes"]),
+          f"{route}: pergenome_planes launched {launches['pergenome_planes']} times over "
+          f"{out['refreshes']} refreshes")
     check(peak >= 2 * FSW_MODEL_BYTES, f"{route}: peak device memory {peak} B")
     log(f"phase train_fsw {route}: {json.dumps(out)}")
     return out
+
+
+def pergenome_launches_fit(route: str, launches: dict, refreshes: int) -> bool:
+    """The per-genome planes kernel launches at least once a refresh (once a
+    refresh group) on the lazy per-genome route, and never elsewhere."""
+    if route == "lazy_pergenome":
+        return launches["pergenome_planes"] >= refreshes > 0
+    return launches["pergenome_planes"] == 0
 
 
 def divided_backbone(work: str, tag: str, seed: int, n_leaves: int, lengths: tuple[int, int],
@@ -1822,6 +1845,9 @@ def train_fsw_k10(feats: str, tree_dir: str, out_dir: str, route: str,
           f"k=10 {route}: sort_rows launches {launches}, {exports} in the exports")
     check((route == "lazy_pergenome") == (out["refreshes"] > 0),
           f"k=10 {route}: {out['refreshes']} refreshes")
+    check(pergenome_launches_fit(route, launches, out["refreshes"]),
+          f"k=10 {route}: pergenome_planes launches ({launches}) over {out['refreshes']} "
+          "refreshes")
     return out
 
 
@@ -3011,6 +3037,43 @@ def phase_refresh_timings(dev) -> dict:
     return out
 
 
+def phase_pergenome_timings(dev) -> dict:
+    """The per-genome refresh's planes at PHASE5_PERGENOME: the kernel against
+    its plain version on the card (S and g2 within twice the planes' float32
+    tolerance, 1e-5 + 1e-7 C relative, of the plain version's: the plain
+    version's own float32 scan is most of the gap), its time beside its
+    bound and the plain version's. The bound counts ps, ws and perm read once and the digits
+    (12 B a position, 8k B a point), against 120 lane instructions a
+    coefficient on the real points (padding adds no work)."""
+    c, n, real = PHASE5_PERGENOME
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    digits = torch.randint(0, 4, (1, n, K10), generator=gen, device=dev)
+    w = torch.rand(1, n, generator=gen, device=dev)
+    keys = torch.randn(c, n, generator=gen, device=dev)
+    digits[:, real:], w[:, real:] = 0, 0.0
+    keys[:, real:] = keys[:, :1]  # the padding rows are one point
+    ps, ws, perm = sort_rows(keys, fsw_model._normalized(w))
+    del keys
+    args = (ps, ws, perm, digits, torch.arange(c, dtype=torch.float32, device=dev))
+    got = pergenome_planes(*args)
+    want = pergenome_planes_reference(*args)
+    err = max((torch.linalg.vector_norm(a[0] - b[0]) / torch.linalg.vector_norm(b[0])).item()
+              for a, b in zip(got, want))
+    check(err <= 2 * (1e-5 + 1e-7 * c), f"pergenome_planes at {(c, n, K10)}: relative "
+          f"error {err} against the plain version")
+    del got, want
+    ms = cuda_ms(lambda: pergenome_planes(*args), reps=20)
+    plain_ms = cuda_ms(lambda: pergenome_planes_reference(*args), reps=2, warmup=1)
+    bytes_ms = 1e3 * (12 * c * n + 8 * K10 * n) / H100_BYTES_PER_S
+    ops_ms = 1e3 * c * real * REFRESH_INSTR_PER_COEFF / H100_LANE_INSTR_PER_S
+    out = {"shape": [1, c, n, K10], "real_points": real, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes_ms": bytes_ms, "operations_ms": ops_ms, "max_rel_err_vs_plain": err}
+    log(f"phase timings: pergenome_planes {json.dumps(out)}")
+    return out
+
+
 def phase_unsort_timings(dev) -> list[dict]:
     """The sort's backward at FSW training shapes: ``unsort`` (one library
     scatter_ by ``perm``) of a cotangent, bound by reading it and perm and
@@ -3069,6 +3132,7 @@ def main() -> int:
                      for shape in PHASE5_SORT_MERGE]
     unsort_timing = phase_unsort_timings(dev)
     refresh_timing = phase_refresh_timings(dev)
+    pergenome_timing = phase_pergenome_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
         res = serve[tag]
@@ -3205,6 +3269,14 @@ def main() -> int:
         "replaces": REFRESH_REPLACES, "tpu_kernels": [],
         "launches": refresh_by_path["train_fsw"], "launches_by_path": refresh_by_path,
         **refresh_timing,
+    }, {
+        "name": "lazy_refresh_pergenome", "route": "cuda", "source": REFRESH_SOURCE,
+        "replaces": PERGENOME_REPLACES, "tpu_kernels": [],
+        "launches": fsw["routes"]["lazy_pergenome"]["launches"]["pergenome_planes"],
+        "launches_by_path": {
+            "train_fsw": sum(run["launches"]["pergenome_planes"] for run in fsw["routes"].values()),
+            "fsw_k10_lazy": fsw_k10["lazy"]["launches"]["pergenome_planes"]},
+        **pergenome_timing,
     }]}
     print(json.dumps(report))
     print(smi)

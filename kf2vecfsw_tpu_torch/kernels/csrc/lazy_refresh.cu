@@ -1,7 +1,11 @@
-// The shared lazy refresh's planes, for Hopper (sm_90a).
+// The lazy refresh's planes, for Hopper (sm_90a): the shared route's
+// (lazy_refresh_launch) and the per-genome route's
+// (lazy_refresh_pergenome_launch, described after the shared one). The two
+// share the coefficient's device function, sinc_and_slope.
 //
-// Replaces no Pallas kernel. The JAX package computes the shared-vocab lazy
-// refresh with XLA ops (kf2vecfsw_tpu/models/fsw.py:337, fsw_lazy_refresh),
+// THE SHARED ROUTE. Replaces no Pallas kernel. The JAX package computes the
+// shared-vocab lazy refresh with XLA ops (kf2vecfsw_tpu/models/fsw.py:337,
+// fsw_lazy_refresh),
 // and the port ran it as plain torch (kernels/refresh.py,
 // refresh_planes_reference): per group of G items a gather of the sorted
 // weights (G, C, V), a jvp of the cos/sinc coefficients in about 50
@@ -65,6 +69,56 @@
 // reduces the range exactly. The
 // prefix sums and the segment sums run in another order than the plain
 // version's, so the two agree to float32 rounding, not bit for bit.
+//
+// THE PER-GENOME ROUTE. Replaces no Pallas kernel either: the JAX package
+// computes it with XLA ops (kf2vecfsw_tpu/models/fsw.py:468,
+// fsw_lazy_refresh_pergenome), and the port ran it as plain torch
+// (kernels/refresh.py, pergenome_planes_reference): a jvp of the
+// coefficients in 49 elementwise launches, a row sum, an unsort and a
+// product with each item's one-hot digit matrix, 16 f32 buffers of
+// (G C, N). On an H100 that took 45.8 ms of an item's 63.3 ms refresh at
+// 512 slices and N = 646,000 (k = 10) and held 21.2 GB. Here each item
+// owns its points, so the rows are few and long: the sort of G items' C
+// slice rows gives, for row g C + c, the sorted projections ps, weights ws
+// and columns perm; with xi = freqs[c] and the coefficients as above over
+// that row's order,
+//   g2[g, c]      = sum_p ps[row, p] ddelta_p,
+//   S[g, c, j, a] = sum_p delta_p [digits[g, perm[row, p], j] == a].
+// Bound on an H100 SXM: bytes. At 512 x 646,000 with 503,934 real points
+// (the k = 10 cell's group) ps, ws and perm read once are 4.0 GB, 1.2 ms at
+// 3.35 TB/s (the tile sums read ws once more: 1.6 ms with it), against 0.9
+// ms of lane work (120 instructions a coefficient on the 2.6e8 real
+// positions); the codes' gather by perm is one 32-byte L2 sector a
+// position.
+// Design:
+// - A pre-pass packs each point's k <= 31 bases into a 64-bit code (G N 8
+//   B, 5.2 MB an item at N = 646,000: it stays in L2), so a sorted position
+//   gathers one word by perm rather than k int64 digits.
+// - Each row is cut into tiles of kPgTile = 4,096 positions, one warp a
+//   tile (about 8e4 tiles at one item, enough to fill 132 SMs at G = 1).
+//   Step r of a warp takes positions 64 r + 2 lane and the one after it,
+//   so the reads of ps, ws and perm are coalesced, a lane's two
+//   coefficients are independent work and one warp scan serves 64
+//   positions; the reads of the next two steps are in flight while a step
+//   computes.
+// - A first kernel sums each tile's weights in double; the walk starts
+//   from the sum of the row's earlier tiles (in double, a fixed order),
+//   carries the prefix in two floats compensated (Kahan; the phase
+//   multiplies prefix error by up to 511 pi, and a row here is 79 times
+//   longer than at k = 7) and adds a step's weights by a warp scan. A step
+//   whose weights are all zero (padding sorts together) adds nothing and
+//   is skipped.
+// - g2 and the 3k + 1 segment sums stay in registers, a base's bits
+//   masking delta's. (On an H100 the masks alone made the launch 1.08x
+//   faster than selects, and with two positions a lane 1.17x faster than
+//   one.) A warp writes its tile's sums once, and a last kernel reduces
+//   each row's tiles in double in tile order into S and g2. No float
+//   atomics: two launches give the same bits. Nothing of size (G C, N) is
+//   written.
+// - The main kernel is built for k <= 10, <= 16 and <= 31, masking the
+//   bases past k, not once a k: the build counts in set-up.
+// Numerics as the shared route's: float32 but for the prefix and the tile
+// reductions, no fast-math.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -299,6 +353,251 @@ cudaError_t launch_planes(bool staged, dim3 grid, cudaStream_t s, const float* w
   return cudaGetLastError();
 }
 
+// ---- the per-genome route ----------------------------------------------------
+
+constexpr int kPgWarps = 8;  // tiles of a block, one a warp
+constexpr int kPgThreads = kPgWarps * kLanes;
+constexpr int64_t kPgTile = 4096;  // positions of a tile, one warp's
+constexpr int kPgMaxK = 31;  // 2 bits a base in a 64-bit code: defaults.py MAX_K_LEN
+constexpr int kCodeThreads = 256;
+constexpr int kReduceThreads = 128;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = kLanes / 2; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;  // a butterfly: every lane adds the same pairs, so every lane holds the same sum
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int d = kLanes / 2; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// codes[i] = sum_j (digits[i, j] & 3) << 2j: a point's k bases in one word
+__global__ void __launch_bounds__(kCodeThreads)
+codes_kernel(const int64_t* __restrict__ digits, uint64_t* __restrict__ codes, int64_t points,
+             int k) {
+  const int64_t i = int64_t(blockIdx.x) * kCodeThreads + threadIdx.x;
+  if (i >= points) return;
+  const int64_t* d = digits + i * k;
+  uint64_t code = 0;
+  for (int j = 0; j < k; ++j) code |= static_cast<uint64_t>(d[j] & 3) << (2 * j);
+  codes[i] = code;
+}
+
+// tile_sums[row * tiles_per_row + t]: the weights of tile t of the row, in double
+__global__ void __launch_bounds__(kPgThreads)
+tile_sums_kernel(const float* __restrict__ ws, double* __restrict__ tile_sums, int64_t tiles,
+                 int64_t n, int64_t tiles_per_row) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t tile = int64_t(blockIdx.x) * kPgWarps + threadIdx.x / kLanes;
+  if (tile >= tiles) return;  // the whole warp
+  const int64_t row = tile / tiles_per_row, t = tile - row * tiles_per_row;
+  const float* w = ws + row * n;
+  const int64_t p0 = t * kPgTile + lane;
+  double sum = 0.0;
+#pragma unroll 8
+  for (int64_t q = 0; q < kPgTile; q += kLanes) {
+    if (p0 + q < n) sum += w[p0 + q];
+  }
+  sum = warp_sum(sum);
+  if (lane == 0) tile_sums[tile] = sum;
+}
+
+__device__ __forceinline__ void coefficient(float w, float cbar, float xi, float half_xi,
+                                            float& delta, float& ddelta) {
+  float sa, ca;
+  sincospif(xi * cbar, &sa, &ca);
+  float sn, dsn;
+  sinc_and_slope(half_xi * w, sn, dsn);
+  const float sw = kSqrt2 * w;
+  delta = sw * ca * sn;
+  ddelta = sw * fmaf(-kPi * cbar * sa, sn, ca * dsn * (0.5f * w));
+}
+
+// sums[0] += delta; for each base j < k, sums[1 + 3j + (0, 1, 2)] += delta
+// where the base has bit 0, bit 1, both: delta's bits masked, no branch
+template <int KB>
+__device__ __forceinline__ void add_to_planes(float delta, uint64_t code, int k, float* sums) {
+  sums[0] += delta;
+  const unsigned bits = __float_as_uint(delta);
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    if (j < k) {
+      const unsigned d = static_cast<unsigned>(code >> (2 * j));
+      const unsigned b0 = bits & (0u - (d & 1u)), b1 = bits & (0u - ((d >> 1) & 1u));
+      sums[3 * j + 1] += __uint_as_float(b0);
+      sums[3 * j + 2] += __uint_as_float(b1);
+      sums[3 * j + 3] += __uint_as_float(b0 & b1);
+    }
+  }
+}
+
+// One warp a tile of kPgTile positions of one (item, slice) row; step r
+// takes positions t kPgTile + 64 r + 2 lane and the one after it, so the
+// reads of ps, ws and perm are coalesced and a lane's two coefficients are
+// independent work. Writes the tile's g2 and 3k + 1 segment sums to
+// partials[tile * (3k + 2) + m]: m = 0 g2, 1 the total, 2 + 3j + (0, 1, 2)
+// the sums over the positions whose base j has bit 0, bit 1, both.
+template <int KB>
+__global__ void __launch_bounds__(kPgThreads)
+pergenome_planes_kernel(const float* __restrict__ ps, const float* __restrict__ ws,
+                        const int32_t* __restrict__ perm, const uint64_t* __restrict__ codes,
+                        const double* __restrict__ tile_sums, const float* __restrict__ freqs,
+                        float* __restrict__ partials, int64_t tiles, int64_t c_total, int64_t n,
+                        int64_t tiles_per_row, int k) {
+  constexpr int kSums = 3 * KB + 1;  // the total, then per base j: bit 0, bit 1, both
+  constexpr int kStep = 2 * kLanes;  // positions of a step
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x % kLanes;
+  const int64_t tile = int64_t(blockIdx.x) * kPgWarps + threadIdx.x / kLanes;
+  if (tile >= tiles) return;  // the whole warp
+  const int64_t row = tile / tiles_per_row, t = tile - row * tiles_per_row;
+  const int64_t g = row / c_total, c = row - g * c_total;
+  const float xi = freqs[c], half_xi = 0.5f * xi;
+
+  // the tile's starting prefix, the row's earlier tiles summed in double, enters
+  // the walk as hi + lo
+  double start = 0.0;
+  for (int64_t u = lane; u < t; u += kLanes) start += tile_sums[row * tiles_per_row + u];
+  start = warp_sum(start);
+  float hi = static_cast<float>(start);
+  float lo = static_cast<float>(start - static_cast<double>(hi));
+
+  const int64_t begin = t * kPgTile;
+  const int64_t end = begin + kPgTile < n ? begin + kPgTile : n;
+  const int steps = static_cast<int>((end - begin + kStep - 1) / kStep);
+  const float* ps_row = ps + row * n;
+  const float* ws_row = ws + row * n;
+  const int32_t* perm_row = perm + row * n;
+  const uint64_t* item_codes = codes + g * n;
+  // a lane's two positions: weight, projection and column two steps ahead,
+  // the codes one step ahead, so their reads are in flight while a step
+  // computes
+  auto load = [&](int64_t p, float& w, float& x, int32_t& col) {
+    const bool in = p < end;
+    w = in ? ws_row[p] : 0.f;
+    x = in ? ps_row[p] : 0.f;
+    col = in ? perm_row[p] : 0;
+  };
+  int64_t p = begin + 2 * lane;
+  float wa0, xa0, wb0, xb0, wa1, xa1, wb1, xb1;
+  int32_t ca0, cb0, ca1, cb1;
+  load(p, wa0, xa0, ca0);
+  load(p + 1, wb0, xb0, cb0);
+  load(p + kStep, wa1, xa1, ca1);
+  load(p + kStep + 1, wb1, xb1, cb1);
+  uint64_t codea0 = p < end ? item_codes[ca0] : 0;
+  uint64_t codeb0 = p + 1 < end ? item_codes[cb0] : 0;
+
+  float sums[kSums] = {};
+  float g2 = 0.f;
+#pragma unroll 1
+  for (int r = 0; r < steps; ++r, p += kStep) {
+    float wa2, xa2, wb2, xb2;
+    int32_t ca2, cb2;
+    load(p + 2 * kStep, wa2, xa2, ca2);
+    load(p + 2 * kStep + 1, wb2, xb2, cb2);
+    const uint64_t codea1 = p + kStep < end ? item_codes[ca1] : 0;
+    const uint64_t codeb1 = p + kStep + 1 < end ? item_codes[cb1] : 0;
+    // a step of zero weights (padding, past the row's end) adds nothing
+    if (__any_sync(full, wa0 != 0.f || wb0 != 0.f)) {
+      const float pair = wa0 + wb0;
+      float incl = pair;  // the step's inclusive prefix of the lanes' pairs
+#pragma unroll
+      for (int d = 1; d < kLanes; d *= 2) {
+        const float up = __shfl_up_sync(full, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const float total = __shfl_sync(full, incl, kLanes - 1);
+      float before = __shfl_up_sync(full, incl, 1);
+      if (lane == 0) before = 0.f;
+      const float cbar_a = hi + (fmaf(0.5f, wa0, before) + lo);
+      const float cbar_b = hi + ((before + fmaf(0.5f, wb0, wa0)) + lo);
+      // the prefix hi + lo, compensated (Kahan): a row adds up to N weights,
+      // whose rounding the phase would multiply by up to 511 pi
+      const float y = total + lo, sum = hi + y;
+      lo = y - (sum - hi);
+      hi = sum;
+      float da, dda, db, ddb;
+      coefficient(wa0, cbar_a, xi, half_xi, da, dda);
+      coefficient(wb0, cbar_b, xi, half_xi, db, ddb);
+      g2 = fmaf(xa0, dda, g2);
+      g2 = fmaf(xb0, ddb, g2);
+      add_to_planes<KB>(da, codea0, k, sums);
+      add_to_planes<KB>(db, codeb0, k, sums);
+    }
+    wa0 = wa1;
+    xa0 = xa1;
+    wb0 = wb1;
+    xb0 = xb1;
+    codea0 = codea1;
+    codeb0 = codeb1;
+    wa1 = wa2;
+    xa1 = xa2;
+    wb1 = wb2;
+    xb1 = xb2;
+    ca1 = ca2;
+    cb1 = cb2;
+  }
+
+  g2 = warp_sum(g2);
+#pragma unroll
+  for (int m = 0; m < kSums; ++m) {
+    if (m < 3 * k + 1) sums[m] = warp_sum(sums[m]);
+  }
+  if (lane == 0) {
+    float* out = partials + tile * (3 * k + 2);
+    out[0] = g2;
+#pragma unroll
+    for (int m = 0; m < kSums; ++m) {
+      if (m < 3 * k + 1) out[m + 1] = sums[m];
+    }
+  }
+}
+
+// S[row, j, :] (j < k) and g2[row] (j == k): the row's tile partials summed
+// in double in tile order, so two launches give the same bits
+__global__ void __launch_bounds__(kReduceThreads)
+pergenome_reduce_kernel(const float* __restrict__ partials, float* __restrict__ s_out,
+                        float* __restrict__ g2_out, int64_t rows, int64_t tiles_per_row, int k) {
+  const int64_t i = int64_t(blockIdx.x) * kReduceThreads + threadIdx.x;
+  if (i >= rows * (k + 1)) return;
+  const int64_t row = i / (k + 1);
+  const int j = static_cast<int>(i - row * (k + 1));
+  const int width = 3 * k + 2;
+  const float* part = partials + row * tiles_per_row * width;
+  if (j == k) {
+    double g2 = 0.0;
+    for (int64_t t = 0; t < tiles_per_row; ++t) g2 += part[t * width];
+    g2_out[row] = static_cast<float>(g2);
+    return;
+  }
+  double total = 0.0, b0 = 0.0, b1 = 0.0, both = 0.0;
+  for (int64_t t = 0; t < tiles_per_row; ++t) {
+    const float* q = part + t * width;
+    total += q[1];
+    b0 += q[2 + 3 * j];
+    b1 += q[3 + 3 * j];
+    both += q[4 + 3 * j];
+  }
+  reinterpret_cast<float4*>(s_out)[row * k + j] = make_float4(
+      static_cast<float>((total - b0) - (b1 - both)), static_cast<float>(b0 - both),
+      static_cast<float>(b1 - both), static_cast<float>(both));
+}
+
+template <int KB>
+cudaError_t launch_pergenome_planes(unsigned blocks, cudaStream_t s, const float* ps,
+                                    const float* ws, const int32_t* perm, const uint64_t* codes,
+                                    const double* tile_sums, const float* freqs, float* partials,
+                                    int64_t tiles, int64_t c_total, int64_t n,
+                                    int64_t tiles_per_row, int k) {
+  pergenome_planes_kernel<KB><<<blocks, kPgThreads, 0, s>>>(
+      ps, ws, perm, codes, tile_sums, freqs, partials, tiles, c_total, n, tiles_per_row, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -385,6 +684,69 @@ int lazy_refresh_launch(const void* wn, const void* ps, const void* perm, const 
 #undef LAZY_REFRESH_CASE
   }
   return static_cast<int>(launch);
+}
+
+// Positions of a tile of the per-genome route: a row of N positions takes
+// ceil(N / tile) tiles.
+int64_t lazy_refresh_pergenome_tile() { return kPgTile; }
+
+// Launches the per-genome route's four kernels on `stream` without
+// synchronising; returns the first error of a launch, 0 on success.
+// ps, ws: f32 (G C, N) sorted projections and weights of the G items' C
+// slices (row g C + c); perm: int32 (G C, N), each row's columns in sorted
+// order; digits: int64 (G, N, k) bases in 0..3; freqs: f32 (C,); codes:
+// uint64 (G, N), tile_sums: f64 (G C, tiles_per_row) and partials: f32
+// (G C, tiles_per_row, 3k + 2) scratch, tiles_per_row = ceil(N / tile);
+// s_out: f32 (G, C, k, 4); g2_out: f32 (G, C). Every row is contiguous.
+int lazy_refresh_pergenome_launch(const void* ps, const void* ws, const void* perm,
+                                  const void* digits, const void* freqs, void* codes,
+                                  void* tile_sums, void* partials, void* s_out, void* g2_out,
+                                  int64_t g, int64_t c_total, int64_t n, int k,
+                                  int64_t tiles_per_row, void* stream) {
+  if (g < 1 || c_total < 1 || n < 1 || n > INT32_MAX || k < 1 || k > kPgMaxK ||
+      tiles_per_row != (n + kPgTile - 1) / kPgTile) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t rows = g * c_total, tiles = rows * tiles_per_row;
+  const int64_t tile_blocks = (tiles + kPgWarps - 1) / kPgWarps;
+  const int64_t code_blocks = (g * n + kCodeThreads - 1) / kCodeThreads;
+  const int64_t reduce_blocks = (rows * (k + 1) + kReduceThreads - 1) / kReduceThreads;
+  if (tile_blocks > INT32_MAX || code_blocks > INT32_MAX || reduce_blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint64_t* code = static_cast<uint64_t*>(codes);
+  double* sums = static_cast<double*>(tile_sums);
+  float* part = static_cast<float*>(partials);
+  const float* p = static_cast<const float*>(ps);
+  const float* w = static_cast<const float*>(ws);
+  const int32_t* col = static_cast<const int32_t*>(perm);
+  const float* f = static_cast<const float*>(freqs);
+
+  codes_kernel<<<static_cast<unsigned>(code_blocks), kCodeThreads, 0, s>>>(
+      static_cast<const int64_t*>(digits), code, g * n, k);
+  cudaError_t launch = cudaGetLastError();
+  if (launch != cudaSuccess) return static_cast<int>(launch);
+  tile_sums_kernel<<<static_cast<unsigned>(tile_blocks), kPgThreads, 0, s>>>(w, sums, tiles, n,
+                                                                             tiles_per_row);
+  launch = cudaGetLastError();
+  if (launch != cudaSuccess) return static_cast<int>(launch);
+  // a few bucket widths of k, not one template a k: the build counts in set-up
+  const unsigned blocks = static_cast<unsigned>(tile_blocks);
+  if (k <= 10) {
+    launch = launch_pergenome_planes<10>(blocks, s, p, w, col, code, sums, f, part, tiles,
+                                         c_total, n, tiles_per_row, k);
+  } else if (k <= 16) {
+    launch = launch_pergenome_planes<16>(blocks, s, p, w, col, code, sums, f, part, tiles,
+                                         c_total, n, tiles_per_row, k);
+  } else {
+    launch = launch_pergenome_planes<kPgMaxK>(blocks, s, p, w, col, code, sums, f, part, tiles,
+                                              c_total, n, tiles_per_row, k);
+  }
+  if (launch != cudaSuccess) return static_cast<int>(launch);
+  pergenome_reduce_kernel<<<static_cast<unsigned>(reduce_blocks), kReduceThreads, 0, s>>>(
+      part, static_cast<float*>(s_out), static_cast<float*>(g2_out), rows, tiles_per_row, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""The shared lazy refresh's planes: the CUDA kernel and its plain PyTorch version.
+"""The lazy refresh's planes: the CUDA kernels and their plain PyTorch versions.
 
 ``refresh_planes(ps, perm, wn, freqs, digits, group)`` computes the planes of
 the shared-vocab lazy FSW route (``models.fsw.fsw_lazy_refresh``) from one
@@ -11,18 +11,28 @@ xi = freqs[c],
     g2[i, c] = sum_p ps[c, p] d delta_p / d xi,
     S[i, c, j, a] = sum_p delta_p [digit j of vocab entry perm[c, p] == a].
 
-It replaces no Pallas kernel (the JAX package's refresh is XLA,
-kf2vecfsw_tpu/models/fsw.py:337): ``csrc/lazy_refresh.cu`` fuses the
-gather, the coefficients, their xi-derivative, g2 and the segment sums into
-one walk that writes only S and g2.
+``pergenome_planes(ps, ws, perm, digits, freqs)`` computes the same planes
+on the per-genome route (``models.fsw.fsw_lazy_refresh_pergenome``), where
+each of G items owns its N points: from the sort of the G*C projection rows
+(row g*C + c: item g, slice c) with their sorted weights ws, w_p =
+ws[g*C + c, p] and the bases digits[g, perm[g*C + c, p]].
 
-On a CUDA tensor the wrapper launches that kernel or raises, under the span
-``fsw.refresh.planes``; on a CPU tensor it runs ``refresh_planes_reference``,
-the same function in plain tensor ops, in groups of ``group`` items (the
-spans ``fsw.refresh.gather``, ``.jvp`` and ``.reduce`` per group).
-``refresh_planes.launches`` counts the kernel's launches, one a refresh.
-The coefficients' plain formula (``quantile_coefficients``) lives here too:
-the exact FSW forward (``models.fsw``) uses it as well.
+Neither replaces a Pallas kernel (the JAX package's refreshes are XLA,
+kf2vecfsw_tpu/models/fsw.py:337 and :468): ``csrc/lazy_refresh.cu`` fuses
+the coefficients, their xi-derivative, g2 and the segment sums into walks
+that write only S and g2 (and, per genome, each tile's sums), with one entry
+point a route: the shared route's many items over one order, the per-genome
+route's few long rows.
+
+On a CUDA tensor each wrapper launches its kernel or raises, under the span
+``fsw.refresh.planes``; on a CPU tensor it runs its plain version
+(``refresh_planes_reference`` in groups of ``group`` items with the spans
+``fsw.refresh.gather``, ``.jvp`` and ``.reduce`` per group;
+``pergenome_planes_reference`` with the spans ``.jvp`` and ``.reduce``).
+``refresh_planes.launches`` counts the shared kernel's launches, one a
+refresh; ``pergenome_planes.launches`` the per-genome kernel's, one a
+refresh group. The coefficients' plain formula (``quantile_coefficients``)
+lives here too: the exact FSW forward (``models.fsw``) uses it as well.
 """
 
 from __future__ import annotations
@@ -35,11 +45,13 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.phases import phase
-from .sort import unsort
+from .sort import MAX_N, unsort
 
 _SQRT2 = math.sqrt(2.0)
 MAX_K = 9  # 2 bits a base in the kernel's 32-bit codes: the shared route's k
 MAX_VOCAB = 1 << 18  # models.fsw.FSW_SHARED_VOCAB_MAX, the shared route's largest vocab
+PERGENOME_MAX_K = 31  # 2 bits a base in the per-genome kernel's 64-bit codes: defaults.MAX_K_LEN
+PERGENOME_TILE = 4096  # kPgTile of csrc/lazy_refresh.cu: the positions of a tile of a row
 
 
 def quantile_coefficients(ws: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -127,6 +139,10 @@ def _lib() -> ctypes.CDLL:
     lib.lazy_refresh_error_string.restype = ctypes.c_char_p
     lib.lazy_refresh_staged_vocab_max.argtypes = []
     lib.lazy_refresh_staged_vocab_max.restype = i64
+    lib.lazy_refresh_pergenome_launch.argtypes = [p] * 10 + [i64, i64, i64, ctypes.c_int, i64, p]
+    lib.lazy_refresh_pergenome_launch.restype = ctypes.c_int
+    lib.lazy_refresh_pergenome_tile.argtypes = []
+    lib.lazy_refresh_pergenome_tile.restype = i64
     return lib
 
 
@@ -186,3 +202,123 @@ def refresh_planes(ps: torch.Tensor, perm: torch.Tensor, wn: torch.Tensor, freqs
 
 
 refresh_planes.launches = 0  # kernel launches in this process, one a refresh
+
+
+def pack_codes(digits: torch.Tensor) -> torch.Tensor:
+    """(..., ) int64 codes of (..., k) int64 bases in 0..3, base j in bits 2j
+    and 2j + 1: the plain version of the per-genome kernel's code table."""
+    shifts = 2 * torch.arange(digits.shape[-1], device=digits.device)
+    return ((digits & 3) << shifts).sum(-1)
+
+
+def pergenome_tiles(n: int) -> int:
+    """Tiles of a row of N positions in the per-genome kernel."""
+    return -(-n // PERGENOME_TILE)
+
+
+def pergenome_tile() -> int:
+    """The per-genome kernel's tile (``PERGENOME_TILE``, the host's copy,
+    which the card-only tests hold to it)."""
+    return int(_lib().lazy_refresh_pergenome_tile())
+
+
+def pergenome_scratch_bytes(g: int, c: int, n: int, k: int) -> int:
+    """Bytes a per-genome launch allocates beyond its inputs and outputs:
+    the code table (8 B a point), and for each tile its weights' sum in
+    double and its 3k + 2 float sums."""
+    tiles = g * c * pergenome_tiles(n)
+    return 8 * g * n + 8 * tiles + 4 * (3 * k + 2) * tiles
+
+
+def _check_pergenome(ps, ws, perm, digits, freqs) -> None:
+    for name, t, dtype in (("ps", ps, torch.float32), ("ws", ws, torch.float32),
+                           ("perm", perm, torch.int32), ("digits", digits, torch.int64),
+                           ("freqs", freqs, torch.float32)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+    for name, t in (("ws", ws), ("perm", perm), ("digits", digits), ("freqs", freqs)):
+        if t.device != ps.device:
+            raise ValueError(f"ps on {ps.device} but {name} on {t.device}")
+    if ps.dim() != 2 or digits.dim() != 3 or freqs.dim() != 1:
+        raise ValueError("pergenome_planes takes ps, ws and perm (G*C, N), digits (G, N, k) "
+                         "and freqs (C,)")
+    (rows, n), (g, nd, k), c = ps.shape, digits.shape, freqs.shape[0]
+    if ws.shape != ps.shape or perm.shape != ps.shape or nd != n or rows != g * c:
+        raise ValueError(f"shapes ps {tuple(ps.shape)}, ws {tuple(ws.shape)}, perm "
+                         f"{tuple(perm.shape)}, digits {tuple(digits.shape)} and freqs "
+                         f"{tuple(freqs.shape)} do not agree on G, C and N")
+    if g < 1 or c < 1 or not 1 <= n <= MAX_N or not 1 <= k <= PERGENOME_MAX_K:
+        raise ValueError(f"pergenome_planes takes G >= 1 items, C >= 1 slices, 1 <= N <= "
+                         f"{MAX_N} and 1 <= k <= {PERGENOME_MAX_K}, got {(g, c, n, k)}")
+
+
+def pergenome_planes_reference(ps: torch.Tensor, ws: torch.Tensor, perm: torch.Tensor,
+                               digits: torch.Tensor, freqs: torch.Tensor):
+    """Plain-ops version: delta and d delta / d xi by jvp over the (G, C, N)
+    sorted weights, g2 as the row sum against ps, S as the unsorted delta
+    times each item's (N, 4k) one-hot digit matrix. It drops ws once the jvp
+    is done and ps once g2 is; where it holds the only references (as
+    ``pergenome_planes`` hands them on) that frees them, as ``train.
+    fsw_lazy.pergenome_refresh_bytes`` counts."""
+    g, n, k = digits.shape
+    c = freqs.shape[0]
+    ps, ws, perm = ps.view(g, c, n), ws.view(g, c, n), perm.view(g, c, n)
+    with phase("fsw.refresh.jvp"):
+        delta, gdelta = delta_and_gdelta(ws, freqs, (1, -1, 1))
+    del ws
+    with phase("fsw.refresh.reduce"):
+        g2 = torch.sum(ps * gdelta, dim=-1)
+        del ps, gdelta
+        onehot = F.one_hot(digits, 4).reshape(g, n, 4 * k).to(torch.float32)
+        s = torch.bmm(unsort(delta, perm), onehot)
+    return s.reshape(g, c, k, 4), g2
+
+
+def _released(held: list) -> tuple:
+    """The items of ``held``, the list emptied: passed on as a call's
+    arguments they are the callee's only references."""
+    out = tuple(held)
+    held.clear()
+    return out
+
+
+def pergenome_planes(ps: torch.Tensor, ws: torch.Tensor, perm: torch.Tensor,
+                     digits: torch.Tensor, freqs: torch.Tensor):
+    """(S (G, C, k, 4), g2 (G, C)) of one per-genome refresh group from its
+    ``sort_rows``: ``ps`` and ``ws`` (G*C, N) the sorted projections and
+    weights (row g*C + c: item g, slice c), ``perm`` (G*C, N) their int32
+    columns, ``digits`` (G, N, k) int64 bases in 0..3 of each item's points
+    and ``freqs`` (C,). On the card ``perm`` must index each row's points
+    and the digits be in range: the kernel cannot check either without a
+    sync."""
+    _check_pergenome(ps, ws, perm, digits, freqs)
+    if ps.device.type == "cpu":
+        held = [ps, ws, perm]
+        del ps, ws, perm  # the plain version frees ws and ps once spent
+        return pergenome_planes_reference(*_released(held), digits, freqs)
+    if ps.device.type != "cuda":
+        raise ValueError(f"pergenome_planes runs on cuda or cpu tensors, not {ps.device}")
+    (g, n, k), c = digits.shape, freqs.shape[0]
+    tiles = pergenome_tiles(n)
+    lib = _lib()
+    with phase("fsw.refresh.planes"), torch.cuda.device(ps.device):
+        dev = ps.device
+        codes = torch.empty((g, n), dtype=torch.int64, device=dev)
+        tile_sums = torch.empty((g * c, tiles), dtype=torch.float64, device=dev)
+        partials = torch.empty((g * c, tiles, 3 * k + 2), dtype=torch.float32, device=dev)
+        s = torch.empty((g, c, k, 4), dtype=torch.float32, device=dev)
+        g2 = torch.empty((g, c), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lazy_refresh_pergenome_launch(
+            ps.data_ptr(), ws.data_ptr(), perm.data_ptr(), digits.data_ptr(), freqs.data_ptr(),
+            codes.data_ptr(), tile_sums.data_ptr(), partials.data_ptr(), s.data_ptr(),
+            g2.data_ptr(), g, c, n, k, tiles, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lazy_refresh_pergenome launch failed: "
+                           f"{lib.lazy_refresh_error_string(err).decode()} ({err})")
+    pergenome_planes.launches += 1
+    return s, g2
+
+
+pergenome_planes.launches = 0  # kernel launches in this process, one a refresh group

@@ -43,7 +43,11 @@ Three forwards train the model:
   sorted-weight gather, the cos/sinc coefficients, their xi-derivative, g2
   and the segment sums in one walk, with no (items, C, V) buffer; on the CPU
   its plain version takes the jvp of the exact forward's coefficients per
-  group of items. The per-genome refresh keeps torch ops on the card too.
+  group of items. The per-genome refresh sorts each group's own G*C rows and
+  hands the sort's outputs to a kernel of its own
+  (``kernels.refresh.pergenome_planes``, the same span): tiles of each long
+  row walked by warps, with no (G*C, N) buffer; on the CPU the same plain
+  jvp, unsort and one-hot product.
 
 On a grid with a model axis (``parallel.mesh.shard_module``) each rank
 holds d_out / n_model of the slices and frequencies and the matching input
@@ -69,7 +73,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.refresh import (
-    delta_and_gdelta,
+    pergenome_planes,
     quantile_coefficients,
     refresh_groups,
     refresh_planes,
@@ -350,41 +354,41 @@ def fsw_lazy_refresh(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Te
     return refresh_planes(ps, perm, wn, freqs, digits, group)
 
 
+def _sorted_group(slices: torch.Tensor, lookup: torch.Tensor, x: torch.Tensor):
+    """(ps, ws, perm, digits) of G padded point sets x (G, N, k+1): the
+    ``sort_rows`` of their (G*C, N) projections carrying the normalised
+    weight rows, and the (G, N, k) int64 digits, under the span
+    ``fsw.refresh.sort``; the keys die with it."""
+    with phase("fsw.refresh.sort"):
+        km = x[..., :-1].long()
+        keys = torch.einsum("cd,gnd->gcn", slices,
+                            lookup_points(lookup, km)).reshape(-1, x.shape[1])
+        return (*sort_rows(keys.contiguous(), _normalized(x[..., -1])), km)
+
+
 @torch.no_grad()
 def fsw_lazy_refresh_pergenome(slices: torch.Tensor, freqs: torch.Tensor, lookup: torch.Tensor,
                                x: torch.Tensor, group: int = 4):
     """(S (n, C, k, 4), g2 (n, C)) of the per-genome lazy path, from padded
     point sets x (n, N, k+1) whose genomes each own their points (short
     contigs, sparse clades, k > 9). Per group of ``group`` items: one
-    ``sort_rows`` of the G*C projection rows carrying the G weight rows,
-    delta and d delta / d xi, the unsort, and each item's own one-hot digit
-    matrix. Zero-weight padding rows add nothing to S or g2. Only one
-    group's buffers live at a time, each dropped once spent
-    (``train.fsw_lazy.refresh_transient_bytes`` counts the worst stage).
-    Spans per group: ``fsw.refresh.sort``, ``.jvp`` and ``.reduce``."""
-    n, npts, kp1 = x.shape
-    k = kp1 - 1
-    c = slices.shape[0]
+    ``sort_rows`` of the G*C projection rows carrying the G weight rows
+    (span ``fsw.refresh.sort``), then ``kernels.refresh.pergenome_planes``
+    on its outputs and the group's digits: on the card one launch of
+    ``csrc/lazy_refresh.cu``'s per-genome kernel (span ``fsw.refresh.
+    planes``), which writes nothing of size (G*C, N); on the CPU its plain
+    version, delta and d delta / d xi, the unsort and each item's own
+    one-hot digit matrix (spans ``.jvp`` and ``.reduce``). Zero-weight
+    padding rows add nothing to S or g2. Only one group's buffers live at a
+    time, each dropped once spent: the sort's outputs pass to the planes as
+    their only references (``train.fsw_lazy.refresh_transient_bytes``
+    counts the plain version's worst stage)."""
     s_out, g2_out = [], []
-    for rows in refresh_groups(n, group):
-        with phase("fsw.refresh.sort"):
-            km = x[rows, :, :k].long()
-            g = km.shape[0]
-            keys = torch.einsum("cd,gnd->gcn", slices,
-                                lookup_points(lookup, km)).reshape(g * c, npts)
-            ps, ws, perm = sort_rows(keys.contiguous(), _normalized(x[rows, :, -1]))
-            del keys
-            ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
-        with phase("fsw.refresh.jvp"):
-            delta, gdelta = delta_and_gdelta(ws, freqs, (1, -1, 1))
-        del ws
-        with phase("fsw.refresh.reduce"):
-            g2_out.append(torch.sum(ps * gdelta, dim=-1))
-            del ps, gdelta
-            onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
-            s_out.append(torch.bmm(unsort(delta, perm), onehot))
-            del km, delta, perm, onehot  # not alive beside the next group's jvp
-    return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
+    for rows in refresh_groups(x.shape[0], group):
+        s, g2 = pergenome_planes(*_sorted_group(slices, lookup, x[rows]), freqs)
+        s_out.append(s)
+        g2_out.append(g2)
+    return torch.cat(s_out), torch.cat(g2_out)
 
 
 def fsw_lazy_apply(model: FSWDistEmbed, s: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:

@@ -50,10 +50,15 @@ that holds no (G, C, V) buffer, so there the count is an upper bound and
 the gate admits the same clades as before. On the per-genome route
 (``pergenome_refresh_bytes``) the same pass holds 16 f32 buffers of the
 group's (G*C, N) rows, which outweighs the sort's outputs and, past
-``CLUSTER_ELEMS``, its radix scratch. On a grid with a model
-axis C is the rank's d_out / n_model slices: each rank refreshes the planes
-of its own slices (``kf2vecfsw_tpu/train/fsw_lazy.py:87-114,147-190``), so
-a refresh too large for one card may fit on a grid.
+``CLUSTER_ELEMS``, its radix scratch. On the card the per-genome planes
+come from a kernel of their own (``kernels.refresh.pergenome_planes``) that
+holds nothing of size (G*C, N) beyond the sort's outputs, so there the
+worst stage is the sort's and the count is an upper bound too: the gate
+admits the same clades with the same G as the plain route's count does. On
+a grid with a model axis C is the rank's d_out / n_model slices: each rank
+refreshes the planes of its own slices
+(``kf2vecfsw_tpu/train/fsw_lazy.py:87-114,147-190``), so a refresh too
+large for one card may fit on a grid.
 """
 
 from __future__ import annotations
@@ -87,8 +92,10 @@ def fsw_lazy_budget_bytes(device: str | torch.device) -> int:
 
 def pergenome_refresh_bytes(d_out: int, n: int, group: int, k: int, base_dim: int) -> int:
     """The live set of the worst stage of one group of ``fsw_lazy_refresh_
-    pergenome``: G point sets of N k-mers, d_out slices. Its int64 digits
-    (G, N, k) live through every stage; beside them, at most:
+    pergenome`` in plain torch ops (its CPU path; on the card, where the
+    planes' kernel runs, an upper bound): G point sets of N k-mers, d_out
+    slices. Its int64 digits (G, N, k) live through every stage; beside
+    them, at most:
     - the points: the (G, N, k, 4) one-hot in int64 and in f32, then the
       (G, N, k * base_dim) points beside the f32 one-hot;
     - the projections: the points and the (G*C, N) product, twice while the

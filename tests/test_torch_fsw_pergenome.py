@@ -1,6 +1,7 @@
 """The per-genome lazy FSW route at k = 10 against the benchmark's plain
-float64 reference (``bench_port/reference/pergenome.py``), and the
-refresh's counters (``utils.phases.count``).
+float64 reference (``bench_port/reference/pergenome.py``) and against
+the torch route its refresh replaced, and the refresh's counters
+(``utils.phases.count``).
 
 Small widths on the CPU: k = 10 (the canonical vocabulary past the shared
 route), base_dim 2, 16 slices, hidden 32, embedding 16, point sets of a few
@@ -10,16 +11,25 @@ pads them."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from bench_port.reference import kmers as ref_kmers
 from bench_port.reference import models as ref_models
 from bench_port.reference.pergenome import PerGenomeLazy
+from kf2vecfsw_tpu_torch.kernels.refresh import (
+    delta_and_gdelta,
+    pergenome_planes,
+    refresh_groups,
+)
+from kf2vecfsw_tpu_torch.kernels.sort import sort_rows, unsort
 from kf2vecfsw_tpu_torch.kmer.vocab import canonical_vocab_size
+from kf2vecfsw_tpu_torch.models import fsw as fsw_model
 from kf2vecfsw_tpu_torch.models.fsw import (
     FSWDistEmbed,
     fsw_lazy_refresh_pergenome,
     init_fsw_dist_embed_,
+    lookup_points,
     shared_vocab_applicable,
 )
 from kf2vecfsw_tpu_torch.train import step
@@ -93,6 +103,42 @@ def test_refresh_planes_match_the_reference(group):
         # of two projections that float32 orders the other way
         assert rel(s[i], s_ref) < 2e-5, i
         assert rel(g2[i], g2_ref) < 2e-5, i
+
+
+def _parent_refresh(slices, freqs, lookup, x, group):
+    """The per-genome refresh as its torch ops ran before its planes moved to
+    ``kernels.refresh.pergenome_planes``: per group the sort, the jvp, the
+    row sum, the unsort and the one-hot product."""
+    n, npts, kp1 = x.shape
+    k, c = kp1 - 1, slices.shape[0]
+    s_out, g2_out = [], []
+    for rows in refresh_groups(n, group):
+        km = x[rows, :, :k].long()
+        g = km.shape[0]
+        keys = torch.einsum("cd,gnd->gcn", slices, lookup_points(lookup, km)).reshape(g * c, npts)
+        ps, ws, perm = sort_rows(keys.contiguous(), fsw_model._normalized(x[rows, :, -1]))
+        ps, ws, perm = ps.view(g, c, npts), ws.view(g, c, npts), perm.view(g, c, npts)
+        delta, gdelta = delta_and_gdelta(ws, freqs, (1, -1, 1))
+        g2_out.append(torch.sum(ps * gdelta, dim=-1))
+        onehot = F.one_hot(km, 4).reshape(g, npts, 4 * k).to(torch.float32)
+        s_out.append(torch.bmm(unsort(delta, perm), onehot))
+    return torch.cat(s_out).reshape(n, c, k, 4), torch.cat(g2_out)
+
+
+@pytest.mark.parametrize("group", [1, 3])
+def test_refresh_equals_the_plain_route_it_replaced(group):
+    """On the CPU the refresh through ``pergenome_planes`` is the torch route
+    it replaced, bit for bit, on ``test_refresh_planes_match_the_reference``'s
+    point sets, and launches no kernel."""
+    x = torch.from_numpy(pad_point_sets(point_sets(1, [300, 57, 211, 128, 9])))
+    model, _ = model_and_params(2)
+    args = (model.slices.detach(), model.freqs.detach(), model.lookup.detach(), x, group)
+    launches = pergenome_planes.launches
+    s, g2 = fsw_lazy_refresh_pergenome(*args)
+    with torch.no_grad():
+        s_ref, g2_ref = _parent_refresh(*args)
+    assert torch.equal(s, s_ref) and torch.equal(g2, g2_ref)
+    assert pergenome_planes.launches == launches
 
 
 def test_padding_adds_nothing_to_the_reference():

@@ -26,6 +26,14 @@ on the card, at the training cell's 850 x 512 x 8,192, a model-axis rank's
 C = 256, k = 8 (V = 32,896) and k = 9 (V = 131,072) on a few items, V at
 either side of the shared-memory staging's limit, with an all-zero item
 every time; its device memory held to its count; one launch a refresh.
+``pergenome_planes`` (the same source's per-genome entry point): against
+the float64 reference of ``tests/torch_refresh_cases.py`` and its plain
+version at the tile seams (N in {1, tile - 1, tile, tile + 1, 646,000}, k
+in {1, 9, 10, 31}, G in {1, 3}) with zero-weight padding and an
+all-padding item; two launches bit-equal; its device memory its outputs,
+code table and tile partials; one launch a refresh group in ``LazyPlanes``;
+at the training cell's 512 x 646,000 its error against float64 no larger
+than the plain version's.
 Trainers: two epochs of ``train_classifier``, of the dense
 ``train_model_set``, of each FSW training route (shared-vocab and
 per-genome, lazy and exact) and of each chunk trainer on the card against
@@ -68,6 +76,11 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     tile_elems,
 )
 from kf2vecfsw_tpu_torch.kernels.refresh import (
+    PERGENOME_TILE,
+    pergenome_planes,
+    pergenome_planes_reference,
+    pergenome_scratch_bytes,
+    pergenome_tile,
     refresh_planes,
     refresh_planes_reference,
     scratch_bytes,
@@ -78,7 +91,14 @@ from kf2vecfsw_tpu_torch.models import fsw as fsw_model
 from kf2vecfsw_tpu_torch.models.fsw import FSWDistEmbed, init_fsw_dist_embed_
 from kf2vecfsw_tpu_torch.train.fsw_lazy import LazyPlanes
 
-from .torch_refresh_cases import plane_tolerance, planes_float64, refresh_inputs, rel_err
+from .torch_refresh_cases import (
+    pergenome_inputs,
+    pergenome_planes_float64,
+    plane_tolerance,
+    planes_float64,
+    refresh_inputs,
+    rel_err,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -894,3 +914,107 @@ def test_lazy_planes_launch_the_kernel_once_a_refresh(card):
         ps, _, perm = sort_rows(keys, wn[:1])
         s, g2 = refresh_planes(ps, perm, wn, model.freqs, digits)
     assert torch.equal(planes.s, s) and torch.equal(planes.g2, g2)
+
+
+def _pergenome_errors(inputs, got) -> dict[str, float]:
+    """The largest relative norm error of any item's S or g2: the kernel's
+    against float64 and against the plain version on the card, and the
+    plain version's against float64 (the all-padding item, which reads 0,
+    left out)."""
+    plain = pergenome_planes_reference(*inputs)
+    want = pergenome_planes_float64(*inputs)
+    g = got[1].shape[0]
+    items = range(g - 1 if g > 1 else g)
+    worst = {"kernel": 0.0, "kernel_vs_plain": 0.0, "plain": 0.0}
+    for a, b, w in zip(got, plain, want):
+        for i in items:
+            worst["kernel"] = max(worst["kernel"], rel_err(a[i], w[i]))
+            worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], rel_err(a[i], b[i]))
+            worst["plain"] = max(worst["plain"], rel_err(b[i], w[i]))
+    return worst
+
+
+def test_pergenome_tile_is_the_hosts(card):
+    assert pergenome_tile() == PERGENOME_TILE
+
+
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("k", [1, 9, 10, 31])
+@pytest.mark.parametrize("n", [1, PERGENOME_TILE - 1, PERGENOME_TILE, PERGENOME_TILE + 1,
+                               646_000])
+def test_pergenome_kernel_equals_float64_and_plain_version(card, n, k, g):
+    """Every item within ``plane_tolerance`` of float64, and within the plain
+    version's own error of it; a fifth of each item's points padding; at G =
+    3 a heavy item and an all-padding item, whose planes are exactly zero."""
+    c = 32
+    inputs = pergenome_inputs(g, c, n, k, 7 * n + k + g, card, real=n - n // 5)
+    before = pergenome_planes.launches
+    got = pergenome_planes(*inputs)
+    torch.cuda.synchronize()
+    assert pergenome_planes.launches == before + 1
+    assert got[0].shape == (g, c, k, 4) and got[1].shape == (g, c)
+    worst = _pergenome_errors(inputs, got)
+    tol = plane_tolerance(c)
+    assert worst["kernel"] <= tol and worst["kernel_vs_plain"] <= worst["plain"] + tol, (worst, tol)
+    if g > 1:
+        assert torch.equal(got[0][-1], torch.zeros_like(got[0][-1]))
+        assert torch.equal(got[1][-1], torch.zeros_like(got[1][-1]))
+
+
+def test_pergenome_kernel_is_deterministic(card):
+    """No float atomics: two launches give the same bits."""
+    inputs = pergenome_inputs(2, 64, 100_003, 10, 5, card, real=90_000)
+    a, b = pergenome_planes(*inputs), pergenome_planes(*inputs)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_pergenome_kernel_memory_is_its_outputs_codes_and_partials(card):
+    """The launch allocates its planes, its code table and its tile partials
+    (``pergenome_scratch_bytes``): nothing of size (G*C, N)."""
+    g, c, n, k = 2, 512, 200_000, 10
+    inputs = pergenome_inputs(g, c, n, k, 9, card)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pergenome_planes(*inputs)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown <= pergenome_scratch_bytes(g, c, n, k) + 4 * g * c * (4 * k + 1) + 5 * 512
+    assert grown < 4 * g * c * n  # not one f32 buffer of the rows
+
+
+def test_lazy_planes_launch_the_pergenome_kernel_once_a_group(card):
+    """A per-genome refresh of 5 items in groups of 2 is 3 sorts and 3
+    launches, and its planes are the wrapper's on those sorts, bit for bit."""
+    k, c, n = 10, 64, 3000
+    gen = torch.Generator().manual_seed(12)
+    model = init_fsw_dist_embed_(FSWDistEmbed(k, 2, c, 16, 8), gen).to(card)
+    x = torch.zeros(5, n, k + 1)
+    x[..., :k] = torch.randint(0, 4, (5, n, k), generator=gen).float()
+    x[:, : n - 500, -1] = torch.rand(5, n - 500, generator=gen)  # 500 padding rows each
+    x = x.to(card)
+    planes = LazyPlanes(x, False, 4, 3, 2)
+    sorts, launches = sort_rows.launches, pergenome_planes.launches
+    for _ in range(2):
+        planes.refresh(model)
+    torch.cuda.synchronize()
+    assert sort_rows.launches == sorts + 6 and pergenome_planes.launches == launches + 6
+    with torch.no_grad():
+        want = [pergenome_planes(*fsw_model._sorted_group(model.slices, model.lookup, x[rows]),
+                                 model.freqs) for rows in (slice(0, 2), slice(2, 4), slice(4, 5))]
+    assert torch.equal(planes.s, torch.cat([s for s, _ in want]))
+    assert torch.equal(planes.g2, torch.cat([g2 for _, g2 in want]))
+
+
+def test_pergenome_kernel_at_the_cell_is_closer_to_float64_than_plain(card):
+    """At ``fsw_k10.train_lazy``'s group (one item, 512 slices, N = 646,000
+    with 503,934 real points) the kernel's error against float64 is no
+    larger than the plain version's, in S and in g2."""
+    inputs = pergenome_inputs(1, 512, 646_000, 10, 2819900002, card, real=503_934)
+    got = pergenome_planes(*inputs)
+    plain = pergenome_planes_reference(*inputs)
+    want = pergenome_planes_float64(*inputs)
+    for a, b, w in zip(got, plain, want):
+        assert rel_err(a[0], w[0]) <= rel_err(b[0], w[0]), (rel_err(a[0], w[0]),
+                                                            rel_err(b[0], w[0]))
+    assert rel_err(got[0][0], want[0][0]) <= plane_tolerance(512)
