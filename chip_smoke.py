@@ -163,11 +163,8 @@ non-zero without one. Phases, each of which fails the run if it fails:
    query block), 512 of 32,896 and 512 of 131,072 (the shared-vocab sorts
    at k=8 and k=9), and on the radix path 512 rows of 262,144 (one k=10
    genome's refresh) and 1,024 rows of 524,800 with 16 payload rows (a
-   k=10 query block), each also on the global-merge path that such rows
-   took before, which the kernel must equal and not trail; the sort's
-   backward, an unsort
-   scatter,
-   at 512 and 8,192 rows of 8,192; ``refresh_planes`` at the lazy training
+   k=10 query block); the sort's backward, an unsort scatter, at 512 and
+   8,192 rows of 8,192; ``refresh_planes`` at the lazy training
    cell's 850 items x 512 slices x 8,192, against its plain version, beside
    its operations bound and its 30 ms goal; ``pergenome_planes`` at the k=10
    cell's group, 512 slices x 646,000 points (503,934 real) at k=10, against
@@ -253,7 +250,6 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     cluster_elems,
     cluster_shape,
     sort_rows,
-    sort_rows_merge,
     sort_rows_reference,
     sort_transient_bytes,
     tile_elems,
@@ -321,7 +317,7 @@ SORT_LENGTHS = (1, 2, 7, 128, 513, 2080, 8192, 8193, 16384, 16385, 17408, 17409,
                 32769, 32896, 34816, 34817, 49153, 131071, 131072, 131073)
 # the radix path's lengths (k = 10 point sets, its vocab of 524,800), at R in
 # {1, 33}: the lengths phase fsw_k10 sorts
-MERGE_SORT_ROWS, MERGE_SORT_LENGTHS = (1, 33), (262_144, 300_007, 524_800)
+RADIX_SORT_ROWS, RADIX_SORT_LENGTHS = (1, 33), (262_144, 300_007, 524_800)
 SORT_KINDS = ("normal", "ties_and_signed_zeros", "sorted", "reversed")
 # the radix path past 131,072 at R = 33 and P in {1, R, R/3}: its first
 # length and tile seams 16,384 j +- 1 (9, 16 and 32 tiles); a row of 68 tiles
@@ -334,8 +330,8 @@ RADIX_LONG_ROWS, RADIX_LONG_LENGTH = 2, 1_100_000
 RADIX_ADVERSARIAL = (33, 300_007, ("all_equal", "signed_zeros", "sorted", "reversed",
                                    "top_bytes_shared"))
 PHASE5_SORT = (16 * FSW_OUT_DIM, 8192, 16)  # rows, N, payload rows: one FSW query block
-# the cluster path's rows, each also timed on the global-merge path it replaces: a
-# query block at k=8 (V = 32,896), the shared-vocab sort at k=8 and at k=9
+# the cluster path's rows: a query block at k=8 (V = 32,896), the shared-vocab
+# sort at k=8 and at k=9
 PHASE5_SORT_LONG = ((16 * FSW_OUT_DIM, 32896, 16), (FSW_OUT_DIM, 32896, 1),
                     (FSW_OUT_DIM, 131072, 1))
 LONG_SORT_GOAL_MS = 6.0  # the redesign's goal at 8,192 x 32,896
@@ -359,7 +355,7 @@ PHASE5_PERGENOME = (FSW_OUT_DIM, 646_000, 503_934)
 # the radix path's rows: one k = 10 genome's refresh sort (512 slices of a
 # padded point set) and a k = 10 query block after auto_slice_chunk (16
 # genomes x 64 slices of 524,800)
-PHASE5_SORT_MERGE = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16))
+PHASE5_SORT_RADIX = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16))
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
@@ -476,7 +472,7 @@ K10, FSW_K10_EPOCHS = 10, 2
 V10 = canonical_vocab_size(K10)
 K10_LEAVES, K10_SIZE, K10_GENOME, K10_QUERIES = 16, 8, (300_000, 400_000), 4
 # the radix path's kernels in sort_rows.cu, which the traced k=10 epoch must hold
-MERGE_KERNELS = ("radix_upsweep_kernel", "radix_scan_kernel", "radix_downsweep_kernel")
+RADIX_KERNELS = ("radix_upsweep_kernel", "radix_scan_kernel", "radix_downsweep_kernel")
 # C6: one shared-route lazy refresh at k = 9 widths (V = 131,072, 512
 # slices) of C6_ITEMS items in groups of pick_refresh_group's G
 K9, C6_ITEMS = 9, 16
@@ -698,8 +694,8 @@ def phase_sort_vs_plain(dev) -> float:
         cases += 1
         log(f"phase sort_vs_plain: a model-axis rank's shape R={r} N={n} P={p} exact, perm "
             "equal on every row")
-    for r in MERGE_SORT_ROWS:  # the merge path at k = 10's lengths
-        for n in MERGE_SORT_LENGTHS:
+    for r in RADIX_SORT_ROWS:  # the radix path at k = 10's lengths
+        for n in RADIX_SORT_LENGTHS:
             tied = 0
             for p in sorted({1, r}):
                 for kind in SORT_KINDS:
@@ -2000,10 +1996,10 @@ def phase_fsw_k10(work: str) -> dict:
                          "NeuralNetFSW", k=K10)
     check(sorted(os.listdir(traces)) == [f"train_model_clade_{clade}"], f"traces {os.listdir(traces)}")
     kernels = kernel_events(os.path.join(traces, f"train_model_clade_{clade}"))
-    merge_kernels = {name: sum(name in e for e in kernels) for name in MERGE_KERNELS}
-    check(all(merge_kernels.values()), f"k=10 trace: merge kernels {merge_kernels} among "
+    radix_kernels = {name: sum(name in e for e in kernels) for name in RADIX_KERNELS}
+    check(all(radix_kernels.values()), f"k=10 trace: radix kernels {radix_kernels} among "
           f"{len(kernels)} kernel events")
-    out["trace"] = {"kernel_events": len(kernels), "merge_kernel_events": merge_kernels}
+    out["trace"] = {"kernel_events": len(kernels), "radix_kernel_events": radix_kernels}
 
     # the query of K10_QUERIES backbone genomes, all sent to one subtree
     members = sorted(g for g, c in clades.items() if c == clade)[:K10_QUERIES]
@@ -2965,10 +2961,8 @@ def phase_host_text(work: str) -> dict:
 
 def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
     """sort_rows at one shape against its plain version, one torch.sort and
-    its bound; a row on the cluster or the radix path also against the
-    global-merge path (``sort_rows_merge``: what such rows took before
-    those paths), which the kernel must match exactly and not trail, and a
-    row on the cluster path with the cluster's launch shape."""
+    its bound, and a row on the cluster path with the cluster's launch
+    shape."""
     r, n, p = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     keys = torch.randn(r, n, generator=gen, device=dev)
@@ -2993,16 +2987,8 @@ def phase_sort_timings(dev, shape: tuple[int, int, int], reps: int) -> dict:
         "bytes": n_bytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
         "faster_than_torch_sort": kernel_ms < library_ms,
     }
-    if n > tile_elems():
-        out["parent_ms"] = cuda_ms(lambda: sort_rows_merge(keys, payload), reps=reps)
-        merged = sort_rows_merge(keys, payload)
-        path = "cluster" if n <= cluster_elems() else "radix"
-        check(all(torch.equal(a, b) for a, b in zip(got, merged)),
-              f"{out['shape']}: the {path} path and the global-merge path differ")
-        check(kernel_ms <= out["parent_ms"], f"{out['shape']}: {kernel_ms} ms, slower than "
-              f"the global-merge path's {out['parent_ms']}")
-        if path == "cluster":
-            out["cluster"] = cluster_shape(n)
+    if tile_elems() < n <= cluster_elems():
+        out["cluster"] = cluster_shape(n)
     log(f"phase timings: sort_rows {json.dumps(out)}")
     return out
 
@@ -3128,8 +3114,8 @@ def main() -> int:
     axis_sort_timings = [phase_sort_timings(dev, shape, reps=50) for shape in MODEL_AXIS_SORTS]
     long_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 20)
                     for shape in PHASE5_SORT_LONG]
-    merge_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 10)
-                     for shape in PHASE5_SORT_MERGE]
+    radix_timings = [phase_sort_timings(dev, shape, reps=3 if shape[0] > FSW_OUT_DIM else 10)
+                     for shape in PHASE5_SORT_RADIX]
     unsort_timing = phase_unsort_timings(dev)
     refresh_timing = phase_refresh_timings(dev)
     pergenome_timing = phase_pergenome_timings(dev)
@@ -3207,10 +3193,10 @@ def main() -> int:
     for path in ("lazy_shared", "exact_shared", "query"):
         by_path["sort_rows"][f"fsw_k8_{path}"] = fsw_k8["launches"][path]["sort_rows"]
     by_path["kmer_hist"]["fsw_k10"] = fsw_k10["get_kmers_launches"]
-    merge_launches = {"fsw_k10_lazy": fsw_k10["lazy"]["launches"]["sort_rows"],
+    radix_launches = {"fsw_k10_lazy": fsw_k10["lazy"]["launches"]["sort_rows"],
                       "fsw_k10_exact": fsw_k10["exact"]["launches"]["sort_rows"],
                       "fsw_k10_query": fsw_k10["query"]["cuda"]["sort_rows"]}
-    by_path["sort_rows"].update(merge_launches)
+    by_path["sort_rows"].update(radix_launches)
     refresh_by_path = {
         "train_fsw": sum(run["launches"]["refresh_planes"] for run in fsw["routes"].values()),
         "fsw_k8_lazy_shared": fsw_k8["launches"]["lazy_shared"]["refresh_planes"],
@@ -3241,7 +3227,7 @@ def main() -> int:
         "bound_ms": sort_timing["bound_ms"], "bound_by": sort_timing["bound_by"],
         "library_ms": sort_timing["library_ms"],
         "long_rows": [{key: timing[key] for key in (
-            "shape", "ms", "parent_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cluster")}
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cluster")}
             for timing in long_timings],
         "long_rows_goal": {"shape": goal["shape"], "ms": goal["ms"], "goal_ms": LONG_SORT_GOAL_MS,
                            "goal_met": goal["ms"] <= LONG_SORT_GOAL_MS,
@@ -3249,10 +3235,10 @@ def main() -> int:
                            "faster_than_torch_sort": goal["ms"] < goal["library_ms"]},
         "long_launches_by_path": {path: fsw_k8["launches"][path]["sort_rows_long"]
                                   for path in ("lazy_shared", "exact_shared", "query")},
-        "merge_rows": [{key: timing[key] for key in (
-            "shape", "ms", "parent_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "faster_than_torch_sort")} for timing in merge_timings],
-        "merge_launches_by_path": merge_launches,
+        "radix_rows": [{key: timing[key] for key in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "faster_than_torch_sort")} for timing in radix_timings],
+        "radix_launches_by_path": radix_launches,
         "train_shape": {key: train_sort_timing[key] for key in
                         ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "model_axis_shapes": [{key: timing[key] for key in

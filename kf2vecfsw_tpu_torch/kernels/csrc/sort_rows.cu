@@ -55,31 +55,29 @@
 //   does not hold such a row with its indices, a cluster's does. Block b
 //   holds columns [b cap, (b + 1) cap) of the row, cap = 1024 threads times
 //   the fewest items a thread (9 to 17) with C cap >= n (at V = 32,896: 2
-//   blocks of 17,408, against 65,536 for the merge's power of two), so
-//   only the last block holds padding (largest key, index >= n), fewer
-//   than C * 1024 elements. The same LSD radix sort runs across the
-//   cluster: each block counts its digits per warp as the tile path does
-//   and publishes its 256 digit totals; after a cluster barrier every block
-//   reads the C totals through distributed shared memory and knows the
-//   offset of each of its (digit, warp) groups in the whole row (blocks in
-//   column order, so the pass stays stable); each item is stored, key and
-//   32-bit index, straight into the shared memory of the block that owns
-//   its rank; after a second barrier each block reads its ranks back. The
-//   row is read once and the outputs written once: the 16 B an element of
-//   the bound, no scratch and no pass through device memory, where the
-//   merge below moves about ten times that. What is left, by the clock64
-//   breakdown of profile_sort_rows.py on an H100 at 8,192 rows of 32,896:
-//   the warp-private counting (with the read-back) and the scatter of the
-//   pairs about a third of the time each, the output a fifth, the two
-//   cluster barriers a tenth. The scatter costs per store, alike into a
-//   peer and into the block itself: it is the shared memory pipe, through
-//   the bank conflicts of random ranks, as in the tile path. Fewer, fuller
-//   blocks are faster: one 8-byte pair a store beats a key and an index
-//   stored apart, 1024 threads beat 768 (more warps, less padding), and 2
-//   blocks of 17 items beat 3 of 11 at V = 32,896 (less of the row crosses
-//   to a peer, and the card holds 66 two-block clusters on all 132 SMs
-//   against 39 three-block ones on 117), though at 64 registers a thread
-//   more items spill more.
+//   blocks of 17,408), so only the last block holds padding (largest key,
+//   index >= n), fewer than C * 1024 elements. The same LSD radix sort runs
+//   across the cluster: each block counts its digits per warp as the tile
+//   path does and publishes its 256 digit totals; after a cluster barrier
+//   every block reads the C totals through distributed shared memory and
+//   knows the offset of each of its (digit, warp) groups in the whole row
+//   (blocks in column order, so the pass stays stable); each item is stored,
+//   key and 32-bit index, straight into the shared memory of the block that
+//   owns its rank; after a second barrier each block reads its ranks back.
+//   The row is read once and the outputs written once: the 16 B an element of
+//   the bound, no scratch and no pass through device memory. What is left, by
+//   the clock64 breakdown of profile_sort_rows.py on an H100 at 8,192 rows of
+//   32,896: the warp-private counting (with the read-back) and the scatter of
+//   the pairs about a third of the time each, the output a fifth, the two
+//   cluster barriers a tenth. The scatter costs per store, alike into a peer
+//   and into the block itself: it is the shared memory pipe, through the bank
+//   conflicts of random ranks, as in the tile path. Fewer, fuller blocks are
+//   faster: one 8-byte pair a store beats a key and an index stored apart,
+//   1024 threads beat 768 (more warps, less padding), and 2 blocks of 17
+//   items beat 3 of 11 at V = 32,896 (less of the row crosses to a peer, and
+//   the card holds 66 two-block clusters on all 132 SMs against 39
+//   three-block ones on 117), though at 64 registers a thread more items
+//   spill more.
 //   Staging a block's items in digit order so that warps store runs,
 //   explicit st.shared::cluster stores, 512-thread blocks two to an SM and
 //   __match_any_sync in place of the lane masks gained nothing or lost.
@@ -92,28 +90,16 @@
 //   the tile, ranks its items stably by digit with the tile path's block
 //   machinery (warp_digit_ranks, scan_digit_warp), stages them in digit
 //   order in shared memory and stores each digit's run contiguously (about
-//   64 elements a run) from its start. The first pass reads the f32 keys
-//   (the column is the index), the last writes the outputs and gathers the
-//   payload, so there is no presort and no output pass; between them the
-//   passes alternate between a scratch of 32-bit keys and columns (rows, n)
-//   and the outputs' own storage. No padding: the last tile's items past n
-//   rank after the rest and are not stored. Each pass keeps the order of
-//   equal digits and the first pass's order is the column, so perm is the
-//   tile path's. Traffic: 16 B an element in the first pass, 20 in the
-//   middle two, 24 in the last (80 in all, 5x the 16 B of the bound), where
-//   the bitonic merge it replaces (the global-merge path below, kept
-//   callable for timing only) moved about 430 B a padded element at n_pad =
-//   2^20 through 21 device-memory passes and 6 tile passes.
-// - The global-merge path (sort_rows_merge_launch, any n > kTile): the row
-//   is padded to the next power of two n_pad with (largest key, index >= n),
-//   which sorts after every real element. One block per tile radix-sorts
-//   its tile and stores 64-bit (key, global index) pairs to a scratch row
-//   in device memory, even tiles ascending and odd tiles descending; then,
-//   for each bitonic merge size above kTile, one device-memory pass per
-//   stride >= kTile and one shared-memory pass per tile for the strides
-//   below it. The last tile pass writes the outputs. The pairs are unique
-//   and the tiles hold them in index order on ties, so this path gives the
-//   same permutation as the tile path.
+//   64 elements a run) from its start. The first pass reads the f32 keys (the
+//   column is the index), the last writes the outputs and gathers the
+//   payload, so no launch of its own converts the keys or writes the outputs;
+//   between them the passes alternate between a scratch of 32-bit keys and
+//   columns (rows, n) and the outputs' own storage. No padding: the last
+//   tile's items past n rank after the rest and are not stored. Each pass
+//   keeps the order of equal digits and the first pass's order is the column,
+//   so perm is the tile path's. Traffic: 16 B an element in the first pass,
+//   20 in the middle two, 24 in the last (80 in all, 5x the 16 B of the
+//   bound).
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -134,13 +120,11 @@ constexpr int kClusterItems = 17;                 // the most keys such a thread
 constexpr int kClusterElems = kMaxCluster * kTile;  // 131,072: a row a cluster sorts
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
-constexpr int kGlobalThreads = 256;
 constexpr int kUpThreads = 512;                   // threads of a radix upsweep block
 constexpr int kUpItems = kTile / kUpThreads;      // keys each of them counts
 constexpr int kScanThreads = 1024;                // threads of a radix scan block
 constexpr int kRadixPasses = 32 / kRadixBits;
-constexpr int64_t kMaxGlobalBlocks = int64_t(1) << 20;
-constexpr int64_t kMaxN = int64_t(1) << 30;      // n_pad and indices stay below 2^31
+constexpr int64_t kMaxN = int64_t(1) << 30;      // columns and perm are int32
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t ordered(float f) {
@@ -397,104 +381,6 @@ sort_rows_tile_kernel(const float* __restrict__ keys, const float* __restrict__ 
   load_items<kThreads>(keys + row * n, n, key);
   block_radix_sort<kThreads>(key, s);
   write_row<kThreads>(s, row, n, group, payload, out_keys, out_payload, perm);
-}
-
-// n > kTile, step 1: block (row, tile) radix-sorts its tile (blockDim.x ==
-// kMaxThreads) and stores (key, global index) pairs to scratch (rows, n_pad),
-// descending on odd tiles, as the first bitonic merge above kTile expects.
-__global__ void __launch_bounds__(kMaxThreads)
-presort_tiles_kernel(const float* __restrict__ keys, uint64_t* __restrict__ scratch, int64_t n,
-                     int64_t n_pad, int64_t n_tiles) {
-  extern __shared__ uint4 smem_raw[];
-  const Layout<kMaxThreads> s(smem_raw);
-  const int64_t row = blockIdx.x / n_tiles;
-  const int64_t tile = blockIdx.x % n_tiles;
-  const int64_t base = tile * kTile;
-  const int64_t left = n - base;
-  const int n_valid = left <= 0 ? 0 : (left >= kTile ? kTile : static_cast<int>(left));
-  uint32_t key[kItems];
-  load_items<kMaxThreads>(keys + row * n + (n_valid > 0 ? base : 0), n_valid, key);
-  block_radix_sort<kMaxThreads>(key, s);
-  uint64_t* out = scratch + row * n_pad + base;
-  const bool descending = tile & 1;
-  for (int j = threadIdx.x; j < kTile; j += kMaxThreads) {
-    const uint64_t pair = (static_cast<uint64_t>(s.keys[j]) << 32) |
-                          static_cast<uint64_t>(base + s.index[j]);
-    out[descending ? kTile - 1 - j : j] = pair;
-  }
-}
-
-// The compare-exchange stages of merge size `size`, strides stride0 down to
-// 1, on the tile s[0, n) whose first element is element `base` of the padded
-// row. Every thread of the block calls it (it synchronises).
-__device__ void merge_in_tile(uint64_t* s, int n, int64_t base, int64_t size, int stride0) {
-  for (int stride = stride0; stride > 0; stride >>= 1) {
-    for (int t = threadIdx.x; t < n / 2; t += blockDim.x) {
-      const int i = 2 * t - (t & (stride - 1));
-      const int j = i + stride;
-      const bool ascending = ((base + i) & size) == 0;
-      const uint64_t a = s[i];
-      const uint64_t b = s[j];
-      if ((a > b) == ascending) {
-        s[i] = b;
-        s[j] = a;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// n > kTile: one compare-exchange stage (size, stride >= kTile) over
-// every row, in device memory.
-__global__ void __launch_bounds__(kGlobalThreads)
-merge_global_kernel(uint64_t* __restrict__ scratch, int64_t n_pad, int64_t size, int64_t stride,
-                    int64_t n_pairs) {
-  const int64_t half = n_pad / 2;
-  for (int64_t p = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; p < n_pairs;
-       p += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t row = p / half;
-    const int64_t t = p - row * half;
-    const int64_t i = 2 * t - (t & (stride - 1));
-    uint64_t* r = scratch + row * n_pad;
-    const bool ascending = (i & size) == 0;
-    const uint64_t a = r[i];
-    const uint64_t b = r[i + stride];
-    if ((a > b) == ascending) {
-      r[i] = b;
-      r[i + stride] = a;
-    }
-  }
-}
-
-// n > kTile: the strides below kTile of merge size `size`, per tile in
-// shared memory; the last merge (size == n_pad) writes the outputs.
-__global__ void __launch_bounds__(kMaxThreads)
-merge_tiles_kernel(uint64_t* __restrict__ scratch, const float* __restrict__ payload,
-                   float* __restrict__ out_keys, float* __restrict__ out_payload,
-                   int32_t* __restrict__ perm, int64_t n, int64_t n_pad, int64_t n_tiles,
-                   int64_t size, int64_t group) {
-  extern __shared__ uint64_t smem[];
-  const int64_t row = blockIdx.x / n_tiles;
-  const int64_t base = (blockIdx.x % n_tiles) * kTile;
-  uint64_t* buf = scratch + row * n_pad + base;
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) smem[i] = buf[i];
-  __syncthreads();
-  merge_in_tile(smem, kTile, base, size, kTile / 2);
-  if (size != n_pad) {
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) buf[i] = smem[i];
-    return;
-  }
-  const float* prow = payload + (row / group) * n;
-  const int64_t out0 = row * n;
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const int64_t j = base + i;
-    if (j >= n) break;
-    const uint64_t c = smem[i];
-    const uint32_t idx = static_cast<uint32_t>(c);
-    out_keys[out0 + j] = unordered(static_cast<uint32_t>(c >> 32));
-    perm[out0 + j] = static_cast<int32_t>(idx);
-    out_payload[out0 + j] = prow[idx];
-  }
 }
 
 // n > kClusterElems, step 1 of a radix pass: block (row, tile) counts the
@@ -964,51 +850,6 @@ cudaError_t with_cluster_items(int64_t n, F f) {
   }
 }
 
-int64_t next_pow2(int64_t n) {
-  int64_t p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// The global-merge path (n > kTile) through device memory: presort, then the
-// bitonic merges.
-cudaError_t launch_merge(const float* k, const float* p, float* ok, float* op, int32_t* pm,
-                         uint64_t* sc, int64_t rows, int64_t n, int64_t group, cudaStream_t s) {
-  if (sc == nullptr) return cudaErrorInvalidValue;
-  const int64_t n_pad = next_pow2(n);
-  const int64_t n_tiles = n_pad / kTile;
-  if (rows > INT_MAX / n_tiles) return cudaErrorInvalidValue;
-  const unsigned tile_blocks = static_cast<unsigned>(rows * n_tiles);
-  const int presort_smem = Layout<kMaxThreads>::kBytes;
-  const int merge_smem = static_cast<int>(kTile * sizeof(uint64_t));
-  cudaError_t err = cudaFuncSetAttribute(presort_tiles_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, presort_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(merge_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             merge_smem);
-  if (err != cudaSuccess) return err;
-
-  presort_tiles_kernel<<<tile_blocks, kMaxThreads, presort_smem, s>>>(k, sc, n, n_pad, n_tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t n_pairs = rows * (n_pad / 2);
-  int64_t global_blocks = (n_pairs + kGlobalThreads - 1) / kGlobalThreads;
-  if (global_blocks > kMaxGlobalBlocks) global_blocks = kMaxGlobalBlocks;
-  for (int64_t size = 2 * int64_t(kTile); size <= n_pad; size <<= 1) {
-    for (int64_t stride = size / 2; stride >= kTile; stride >>= 1) {
-      merge_global_kernel<<<static_cast<unsigned>(global_blocks), kGlobalThreads, 0, s>>>(
-          sc, n_pad, size, stride, n_pairs);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    merge_tiles_kernel<<<tile_blocks, kMaxThreads, merge_smem, s>>>(
-        sc, p, ok, op, pm, n, n_pad, n_tiles, size, group);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 // The radix path's buffers: the keys, payload and outputs of
 // sort_rows_launch, and the scratch keys and columns, (rows, n) each, and
 // the digit counts, (rows, 256, n_tiles).
@@ -1211,25 +1052,6 @@ int sort_rows_radix_step(const void* keys, const void* payload, void* out_keys, 
   cudaError_t err = radix_prepare(a);
   if (err == cudaSuccess) err = radix_step(a, pass, step, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
-}
-
-// The global-merge path for any n > kTile: what rows of kTile < n <=
-// kClusterElems took before the cluster path and rows past kClusterElems
-// before the radix path, kept callable so that a timing can hold those
-// paths against it on one card; sort_rows_launch never calls it. Arguments
-// as sort_rows_launch's, but one scratch of (rows, next_pow2(n)) 64-bit
-// pairs, always needed.
-int sort_rows_merge_launch(const void* keys, const void* payload, void* out_keys,
-                           void* out_payload, void* perm, void* scratch, int64_t rows, int64_t n,
-                           int64_t payload_rows, void* stream) {
-  if (!valid_shape(rows, n, payload_rows) || n <= kTile) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(launch_merge(
-      static_cast<const float*>(keys), static_cast<const float*>(payload),
-      static_cast<float*>(out_keys), static_cast<float*>(out_payload), static_cast<int32_t*>(perm),
-      static_cast<uint64_t*>(scratch), rows, n, rows / payload_rows,
-      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

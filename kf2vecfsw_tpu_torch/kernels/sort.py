@@ -15,11 +15,12 @@ in column order, so ``perm`` is fully determined, ties included. (B3 and
 ``lax.sort(is_stable=False)`` may order ties otherwise: the sorted keys
 agree on every row, the payload and ``perm`` on rows without ties.)
 
-The kernel takes a row by its length: up to ``tile_elems()`` (16,384) one
-thread block sorts it in shared memory; up to ``cluster_elems()`` (131,072:
-the k = 8 and k = 9 point sets and vocabularies) one thread block cluster
-sorts it in distributed shared memory; longer rows take an LSD radix sort
-through device memory, 4 passes over tiles of ``tile_elems()``.
+The kernel's one entry point takes a row by its length, one algorithm a
+length band: up to ``tile_elems()`` (16,384) one thread block sorts it in
+shared memory; up to ``cluster_elems()`` (131,072: the k = 8 and k = 9
+point sets and vocabularies) one thread block cluster sorts it in
+distributed shared memory; longer rows take an LSD radix sort through
+device memory, 4 passes over tiles of ``tile_elems()``.
 ``sort_rows.launches`` counts every launch, ``sort_rows.long_launches``
 those of the cluster path.
 
@@ -43,13 +44,10 @@ import math
 
 import torch
 
-MAX_N = 1 << 30  # the global-merge path pads long rows to a power of two and indexes in int32
+MAX_N = 1 << 30  # columns and perm are int32
 TILE_ELEMS = 16_384  # kTile of csrc/sort_rows.cu: the radix path's tile
 CLUSTER_ELEMS = 131_072  # kClusterElems of csrc/sort_rows.cu: longer rows take the radix path
 RADIX = 256  # digits of a radix pass: the radix path counts (R, RADIX, tiles)
-# the scratch buffers each C entry point takes, in its argument order
-SCRATCH = {"sort_rows_launch": ("scratch_keys", "scratch_index", "counts"),
-           "sort_rows_merge_launch": ("scratch",)}
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -102,9 +100,8 @@ def _lib() -> ctypes.CDLL:
     lib = load("sort_rows")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sort_rows_launch.argtypes = [p] * 8 + [i64, i64, i64, p]
-    lib.sort_rows_merge_launch.argtypes = [p] * 6 + [i64, i64, i64, p]
     lib.sort_rows_radix_step.argtypes = [p] * 8 + [i64, i64, i64, i32, i32, p]
-    for name in ("sort_rows_launch", "sort_rows_merge_launch", "sort_rows_radix_step"):
+    for name in ("sort_rows_launch", "sort_rows_radix_step"):
         getattr(lib, name).restype = ctypes.c_int
     lib.sort_rows_error_string.argtypes = [ctypes.c_int]
     lib.sort_rows_error_string.restype = ctypes.c_char_p
@@ -151,20 +148,15 @@ def items_per_thread() -> int:
     return int(_lib().sort_rows_items_per_thread())
 
 
-def launch_buffers(r: int, n: int, entry: str = "sort_rows_launch",
-                   ) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
-    """(shape, dtype) of each buffer one launch of the C entry point
-    ``entry`` on (R, N) keys allocates: the sorted keys and payload,
-    ``perm``, and the scratch its path needs: for ``sort_rows_launch`` past
-    ``CLUSTER_ELEMS`` the radix path's (R, N) keys and columns and its
-    (R, RADIX * ceil(N / TILE_ELEMS)) digit counts, all 32-bit; for
-    ``sort_rows_merge_launch`` the global-merge path's (R, next_pow2(N))
-    int64 pairs."""
+def launch_buffers(r: int, n: int) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
+    """(shape, dtype) of each buffer one ``sort_rows`` launch on (R, N) keys
+    allocates, in the C entry point's argument order: the sorted keys and
+    payload, ``perm`` and, past ``CLUSTER_ELEMS``, the radix path's (R, N)
+    keys and columns and its (R, RADIX * ceil(N / TILE_ELEMS)) digit
+    counts, all 32-bit."""
     out = {"keys": ((r, n), torch.float32), "payload": ((r, n), torch.float32),
            "perm": ((r, n), torch.int32)}
-    if entry == "sort_rows_merge_launch":
-        out["scratch"] = ((r, 1 << (n - 1).bit_length()), torch.int64)
-    elif n > CLUSTER_ELEMS:
+    if n > CLUSTER_ELEMS:
         out["scratch_keys"] = ((r, n), torch.int32)
         out["scratch_index"] = ((r, n), torch.int32)
         out["counts"] = ((r, RADIX * -(-n // TILE_ELEMS)), torch.int32)
@@ -192,7 +184,7 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         return sort_rows_reference(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
-    out = _launch("sort_rows_launch", keys, payload)
+    out = _launch(keys, payload)
     sort_rows.launches += 1
     if tile_elems() < keys.shape[1] <= CLUSTER_ELEMS:
         sort_rows.long_launches += 1
@@ -203,37 +195,21 @@ sort_rows.launches = 0  # kernel launches in this process
 sort_rows.long_launches = 0  # those of them on the cluster path
 
 
-def _launch(entry: str, keys: torch.Tensor, payload: torch.Tensor):
-    """Buffers allocated (``launch_buffers``) and one launch of the C entry
-    point ``entry`` on the current stream of the keys' card; raises on a
-    launch error."""
+def _launch(keys: torch.Tensor, payload: torch.Tensor):
+    """Buffers allocated (``launch_buffers``) and one launch of
+    ``sort_rows_launch`` on the current stream of the keys' card; raises on
+    a launch error."""
     (r, n), p = keys.shape, payload.shape[0]
-    bufs = {name: torch.empty(shape, dtype=dtype, device=keys.device)
-            for name, (shape, dtype) in launch_buffers(r, n, entry).items()}
-    scratch = [bufs[name].data_ptr() if name in bufs else None for name in SCRATCH[entry]]
+    bufs = [torch.empty(shape, dtype=dtype, device=keys.device)
+            for shape, dtype in launch_buffers(r, n).values()]
+    ptrs = [t.data_ptr() for t in bufs]
+    ptrs += [None] * (6 - len(ptrs))  # null scratch up to CLUSTER_ELEMS
     lib = _lib()
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        err = getattr(lib, entry)(
-            keys.data_ptr(), payload.data_ptr(), bufs["keys"].data_ptr(),
-            bufs["payload"].data_ptr(), bufs["perm"].data_ptr(), *scratch, r, n, p, stream,
-        )
+        err = lib.sort_rows_launch(keys.data_ptr(), payload.data_ptr(), *ptrs, r, n, p, stream)
     if err != 0:
         raise RuntimeError(
             f"sort_rows launch failed: {lib.sort_rows_error_string(err).decode()} ({err})"
         )
-    return bufs["keys"], bufs["payload"], bufs["perm"]
-
-
-def sort_rows_merge(keys: torch.Tensor, payload: torch.Tensor):
-    """``sort_rows`` of CUDA tensors with N > tile_elems() through the
-    global-merge path, whatever N: the path rows of tile_elems() < N <=
-    cluster_elems() took before the cluster path, and longer rows before
-    the radix path. No caller in the package uses it; a timing holds those
-    paths against it on one card. Counts no launch."""
-    _check(keys, payload)
-    if keys.device.type != "cuda":
-        raise ValueError(f"sort_rows_merge takes CUDA tensors, not {keys.device}")
-    if keys.shape[1] <= tile_elems():
-        raise ValueError(f"sort_rows_merge takes rows longer than {tile_elems()}")
-    return _launch("sort_rows_merge_launch", keys, payload)
+    return tuple(bufs[:3])

@@ -12,7 +12,7 @@ shared-vocab sorts at k=8 and k=9), on seeded random keys:
    counter after every barrier of the cluster kernel (thread 0 of each
    block adds the cycles since its last mark), one launch each; prints each
    phase's share of the summed cycles and the launch's time;
-2. the radix path's breakdown at its shapes (MERGE_SHAPES: a k = 10
+2. the radix path's breakdown at its shapes (RADIX_SHAPES: a k = 10
    genome's refresh sort, 512 rows of 262,144, and a k = 10 query block,
    1,024 rows of 524,800 with 16 payload rows): each of its 12 launches
    (upsweep, scan and downsweep of 4 passes) alone through
@@ -38,7 +38,7 @@ import subprocess
 import sys
 
 SHAPES = ((8192, 32896, 16), (512, 32896, 1), (512, 131072, 1))
-MERGE_SHAPES = ((512, 262_144, 1), (1024, 524_800, 16))
+RADIX_SHAPES = ((512, 262_144, 1), (1024, 524_800, 16))
 REPS = {8192: 5, 512: 30, 1024: 3}
 RADIX_REPS = 5
 STEPS = ("upsweep", "scan", "downsweep")
@@ -181,13 +181,12 @@ def radix_breakdown() -> None:
     from kf2vecfsw_tpu_torch.kernels import sort
 
     lib = sort._lib()
-    for shape in MERGE_SHAPES:
+    for shape in RADIX_SHAPES:
         r, n, p = shape
         keys, payload = inputs(torch, shape)
         bufs = {name: torch.empty(size, dtype=dtype, device="cuda")
                 for name, (size, dtype) in sort.launch_buffers(r, n).items()}
-        ptrs = [keys.data_ptr(), payload.data_ptr()] + [
-            bufs[name].data_ptr() for name in ("keys", "payload", "perm", *sort.SCRATCH["sort_rows_launch"])]
+        ptrs = [keys.data_ptr(), payload.data_ptr()] + [t.data_ptr() for t in bufs.values()]
         stream = torch.cuda.current_stream().cuda_stream
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(13)]
         total = [0.0] * 12
@@ -222,14 +221,14 @@ def radix_breakdown() -> None:
 
 
 def time_here() -> None:
-    """The current checkout's sort_rows at SHAPES and MERGE_SHAPES (run from
+    """The current checkout's sort_rows at SHAPES and RADIX_SHAPES (run from
     its root)."""
     sys.path.insert(0, os.getcwd())  # ahead of this script's own directory
     import torch
 
     from kf2vecfsw_tpu_torch.kernels.sort import sort_rows
 
-    for shape in SHAPES + MERGE_SHAPES:
+    for shape in SHAPES + RADIX_SHAPES:
         keys, payload = inputs(torch, shape)
         ms = cuda_ms(torch, lambda: sort_rows(keys, payload), REPS[shape[0]])
         print(json.dumps({"root": os.path.basename(os.getcwd()),

@@ -95,40 +95,38 @@ def _card_like_sort(keys, payload):
     return bufs["keys"], bufs["payload"], bufs["perm"]
 
 
-def _next_pow2(n):
-    return 1 << (n - 1).bit_length()
-
-
+# fsw_k7's shared sort, the tile's last length, a k = 8 query block's rows,
+# radix tile seams, the k = 10 vocab and fsw_k10's padded row among them
 @pytest.mark.parametrize("r,n,p", [(1, 1, 1), (33, 16_385, 1), (4, 131_072, 4), (3, 131_073, 1),
-                                   (2, 262_144, 2), (1, 300_007, 1)])
-@pytest.mark.parametrize("entry", ["sort_rows_launch", "sort_rows_merge_launch"])
-def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p, entry):
-    """``_launch`` allocates ``launch_buffers`` and hands the entry point
-    the scratch its path needs (the merge entry always its pairs,
-    ``sort_rows_launch`` past CLUSTER_ELEMS the radix path's three
-    buffers); for ``sort_rows_launch`` their bytes are
-    ``sort_transient_bytes``."""
+                                   (2, 262_144, 2), (1, 300_007, 1), (512, 8_192, 1),
+                                   (1, 16_384, 1), (16, 32_896, 16), (1, 147_457, 1),
+                                   (4, 262_145, 1), (1, 524_800, 1), (1, 646_000, 1),
+                                   (1, 1_100_000, 1)])
+def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p):
+    """``_launch`` allocates ``launch_buffers``, whose bytes are
+    ``sort_transient_bytes``, and hands ``sort_rows_launch`` the radix
+    path's three scratch buffers past CLUSTER_ELEMS and null scratch up to
+    it."""
     seen = {}
 
     def fake_entry(*args):
         seen["scratch"] = args[5:-4]
         return 0
 
-    monkeypatch.setattr(sort_mod, "_lib", lambda: types.SimpleNamespace(**{entry: fake_entry}))
+    monkeypatch.setattr(sort_mod, "_lib",
+                        lambda: types.SimpleNamespace(sort_rows_launch=fake_entry))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
     keys, payload = torch.zeros(r, n), torch.zeros(p, n)
-    scratch = entry == "sort_rows_merge_launch" or n > CLUSTER_ELEMS
     with LiveBytes(keys, payload) as live:
-        out = sort_mod._launch(entry, keys, payload)
+        out = sort_mod._launch(keys, payload)
     assert [tuple(t.shape) for t in out] == [(r, n)] * 3
     assert [t.dtype for t in out] == [torch.float32, torch.float32, torch.int32]
-    assert [ptr is not None for ptr in seen["scratch"]] == [scratch] * len(sort_mod.SCRATCH[entry])
-    buffers = launch_buffers(r, n, entry)
+    assert [ptr is not None for ptr in seen["scratch"]] == [n > CLUSTER_ELEMS] * 3
+    buffers = launch_buffers(r, n)
     assert live.peak == sum(np.prod(s) * d.itemsize for s, d in buffers.values())
-    if entry == "sort_rows_launch":
-        assert live.peak == sort_transient_bytes(r, n, p)
+    assert live.peak == sort_transient_bytes(r, n, p)
 
 
 def test_sort_transient_bytes_by_hand():
@@ -143,9 +141,6 @@ def test_sort_transient_bytes_by_hand():
     # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800, 33 tiles
     assert sort_transient_bytes(4096, 524_800, 8) == 20 * 4096 * 524_800 + 4 * 4096 * 256 * 33
     assert sort_transient_bytes(4096, 524_800, 8) == 43_130_028_032
-    # the global-merge path (the parent's, timing only) keeps its padded pairs
-    assert launch_buffers(33, 131_073, "sort_rows_merge_launch")["scratch"] == (
-        (33, 262_144), torch.int64)
     for bad in ((0, 8, 1), (8, 0, 1), (8, 8, 3), (8, (1 << 30) + 1, 1)):
         with pytest.raises(ValueError):
             sort_transient_bytes(*bad)

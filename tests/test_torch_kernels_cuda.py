@@ -11,13 +11,11 @@ block sizes of the radix tile sort, the cluster path's lengths from 16,385
 to 131,072 with its seams and 131,073 (the first length on the radix
 path), the radix path at k = 10's lengths (262,144 to 524,800), its tile
 seams and adversarial keys, with its allocations held to
-``sort_transient_bytes`` and against the global-merge path it replaced,
-ties on every other row,
+``sort_transient_bytes``, ties on every other row,
 all-equal keys (``perm`` the identity),
 keys at the f32 extremes; ``perm`` equal to the plain (stable) version's on
 every row; ``sort_rows.long_launches`` counting the cluster path's launches
-alone; the global-merge path that the timings hold the cluster path against
-equal to the plain version; and
+alone; and
 the FSW model on the card against the CPU at d_out 512; the sort under
 autograd (``SortPW``, ``SortShared``) forward and backward against the CPU.
 ``refresh_planes`` (``csrc/lazy_refresh.cu``): against the float64
@@ -70,7 +68,6 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     cluster_shape,
     items_per_thread,
     sort_rows,
-    sort_rows_merge,
     sort_rows_reference,
     sort_transient_bytes,
     tile_elems,
@@ -233,7 +230,7 @@ def test_sort_equals_plain_version(card, r, p, n):
 # the cluster path (16,384 < N <= 131,072) and its seams: 1 block of 1024
 # threads to 17,408, 2 to 34,816, 8 at 131,072, the items a thread stepping
 # every 1,024 x blocks elements (24,576 / 24,577: 12 / 13 items of 2
-# blocks); 131,073 is the first length on the global-merge path
+# blocks); 131,073 is the first length on the radix path
 LONG_LENGTHS = [16_385, 17_408, 17_409, 24_576, 24_577, 32_768, 32_769, 32_896, 34_816, 34_817,
                 49_153, 131_071, 131_072, 131_073]
 
@@ -260,31 +257,13 @@ def test_sort_long_rows_equal_plain_version(card, r, p, n):
         assert shape["active_clusters"] >= 1
 
 
-@pytest.mark.parametrize("n", [16_385, 32_896, 131_072, 131_073])
-def test_merge_path_equals_plain_version(card, n):
-    """The global-merge path, which the timings hold the cluster path
-    against, sorts any row past the tile as the plain version does."""
-    gen = torch.Generator(device=card).manual_seed(n)
-    keys = torch.randn(33, n, generator=gen, device=card)
-    keys[1::2] = torch.round(keys[1::2] * 4) / 4
-    payload = torch.rand(1, n, generator=gen, device=card)
-    before = sort_rows.launches, sort_rows.long_launches
-    got = sort_rows_merge(keys, payload)
-    torch.cuda.synchronize()
-    assert (sort_rows.launches, sort_rows.long_launches) == before
-    for a, b in zip(got, sort_rows_reference(keys, payload)):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    with pytest.raises(ValueError, match="longer than"):
-        sort_rows_merge(keys[:, :tile_elems()].contiguous(), payload[:, :tile_elems()].contiguous())
-
-
-MERGE_LENGTHS = [262_144, 300_007, 524_800]  # k = 10 point sets, its vocab at 524,800
+RADIX_LENGTHS = [262_144, 300_007, 524_800]  # k = 10 point sets, its vocab at 524,800
 # the radix path's seams (131,073: the first length on it; a tile of
 # 16,384 +- 1 at 9, 16 and 32 tiles), a row of 67 tiles, and adversarial
 # keys at 300,007: all equal (perm the identity), only +-0.0, ascending,
 # descending, and sharing their top three bytes (one digit takes every
 # tile in passes 2-4)
-MERGE_CASES = ([(r, n, "ties") for r in (1, 33) for n in MERGE_LENGTHS]
+RADIX_CASES = ([(r, n, "ties") for r in (1, 33) for n in RADIX_LENGTHS]
                + [(33, n, "ties") for n in (131_073, 147_455, 147_457, 262_143, 262_145,
                                             524_287, 524_289)]
                + [(2, 1_100_000, "ties")]
@@ -292,7 +271,7 @@ MERGE_CASES = ([(r, n, "ties") for r in (1, 33) for n in MERGE_LENGTHS]
                                                    "descending", "top_bytes_shared")])
 
 
-def _merge_keys(kind, gen, r, n, card):
+def _radix_keys(kind, gen, r, n, card):
     keys = torch.randn(r, n, generator=gen, device=card)
     if kind == "ties":  # ties on every other row
         keys[1::2] = torch.round(keys[1::2] * 4) / 4
@@ -310,15 +289,15 @@ def _merge_keys(kind, gen, r, n, card):
     return keys.contiguous()
 
 
-@pytest.mark.parametrize("r,n,kind", MERGE_CASES)
-def test_sort_merge_lengths_equal_plain_version(card, r, n, kind):
+@pytest.mark.parametrize("r,n,kind", RADIX_CASES)
+def test_sort_radix_lengths_equal_plain_version(card, r, n, kind):
     """Rows past CLUSTER_ELEMS take the radix path: exact, ``perm`` included,
     at payload rows P in {1, R, R/3}, counted in ``launches`` and not in
     ``long_launches``, and the launch's allocations are
     ``sort_transient_bytes`` (outputs, radix scratch and digit counts; the
     caching allocator may hand out up to 1 MiB more per block)."""
     gen = torch.Generator(device=card).manual_seed(r + n)
-    keys = _merge_keys(kind, gen, r, n, card)
+    keys = _radix_keys(kind, gen, r, n, card)
     for p in sorted({1, r} | ({r // 3} if r % 3 == 0 else set())):
         payload = torch.rand(p, n, generator=gen, device=card)
         before = sort_rows.launches, sort_rows.long_launches
@@ -336,19 +315,6 @@ def test_sort_merge_lengths_equal_plain_version(card, r, n, kind):
         if kind == "all_equal":
             assert torch.equal(got[2], torch.arange(n, dtype=torch.int32, device=card).expand(r, n))
         del got, ref
-
-
-def test_radix_path_equals_the_parent_merge(card):
-    """The radix path gives what the global-merge path it replaced gives,
-    bit for bit, at a k = 10 point set's length with ties."""
-    n = 300_007
-    gen = torch.Generator(device=card).manual_seed(n)
-    keys = _merge_keys("ties", gen, 66, n, card)
-    payload = torch.rand(6, n, generator=gen, device=card)
-    got, parent = sort_rows(keys, payload), sort_rows_merge(keys, payload)
-    torch.cuda.synchronize()
-    for a, b in zip(got, parent):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_sort_equals_plain_version_around_the_block_sizes(card):

@@ -19,7 +19,6 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     f2i_keys,
     i2f_keys,
     sort_rows,
-    sort_rows_merge,
     sort_rows_reference,
 )
 
@@ -142,7 +141,7 @@ def test_wrapper_on_cpu_tensors_never_touches_the_kernel(monkeypatch):
 
 @pytest.mark.parametrize("n", [16_385, 32_896, 131_073])
 def test_long_rows_on_cpu_take_the_plain_version_and_count_no_launch(monkeypatch, n):
-    """Rows past one block's tile (the kernel's cluster and merge paths on
+    """Rows past one block's tile (the kernel's cluster and radix paths on
     the card) are the plain version on CPU tensors, stable like every row."""
     def no_kernel():
         raise AssertionError("the CPU path reached the CUDA library")
@@ -157,15 +156,6 @@ def test_long_rows_on_cpu_take_the_plain_version_and_count_no_launch(monkeypatch
     for i in range(2):
         np.testing.assert_array_equal(perm[i], np.argsort(keys[i], kind="stable"))
     assert (sort_rows.launches, sort_rows.long_launches) == before
-
-
-def test_merge_path_takes_only_long_rows_on_the_card(monkeypatch):
-    monkeypatch.setattr(sort_mod, "_lib", lambda: pytest.fail("reached the CUDA library"))
-    keys = torch.zeros((2, 40_000))
-    with pytest.raises(ValueError, match="takes CUDA tensors"):
-        sort_rows_merge(keys, keys[:1].contiguous())
-    with pytest.raises(ValueError, match="% P == 0"):
-        sort_rows_merge(keys, torch.zeros((3, 40_000)))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
