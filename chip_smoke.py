@@ -132,7 +132,8 @@ non-zero without one. Phases, each of which fails the run if it fails:
      of them with ``-device cpu`` (the plain path on the carried
      checkpoint), whose embeddings, and the export's, agree within
      FSW_RTOL / FSW_ATOL; ``sort_rows`` must launch in the lazy, exact and
-     query runs and never on the cluster path; then the device memory of
+     query runs, every launch on the radix path (``radix_launches``) and
+     never on the cluster path; then the device memory of
      one refresh group (the group ``pick_refresh_group`` chose) and of one
      sliced forward (``auto_slice_chunk``'s chunk, 16 genomes) against the
      budgets' counts, beside the counts copied from the JAX package; and
@@ -162,9 +163,10 @@ non-zero without one. Phases, each of which fails the run if it fails:
    and 4,096 x 8,192, and on the cluster path 8,192 rows of 32,896 (a k=8
    query block), 512 of 32,896 and 512 of 131,072 (the shared-vocab sorts
    at k=8 and k=9), and on the radix path 512 rows of 262,144 (one k=10
-   genome's refresh) and 1,024 rows of 524,800 with 16 payload rows (a
-   k=10 query block); the sort's backward, an unsort scatter, at 512 and
-   8,192 rows of 8,192; ``refresh_planes`` at the lazy training
+   genome's refresh), 1,024 rows of 524,800 with 16 payload rows (a k=10
+   query block) and 512 rows of 646,000 (fsw_k10.train_lazy's refresh);
+   the sort's backward, an unsort scatter, at 512 and 8,192 rows of 8,192;
+   ``refresh_planes`` at the lazy training
    cell's 850 items x 512 slices x 8,192, against its plain version, beside
    its operations bound and its 30 ms goal; ``pergenome_planes`` at the k=10
    cell's group, 512 slices x 646,000 points (503,934 real) at k=10, against
@@ -353,9 +355,10 @@ PERGENOME_REPLACES = ("no Pallas kernel: the per-genome lazy refresh's XLA ops a
 # N (the cell's padded point sets), real points (its longest genome's), k = K10
 PHASE5_PERGENOME = (FSW_OUT_DIM, 646_000, 503_934)
 # the radix path's rows: one k = 10 genome's refresh sort (512 slices of a
-# padded point set) and a k = 10 query block after auto_slice_chunk (16
-# genomes x 64 slices of 524,800)
-PHASE5_SORT_RADIX = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16))
+# padded point set), a k = 10 query block after auto_slice_chunk (16
+# genomes x 64 slices of 524,800) and fsw_k10.train_lazy's refresh sort
+PHASE5_SORT_RADIX = ((FSW_OUT_DIM, 262_144, 1), (2 * FSW_OUT_DIM, 524_800, 16),
+                     (FSW_OUT_DIM, 646_000, 1))
 # cuda vs cpu on the FSW path: cos(pi xi cbar) with xi up to 511 multiplies
 # the fp32 cumsum's rounding, which differs between the devices, by ~1.6e3
 FSW_RTOL, FSW_ATOL = 1e-3, 1e-4
@@ -472,7 +475,7 @@ K10, FSW_K10_EPOCHS = 10, 2
 V10 = canonical_vocab_size(K10)
 K10_LEAVES, K10_SIZE, K10_GENOME, K10_QUERIES = 16, 8, (300_000, 400_000), 4
 # the radix path's kernels in sort_rows.cu, which the traced k=10 epoch must hold
-RADIX_KERNELS = ("radix_upsweep_kernel", "radix_scan_kernel", "radix_downsweep_kernel")
+RADIX_KERNELS = ("radix_upsweep_kernel_digits", "radix_scan_kernel", "radix_downsweep_kernel")
 # C6: one shared-route lazy refresh at k = 9 widths (V = 131,072, 512
 # slices) of C6_ITEMS items in groups of pick_refresh_group's G
 K9, C6_ITEMS = 9, 16
@@ -701,11 +704,12 @@ def phase_sort_vs_plain(dev) -> float:
                 for kind in SORT_KINDS:
                     keys = sort_keys(kind, gen, r, n, dev)
                     payload = torch.rand(p, n, generator=gen, device=dev)
-                    long_before = sort_rows.long_launches
+                    before = sort_rows.long_launches, sort_rows.radix_launches
                     got = sort_rows(keys, payload)
                     torch.cuda.synchronize()
-                    check(sort_rows.long_launches == long_before,
-                          f"R={r} N={n}: counted on the cluster path")
+                    check((sort_rows.long_launches, sort_rows.radix_launches)
+                          == (before[0], before[1] + 1),
+                          f"R={r} N={n}: not counted on the radix path alone")
                     ref = sort_rows_reference(keys, payload)
                     tied += check_sort(keys, payload, got, ref)
                     max_err = max(max_err, float((got[0] - ref[0]).abs().max()))
@@ -724,11 +728,11 @@ def phase_sort_vs_plain(dev) -> float:
         payload_rows = sorted({1, r} | ({r // 3} if r % 3 == 0 else set()))
         for p in payload_rows:
             payload = torch.rand(p, n, generator=gen, device=dev)
-            long_before = sort_rows.long_launches
+            before = sort_rows.long_launches, sort_rows.radix_launches
             got = sort_rows(keys, payload)
             torch.cuda.synchronize()
-            check(sort_rows.long_launches == long_before,
-                  f"R={r} N={n}: counted on the cluster path")
+            check((sort_rows.long_launches, sort_rows.radix_launches) == (before[0], before[1] + 1),
+                  f"R={r} N={n}: not counted on the radix path alone")
             ref = sort_rows_reference(keys, payload)
             check_sort(keys, payload, got, ref)
             if kind == "all_equal":
@@ -870,13 +874,15 @@ def read_bytes(path: str) -> bytes:
 
 def counted(fn, *args):
     """fn(*args) with every launch count set to 0 just before it; returns
-    its result and the counts just after (``sort_rows_long``: the cluster
-    path's launches among sort_rows')."""
+    its result and the counts just after (``sort_rows_long`` and
+    ``sort_rows_radix``: the cluster and the radix path's launches among
+    sort_rows')."""
     kmer_hist.launches = sort_rows.launches = sort_rows.long_launches = 0
-    refresh_planes.launches = pergenome_planes.launches = 0
+    sort_rows.radix_launches = refresh_planes.launches = pergenome_planes.launches = 0
     out = fn(*args)
     return out, {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
                  "sort_rows_long": sort_rows.long_launches,
+                 "sort_rows_radix": sort_rows.radix_launches,
                  "refresh_planes": refresh_planes.launches,
                  "pergenome_planes": pergenome_planes.launches}
 
@@ -1837,7 +1843,8 @@ def train_fsw_k10(feats: str, tree_dir: str, out_dir: str, route: str,
     out = {"seconds": time.perf_counter() - t0, "launches": launches,
            "launches_outside_exports": launches["sort_rows"] - exports,
            "refreshes": len(clock.refresh_s), "refresh_s": [t for _, t in clock.refresh_s]}
-    check(out["launches_outside_exports"] >= 1 and launches["sort_rows_long"] == 0,
+    check(out["launches_outside_exports"] >= 1 and launches["sort_rows_long"] == 0
+          and launches["sort_rows_radix"] == launches["sort_rows"],
           f"k=10 {route}: sort_rows launches {launches}, {exports} in the exports")
     check((route == "lazy_pergenome") == (out["refreshes"] > 0),
           f"k=10 {route}: {out['refreshes']} refreshes")
@@ -2017,6 +2024,7 @@ def phase_fsw_k10(work: str) -> dict:
                                            "-classes", q_dir, "-o", q_out, "-device", dev])
         query[f"{dev}_s"] = time.perf_counter() - t1
     check(query["cuda"]["sort_rows"] >= 1 and query["cuda"]["sort_rows_long"] == 0
+          and query["cuda"]["sort_rows_radix"] == query["cuda"]["sort_rows"]
           and not any(query["cpu"].values()), f"k=10 query launches {query}")
     _, emb_cuda = read_table(os.path.join(work, "k10_q_out_cuda", f"embedding_subtree_{clade}.emb"),
                              header=False)

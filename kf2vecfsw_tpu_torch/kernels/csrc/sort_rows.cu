@@ -83,23 +83,53 @@
 //   __match_any_sync in place of the lane masks gained nothing or lost.
 // - n > kClusterElems (per-genome point sets at k >= 10 only): an LSD radix
 //   sort through device memory, the same 4 passes of 8-bit digits over
-//   tiles of kTile elements of a row, each pass three launches over the
-//   (row, tile) grid: an upsweep counts each tile's digits into (rows, 256,
-//   tiles) counts; a scan turns each row's counts, digit-major, into the
-//   start of every (digit, tile) run in the sorted row; a downsweep reloads
-//   the tile, ranks its items stably by digit with the tile path's block
-//   machinery (warp_digit_ranks, scan_digit_warp), stages them in digit
-//   order in shared memory and stores each digit's run contiguously (about
-//   64 elements a run) from its start. The first pass reads the f32 keys (the
-//   column is the index), the last writes the outputs and gathers the
-//   payload, so no launch of its own converts the keys or writes the outputs;
-//   between them the passes alternate between a scratch of 32-bit keys and
-//   columns (rows, n) and the outputs' own storage. No padding: the last
-//   tile's items past n rank after the rest and are not stored. Each pass
-//   keeps the order of equal digits and the first pass's order is the column,
-//   so perm is the tile path's. Traffic: 16 B an element in the first pass,
-//   20 in the middle two, 24 in the last (80 in all, 5x the 16 B of the
-//   bound).
+//   tiles of kRadixTile (8,192) elements of a row, in 6 launches (Adinets
+//   and Merrill's Onesweep, 2022). A histogram launch reads the f32 keys
+//   once and counts all four digits of every row; a scan launch turns each
+//   row's counts into where each digit's run starts in the sorted row, a
+//   pass at a time; then one downsweep a pass. A downsweep block takes the
+//   next tile of its row from a counter, loads it, ranks its items stably by
+//   digit with the tile path's block machinery (warp_digit_ranks,
+//   scan_digit_warp at 512 threads), publishes the tile's digit counts,
+//   stages the items in digit order in shared memory, and finds where its
+//   run of each digit starts by a decoupled look-back over the row's earlier
+//   tiles: each tile publishes its counts (A) and, once it knows the sum
+//   over every earlier tile, that inclusive sum (P), and a tile adds its
+//   predecessors' entries back to the first P. The counter hands a row's
+//   tiles out in the order their blocks start, so every tile a block waits
+//   on is held by a running block, and the look-back always ends. Each
+//   digit's run (about 32 elements) is stored contiguously from its start.
+//   The first pass reads the f32 keys (the column is the index), the last
+//   writes the outputs and gathers the payload; between them the passes
+//   alternate between a scratch of 32-bit keys and columns (rows, n) and the
+//   outputs' own storage. No padding: the last tile's items past n rank
+//   after the rest and are not stored. Each pass keeps the order of equal
+//   digits and the first pass's order is the column, so perm is the tile
+//   path's. A downsweep block of 512 threads needs 100 KB of shared memory,
+//   so two run on every SM, each with its own tile in flight.
+//   Traffic: 4 B an element for the histogram, 12 in the first pass, 16 in
+//   the middle two, 20 in the last: 68 in all, 4.25x the 16 B of the bound
+//   (6.7 ms at 512 rows of 646,000 at 3.35 TB/s; the sort takes 12.8 ms
+//   there on an H100, its downsweeps about 2.1 TB/s in the middle passes
+//   and 1.4 TB/s in the last, whose payload gather reads a 32 B sector of
+//   L2 for each 4 B). Per block and tile of a middle pass, by clock64
+//   marks: the load and the ranking 31%, the staging with the columns'
+//   loads 34%, the stores 16%, the look-back 11%.
+//   Measured and left (512 x 646,000, against 16.0 ms for 12 launches over
+//   tiles of 16,384, one block an SM): the same 12 launches at tiles of
+//   8,192, two blocks an SM, 15.8 ms (the two blocks load, rank and store
+//   in step; staggering their start changes nothing); persistent blocks,
+//   one an SM, that take tiles two ahead and prefetch them, 29.5 ms (a
+//   tile waits for tiles that blocks have taken but not started); a block
+//   that walks a run of a row's tiles with running offsets and no
+//   look-back, 18.9 ms with one block of 1,024 threads an SM and the next
+//   tile in flight, 22.7 ms with two blocks of 512 (probably because a
+//   digit's run and its neighbour in the next tile are then stored far
+//   apart in time, too late for L2 to merge their partial sectors; in this
+//   design neighbouring tiles run at once); the columns copied ahead with
+//   cp.async, the look-back started before the other warps finish staging
+//   and 8 entries a step, 13.0 ms (no gain); the last pass's gathers issued
+//   before its stores, 14.1 ms.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -120,10 +150,15 @@ constexpr int kClusterItems = 17;                 // the most keys such a thread
 constexpr int kClusterElems = kMaxCluster * kTile;  // 131,072: a row a cluster sorts
 constexpr int kRadixBits = 8;
 constexpr int kRadix = 1 << kRadixBits;
-constexpr int kUpThreads = 512;                   // threads of a radix upsweep block
-constexpr int kUpItems = kTile / kUpThreads;      // keys each of them counts
-constexpr int kScanThreads = 1024;                // threads of a radix scan block
 constexpr int kRadixPasses = 32 / kRadixBits;
+constexpr int kRadixThreads = 512;                // threads of a radix downsweep block
+constexpr int kRadixTile = kRadixThreads * kItems;  // 8,192: a tile a downsweep block ranks
+constexpr int kHistThreads = 256;                 // threads of a radix histogram block
+constexpr int kHistUnroll = 8;                    // keys each of them loads before counting
+constexpr int64_t kHistTiles = 16;                // tiles a radix histogram block counts
+constexpr int kScanThreads = kRadixPasses * kRadix;  // a radix scan block: a thread a (pass, digit)
+constexpr int kLookBack = 4;                      // earlier tiles' entries a look-back step reads
+constexpr uint32_t kValueMask = (1u << 30) - 1;   // a look-back entry: 2 bits of state, 30 of count
 constexpr int64_t kMaxN = int64_t(1) << 30;      // columns and perm are int32
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 
@@ -383,61 +418,90 @@ sort_rows_tile_kernel(const float* __restrict__ keys, const float* __restrict__ 
   write_row<kThreads>(s, row, n, group, payload, out_keys, out_payload, perm);
 }
 
-// n > kClusterElems, step 1 of a radix pass: block (row, tile) counts the
-// digits (key >> shift) & 255 of the tile's keys (on the first pass the
-// f32 keys as ordered()) into counts[row][digit][tile], one shared-memory
-// counter row per warp. Every key is loaded before any is counted.
-template <bool kFirst>
-__global__ void __launch_bounds__(kUpThreads)
-radix_upsweep_kernel(const uint32_t* __restrict__ keys, uint32_t* __restrict__ counts, int64_t n,
-                     int64_t n_tiles, int shift) {
-  constexpr int kWarps = kUpThreads / 32;
-  __shared__ uint32_t hist[kWarps * kRadix];
-  for (int i = threadIdx.x; i < kWarps * kRadix; i += kUpThreads) hist[i] = 0;
-  const int64_t row = blockIdx.x / n_tiles;
-  const int64_t tile = blockIdx.x - row * n_tiles;
-  const int64_t base = tile * kTile;
-  const int n_valid = n - base < kTile ? static_cast<int>(n - base) : kTile;
-  const uint32_t* in = keys + row * n + base;
-  uint32_t v[kUpItems];
-#pragma unroll
-  for (int m = 0; m < kUpItems; ++m) {
-    const int j = threadIdx.x + m * kUpThreads;
-    v[m] = j < n_valid ? __ldg(in + j) : 0u;
-  }
+// The radix path's scratch of 32-bit words of one row, after the scratch
+// keys and columns: the look-back status, a word a (tile, digit); the
+// histogram's partial counts, (block, pass, digit); the digit starts,
+// (pass, digit); and the passes' tile counters.
+struct RadixShape {
+  int64_t n;
+  int64_t n_tiles;      // tiles of kRadixTile in a row
+  int64_t hist_blocks;  // histogram blocks a row
+  int64_t hist_span;    // elements a histogram block counts (whole tiles)
+  int64_t words;        // words of a row's scratch
+  __host__ __device__ int64_t partials() const { return n_tiles * kRadix; }
+  __host__ __device__ int64_t starts() const { return partials() + hist_blocks * kScanThreads; }
+  __host__ __device__ int64_t counters() const { return starts() + kScanThreads; }
+};
+
+RadixShape radix_shape(int64_t n) {
+  RadixShape sh{};
+  sh.n = n;
+  sh.n_tiles = (n + kRadixTile - 1) / kRadixTile;
+  sh.hist_blocks = (sh.n_tiles + kHistTiles - 1) / kHistTiles;
+  sh.hist_span = kHistTiles * kRadixTile;
+  sh.words = sh.counters() + kRadixPasses;
+  return sh;
+}
+
+// n > kClusterElems, launch 1: block (row, b) counts the four digits of the
+// ordered() f32 keys of its span of row `row` into the row's partial counts
+// (b, pass, digit), one shared-memory counter row of 4 x 256 a warp.
+__global__ void __launch_bounds__(kHistThreads)
+radix_upsweep_kernel_digits(const float* __restrict__ keys, uint32_t* __restrict__ counts,
+                            RadixShape sh) {
+  constexpr int kWarps = kHistThreads / 32;
+  constexpr int kBins = kRadixPasses * kRadix;
+  __shared__ uint32_t hist[kWarps * kBins];
+  for (int i = threadIdx.x; i < kWarps * kBins; i += kHistThreads) hist[i] = 0;
   __syncthreads();
-  uint32_t* whist = hist + (threadIdx.x >> 5) * kRadix;
+  const int64_t row = blockIdx.x / sh.hist_blocks;
+  const int64_t b = blockIdx.x - row * sh.hist_blocks;
+  const int64_t lo = b * sh.hist_span;
+  const int64_t hi = lo + sh.hist_span < sh.n ? lo + sh.hist_span : sh.n;
+  const float* in = keys + row * sh.n;
+  uint32_t* whist = hist + (threadIdx.x >> 5) * kBins;
+  for (int64_t j0 = lo + threadIdx.x; j0 < hi; j0 += kHistThreads * kHistUnroll) {
+    uint32_t v[kHistUnroll];
 #pragma unroll
-  for (int m = 0; m < kUpItems; ++m) {
-    if (threadIdx.x + m * kUpThreads < n_valid) {
-      const uint32_t k = kFirst ? ordered(__uint_as_float(v[m])) : v[m];
-      atomicAdd(&whist[(k >> shift) & (kRadix - 1)], 1u);
+    for (int u = 0; u < kHistUnroll; ++u) {
+      const int64_t j = j0 + u * kHistThreads;
+      v[u] = j < hi ? ordered(__ldg(in + j)) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kHistUnroll; ++u) {
+      if (j0 + u * kHistThreads < hi) {
+#pragma unroll
+        for (int p = 0; p < kRadixPasses; ++p) {
+          atomicAdd(&whist[p * kRadix + ((v[u] >> (p * kRadixBits)) & (kRadix - 1))], 1u);
+        }
+      }
     }
   }
   __syncthreads();
-  if (threadIdx.x < kRadix) {
+  uint32_t* out = counts + row * sh.words + sh.partials() + b * kBins;
+  for (int q = threadIdx.x; q < kBins; q += kHistThreads) {
     uint32_t sum = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += hist[w * kRadix + threadIdx.x];
-    counts[(row * kRadix + threadIdx.x) * n_tiles + tile] = sum;
+    for (int w = 0; w < kWarps; ++w) sum += hist[w * kBins + q];
+    out[q] = sum;
   }
 }
 
-// n > kClusterElems, step 2 of a radix pass: block r turns row r's `len`
-// counts, (digit, tile) in digit-major order, into their exclusive prefix
-// sums in place: where tile t's run of digit d starts in the sorted row.
-// Each thread sums a stretch of them, the block scans the threads' sums.
+// n > kClusterElems, launch 2: block `row` sums the row's partial counts
+// into each pass's digit totals and turns them into where each digit's run
+// starts in the sorted row (exclusive prefix sums over the 256 digits of a
+// pass: 8 warps a pass); it clears the row's look-back status and tile
+// counters for the downsweeps.
 __global__ void __launch_bounds__(kScanThreads)
-radix_scan_kernel(uint32_t* __restrict__ counts, int64_t len) {
+radix_scan_kernel(uint32_t* __restrict__ counts, RadixShape sh) {
   __shared__ uint32_t wsum[kScanThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  uint32_t* c = counts + blockIdx.x * len;
-  const int64_t per = (len + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = threadIdx.x * per < len ? threadIdx.x * per : len;
-  const int64_t hi = lo + per < len ? lo + per : len;
+  uint32_t* c = counts + blockIdx.x * sh.words;
   uint32_t sum = 0;
-  for (int64_t i = lo; i < hi; ++i) sum += c[i];
+  for (int64_t b = 0; b < sh.hist_blocks; ++b) {
+    sum += c[sh.partials() + b * kScanThreads + threadIdx.x];
+  }
   uint32_t incl = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -446,58 +510,108 @@ radix_scan_kernel(uint32_t* __restrict__ counts, int64_t len) {
   }
   if (lane == 31) wsum[warp] = incl;
   __syncthreads();
-  if (warp == 0) {
+  if (warp == 0) {  // the warp totals, exclusive within each pass's 8 warps
+    constexpr int kPassWarps = kRadix / 32;
     const uint32_t w = wsum[lane];
     uint32_t winc = w;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(kFull, winc, o);
-      if (lane >= o) winc += y;
+    for (int o = 1; o < kPassWarps; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, winc, o, kPassWarps);
+      if ((lane & (kPassWarps - 1)) >= o) winc += y;
     }
     wsum[lane] = winc - w;
   }
   __syncthreads();
-  uint32_t run = wsum[warp] + incl - sum;
-  for (int64_t i = lo; i < hi; ++i) {
-    const uint32_t v = c[i];
-    c[i] = run;
-    run += v;
+  c[sh.starts() + threadIdx.x] = wsum[warp] + incl - sum;
+  for (int64_t i = threadIdx.x; i < sh.partials(); i += kScanThreads) c[i] = 0;
+  if (threadIdx.x < kRadixPasses) c[sh.counters() + threadIdx.x] = 0;
+}
+
+__device__ __forceinline__ uint32_t load_status(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The state bits of a look-back entry of pass `pass`: A (the tile's own
+// count) or P (the sum over the row's tiles up to this one). Every tile
+// writes P in every pass, so the codes alternate between even and odd passes
+// and a pass's entries need no clearing: zero (the scan's) and the even
+// passes' P read as not yet published in an even pass, the odd passes' P
+// in an odd one. A P entry that a later tile reads counts at most the
+// kRadixTile (t + 1) < n <= 2^30 elements up to it, so 30 bits hold it.
+__device__ __forceinline__ uint32_t code_a(int pass) { return (pass & 1 ? 3u : 1u) << 30; }
+__device__ __forceinline__ uint32_t code_p(int pass) { return (pass & 1 ? 0u : 2u) << 30; }
+
+// This thread's digit's count in the row's tiles before `tile` (> 0):
+// status + t * kRadix is tile t's entry of the digit. Reads kLookBack
+// entries at a time, adds them from the nearest back to the first P, and
+// reads again from the first that is not yet published.
+__device__ __forceinline__ uint32_t look_back(const uint32_t* status, int64_t tile, int pass) {
+  const uint32_t a = code_a(pass);
+  const uint32_t p = code_p(pass);
+  uint32_t sum = 0;
+  int64_t t = tile - 1;
+  for (;;) {
+    uint32_t v[kLookBack];
+#pragma unroll
+    for (int i = 0; i < kLookBack; ++i) v[i] = t >= i ? load_status(status + (t - i) * kRadix) : p;
+    int used = 0;
+#pragma unroll
+    for (int i = 0; i < kLookBack; ++i) {
+      const uint32_t code = v[i] & ~kValueMask;
+      if (code != a && code != p) break;
+      sum += v[i] & kValueMask;
+      if (code == p) return sum;
+      ++used;
+    }
+    t -= used;
   }
 }
 
-// n > kClusterElems, step 3 of a radix pass: block (row, tile) ranks the
-// tile's items stably by digit in shared memory (one pass of
-// block_radix_sort over 32-bit columns), stages them in that order and
-// stores each digit's run, contiguous, from where the scan placed it in
-// the row. Items past n are padding (largest key), which ranks after every
-// item of the tile. On the first pass the keys are the f32 keys, as
-// ordered(), and the columns implicit; a middle pass writes the ordered
-// keys and their columns to out_keys and out_index; the last (kLast)
-// writes the function's outputs: out_keys as floats, out_index as perm, and
-// the payload row (row / group) gathered by column.
+// n > kClusterElems, launch 3 + pass: block b of row b / n_tiles takes the
+// row's next tile from the pass's counter, ranks the tile's items stably by
+// digit in shared memory (one pass of block_radix_sort over 32-bit
+// columns), publishes the tile's digit counts, stages the items in that
+// order, finds by a look-back where its run of each digit starts in the
+// row, and stores each run contiguously from there. Items past n are
+// padding (largest key), which ranks after every item of the tile. On the
+// first pass the keys are the f32 keys, as ordered(), and the columns
+// implicit; a middle pass writes the ordered keys and their columns to
+// out_keys and out_index; the last (kLast) writes the function's outputs:
+// out_keys as floats, out_index as perm, and the payload row (row / group)
+// gathered by column.
 template <bool kFirst, bool kLast>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kRadixThreads, 2)
 radix_downsweep_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ index,
-                       const uint32_t* __restrict__ offsets, uint32_t* __restrict__ out_keys,
+                       uint32_t* __restrict__ counts, uint32_t* __restrict__ out_keys,
                        uint32_t* __restrict__ out_index, const float* __restrict__ payload,
-                       float* __restrict__ out_payload, int64_t n, int64_t n_tiles, int shift,
-                       int64_t group) {
-  using L = Layout<kMaxThreads>;
+                       float* __restrict__ out_payload, RadixShape sh, int pass, int64_t group) {
+  using L = Layout<kRadixThreads>;
   extern __shared__ uint4 smem_raw[];
+  __shared__ uint32_t taken;
   const L s(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t row = blockIdx.x / n_tiles;
-  const int64_t tile = blockIdx.x - row * n_tiles;
-  const int64_t base = tile * kTile;
-  const int n_valid = n - base < kTile ? static_cast<int>(n - base) : kTile;
-  const int64_t in0 = row * n + base;
+  const int shift = pass * kRadixBits;
+  const int64_t row = blockIdx.x / sh.n_tiles;
+  uint32_t* status = counts + row * sh.words;  // (tile, digit)
+  if (threadIdx.x == 0) taken = atomicAdd(status + sh.counters() + pass, 1u);
+  __syncthreads();
+  const int64_t tile = taken;
+  const int64_t base = tile * kRadixTile;
+  const int n_valid = sh.n - base < kRadixTile ? static_cast<int>(sh.n - base) : kRadixTile;
+  const int64_t in0 = row * sh.n + base;
   const int first = warp * 32 * kItems + lane;  // item i is element first + 32 i
   uint32_t key[kItems];
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int j = first + 32 * i;
-    const uint32_t v = j < n_valid ? __ldcs(keys + in0 + j) : 0u;
+    const uint32_t v = j < n_valid ? keys[in0 + j] : 0u;
     key[i] = j >= n_valid ? 0xFFFFFFFFu : kFirst ? ordered(__uint_as_float(v)) : v;
   }
   uint32_t* wcount = s.counts + warp * kRadix;
@@ -505,13 +619,15 @@ radix_downsweep_kernel(const uint32_t* __restrict__ keys, const uint32_t* __rest
   for (int c = lane; c < kRadix; c += 32) wmask[c] = 0;
   uint32_t rank[kItems / 2];
   warp_digit_ranks<kItems>(key, shift, wcount, wmask, rank);
-  scan_digit_warp<kMaxThreads>(s);
-  // per digit: its run's start in the row less its start in the tile (warp
-  // 0's offset), in the spent mask rows
-  int32_t* to = reinterpret_cast<int32_t*>(s.masks);
-  if (threadIdx.x < kRadix) {
-    to[threadIdx.x] = static_cast<int32_t>(offsets[(row * kRadix + threadIdx.x) * n_tiles + tile]) -
-                      static_cast<int32_t>(s.counts[threadIdx.x]);
+  scan_digit_warp<kRadixThreads>(s);
+  // a thread a digit: the digit's start and count in the tile, published
+  const int digit = threadIdx.x;
+  uint32_t start = 0;
+  uint32_t count = 0;
+  if (digit < kRadix) {
+    start = s.counts[digit];
+    count = (digit + 1 < kRadix ? s.counts[digit + 1] : static_cast<uint32_t>(n_valid)) - start;
+    store_status(status + tile * kRadix + digit, (tile == 0 ? code_p(pass) : code_a(pass)) | count);
   }
   uint32_t* staged = reinterpret_cast<uint32_t*>(s.index);  // index and spare: kCap columns
 #pragma unroll
@@ -520,22 +636,35 @@ radix_downsweep_kernel(const uint32_t* __restrict__ keys, const uint32_t* __rest
     const uint32_t d = (key[i] >> shift) & (kRadix - 1);
     const uint32_t at = wcount[d] + ((rank[i / 2] >> (16 * (i % 2))) & 0xFFFFu);
     s.keys[at] = key[i];
-    staged[at] = kFirst ? static_cast<uint32_t>(base + j) : (j < n_valid ? __ldcs(index + in0 + j) : 0u);
+    staged[at] = kFirst ? static_cast<uint32_t>(base + j) : (j < n_valid ? index[in0 + j] : 0u);
+  }
+  // per digit: its run's start in the row less its start in the tile, in
+  // the spent mask rows
+  int32_t* to = reinterpret_cast<int32_t*>(s.masks);
+  __syncthreads();
+  if (digit < kRadix) {
+    uint32_t before = 0;
+    if (tile > 0) {
+      before = look_back(status + digit, tile, pass);
+      store_status(status + tile * kRadix + digit, code_p(pass) | ((before + count) & kValueMask));
+    }
+    const uint32_t row_start = status[sh.starts() + pass * kRadix + digit];
+    to[digit] = static_cast<int32_t>(row_start + before) - static_cast<int32_t>(start);
   }
   __syncthreads();
-  const int64_t out0 = row * n;
-  const float* prow = payload + (row / group) * n;
+  const int64_t out0 = row * sh.n;
+  const float* prow = payload + (row / group) * sh.n;
 #pragma unroll
   for (int m = 0; m < kItems; ++m) {
-    const int j = threadIdx.x + m * kMaxThreads;
+    const int j = threadIdx.x + m * kRadixThreads;
     if (j < n_valid) {
       const uint32_t k = s.keys[j];
       const int64_t at = out0 + to[(k >> shift) & (kRadix - 1)] + j;
       const uint32_t idx = staged[j];
       if (kLast) {
-        __stcs(reinterpret_cast<float*>(out_keys) + at, unordered(k));
-        __stcs(reinterpret_cast<int32_t*>(out_index) + at, static_cast<int32_t>(idx));
-        __stcs(out_payload + at, __ldg(prow + idx));
+        reinterpret_cast<float*>(out_keys)[at] = unordered(k);
+        reinterpret_cast<int32_t*>(out_index)[at] = static_cast<int32_t>(idx);
+        out_payload[at] = __ldg(prow + idx);
       } else {
         out_keys[at] = k;
         out_index[at] = idx;
@@ -851,8 +980,8 @@ cudaError_t with_cluster_items(int64_t n, F f) {
 }
 
 // The radix path's buffers: the keys, payload and outputs of
-// sort_rows_launch, and the scratch keys and columns, (rows, n) each, and
-// the digit counts, (rows, 256, n_tiles).
+// sort_rows_launch, the scratch keys and columns, (rows, n) each, and the
+// rest of its scratch, (rows, sh.words) 32-bit words.
 struct RadixArgs {
   const float* keys;
   const float* payload;
@@ -862,16 +991,28 @@ struct RadixArgs {
   uint32_t* scratch_keys;
   uint32_t* scratch_index;
   uint32_t* counts;
-  int64_t rows, n, group, n_tiles;
+  int64_t rows, group;
+  RadixShape sh;
 };
 
-// Step `step` (0 upsweep, 1 scan, 2 downsweep) of radix pass `pass` (0 to 3,
-// digit 8 pass from the lowest). The passes alternate between the scratch
-// and the outputs' storage (out_keys' bits, perm): pass 0 reads the f32
-// keys and writes the scratch, pass 1 the outputs' storage, pass 2 the
-// scratch, and pass 3 the outputs themselves.
-cudaError_t radix_step(const RadixArgs& a, int pass, int step, cudaStream_t s) {
-  const int shift = pass * kRadixBits;
+constexpr int kRadixSteps = 2 + kRadixPasses;
+
+// Launch `step` of the radix path: 0 the histogram, 1 the scan, 2 + p the
+// downsweep of pass p (digit 8 p from the lowest). The passes alternate
+// between the scratch and the outputs' storage (out_keys' bits, perm): pass
+// 0 reads the f32 keys and writes the scratch, pass 1 the outputs' storage,
+// pass 2 the scratch, and pass 3 the outputs themselves.
+cudaError_t radix_step(const RadixArgs& a, int step, cudaStream_t s) {
+  if (step == 0) {
+    radix_upsweep_kernel_digits<<<static_cast<unsigned>(a.rows * a.sh.hist_blocks), kHistThreads, 0,
+                                  s>>>(a.keys, a.counts, a.sh);
+    return cudaGetLastError();
+  }
+  if (step == 1) {
+    radix_scan_kernel<<<static_cast<unsigned>(a.rows), kScanThreads, 0, s>>>(a.counts, a.sh);
+    return cudaGetLastError();
+  }
+  const int pass = step - 2;
   uint32_t* out_bits = reinterpret_cast<uint32_t*>(a.out_keys);
   uint32_t* perm_bits = reinterpret_cast<uint32_t*>(a.perm);
   const uint32_t* in_keys = pass == 0 ? reinterpret_cast<const uint32_t*>(a.keys)
@@ -879,43 +1020,33 @@ cudaError_t radix_step(const RadixArgs& a, int pass, int step, cudaStream_t s) {
   const uint32_t* in_index = pass == 2 ? perm_bits : a.scratch_index;
   uint32_t* to_keys = pass % 2 ? out_bits : a.scratch_keys;
   uint32_t* to_index = pass % 2 ? perm_bits : a.scratch_index;
-  const unsigned blocks = static_cast<unsigned>(a.rows * a.n_tiles);
-  constexpr int smem = Layout<kMaxThreads>::kBytes;
-  if (step == 0) {
-    if (pass == 0) {
-      radix_upsweep_kernel<true><<<blocks, kUpThreads, 0, s>>>(in_keys, a.counts, a.n, a.n_tiles,
-                                                               shift);
-    } else {
-      radix_upsweep_kernel<false><<<blocks, kUpThreads, 0, s>>>(in_keys, a.counts, a.n, a.n_tiles,
-                                                                shift);
-    }
-  } else if (step == 1) {
-    radix_scan_kernel<<<static_cast<unsigned>(a.rows), kScanThreads, 0, s>>>(a.counts,
-                                                                          kRadix * a.n_tiles);
-  } else if (pass == 0) {
-    radix_downsweep_kernel<true, false><<<blocks, kMaxThreads, smem, s>>>(
-        in_keys, nullptr, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
-        shift, a.group);
+  const unsigned blocks = static_cast<unsigned>(a.rows * a.sh.n_tiles);
+  constexpr int smem = Layout<kRadixThreads>::kBytes;
+  if (pass == 0) {
+    radix_downsweep_kernel<true, false><<<blocks, kRadixThreads, smem, s>>>(
+        in_keys, nullptr, a.counts, to_keys, to_index, a.payload, a.out_payload, a.sh, pass,
+        a.group);
   } else if (pass < kRadixPasses - 1) {
-    radix_downsweep_kernel<false, false><<<blocks, kMaxThreads, smem, s>>>(
-        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
-        shift, a.group);
+    radix_downsweep_kernel<false, false><<<blocks, kRadixThreads, smem, s>>>(
+        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.sh, pass,
+        a.group);
   } else {
-    radix_downsweep_kernel<false, true><<<blocks, kMaxThreads, smem, s>>>(
-        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.n, a.n_tiles,
-        shift, a.group);
+    radix_downsweep_kernel<false, true><<<blocks, kRadixThreads, smem, s>>>(
+        in_keys, in_index, a.counts, to_keys, to_index, a.payload, a.out_payload, a.sh, pass,
+        a.group);
   }
   return cudaGetLastError();
 }
 
 // Checks the radix path's arguments and admits the downsweep's shared memory.
-cudaError_t radix_prepare(RadixArgs& a) {
+cudaError_t radix_prepare(const RadixArgs& a) {
   if (a.scratch_keys == nullptr || a.scratch_index == nullptr || a.counts == nullptr) {
     return cudaErrorInvalidValue;
   }
-  a.n_tiles = (a.n + kTile - 1) / kTile;
-  if (a.rows > INT_MAX / a.n_tiles) return cudaErrorInvalidValue;
-  constexpr int smem = Layout<kMaxThreads>::kBytes;
+  if (a.rows > INT_MAX / a.sh.n_tiles || a.rows > INT_MAX / a.sh.hist_blocks) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int smem = Layout<kRadixThreads>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(radix_downsweep_kernel<true, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) {
@@ -929,13 +1060,21 @@ cudaError_t radix_prepare(RadixArgs& a) {
   return err;
 }
 
-// n > kClusterElems through device memory: the radix passes' 12 launches.
-cudaError_t launch_radix(RadixArgs a, cudaStream_t s) {
+// n > kClusterElems through device memory: the radix path's 6 launches.
+cudaError_t launch_radix(const RadixArgs& a, cudaStream_t s) {
   cudaError_t err = radix_prepare(a);
-  for (int pass = 0; pass < kRadixPasses && err == cudaSuccess; ++pass) {
-    for (int step = 0; step < 3 && err == cudaSuccess; ++step) err = radix_step(a, pass, step, s);
-  }
+  for (int step = 0; step < kRadixSteps && err == cudaSuccess; ++step) err = radix_step(a, step, s);
   return err;
+}
+
+RadixArgs radix_args(const void* keys, const void* payload, void* out_keys, void* out_payload,
+                     void* perm, void* scratch_keys, void* scratch_index, void* counts,
+                     int64_t rows, int64_t n, int64_t payload_rows) {
+  return RadixArgs{static_cast<const float*>(keys), static_cast<const float*>(payload),
+                   static_cast<float*>(out_keys), static_cast<float*>(out_payload),
+                   static_cast<int32_t*>(perm), static_cast<uint32_t*>(scratch_keys),
+                   static_cast<uint32_t*>(scratch_index), static_cast<uint32_t*>(counts), rows,
+                   rows / payload_rows, radix_shape(n)};
 }
 
 bool valid_shape(int64_t rows, int64_t n, int64_t payload_rows) {
@@ -989,7 +1128,7 @@ int sort_rows_cluster_shape(int64_t n, int64_t* blocks, int64_t* threads, int64_
 // keys: f32 (rows, n); payload: f32 (payload_rows, n) with rows % payload_rows
 // == 0; out_keys, out_payload: f32 (rows, n); perm: int32 (rows, n);
 // scratch_keys, scratch_index: 32-bit (rows, n) and counts: 32-bit (rows,
-// 256 * ceil(n / kTile)), needed only when n > kClusterElems.
+// sort_rows_radix_counts_words(rows, n)), needed only when n > kClusterElems.
 int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void* out_payload,
                      void* perm, void* scratch_keys, void* scratch_index, void* counts,
                      int64_t rows, int64_t n, int64_t payload_rows, void* stream) {
@@ -1024,34 +1163,34 @@ int sort_rows_launch(const void* keys, const void* payload, void* out_keys, void
     }));
   }
 
-  return static_cast<int>(launch_radix(
-      RadixArgs{k, p, ok, op, pm, static_cast<uint32_t*>(scratch_keys),
-                static_cast<uint32_t*>(scratch_index), static_cast<uint32_t*>(counts), rows, n,
-                group, 0},
-      s));
+  return static_cast<int>(launch_radix(radix_args(keys, payload, out_keys, out_payload, perm,
+                                                  scratch_keys, scratch_index, counts, rows, n,
+                                                  payload_rows),
+                                       s));
 }
 
-// One step of the radix path (n > kClusterElems) alone: step `step` (0
-// upsweep, 1 scan, 2 downsweep) of pass `pass` (0 to 3), so that a timing
-// can put events between the 12 launches sort_rows_launch makes. Called in
-// that order on the same buffers it computes what sort_rows_launch does.
-// Arguments as sort_rows_launch's.
+// One launch of the radix path (n > kClusterElems) alone: launch `step` (0
+// the histogram, 1 the scan, 2 to 5 the downsweeps of passes 0 to 3), so
+// that a timing can put events between the 6 launches sort_rows_launch
+// makes. Called in that order on the same buffers it computes what
+// sort_rows_launch does. Arguments as sort_rows_launch's.
 int sort_rows_radix_step(const void* keys, const void* payload, void* out_keys, void* out_payload,
                          void* perm, void* scratch_keys, void* scratch_index, void* counts,
-                         int64_t rows, int64_t n, int64_t payload_rows, int pass, int step,
-                         void* stream) {
-  if (!valid_shape(rows, n, payload_rows) || n <= kClusterElems || pass < 0 ||
-      pass >= kRadixPasses || step < 0 || step > 2) {
+                         int64_t rows, int64_t n, int64_t payload_rows, int step, void* stream) {
+  if (!valid_shape(rows, n, payload_rows) || n <= kClusterElems || step < 0 ||
+      step >= kRadixSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  RadixArgs a{static_cast<const float*>(keys), static_cast<const float*>(payload),
-              static_cast<float*>(out_keys), static_cast<float*>(out_payload),
-              static_cast<int32_t*>(perm), static_cast<uint32_t*>(scratch_keys),
-              static_cast<uint32_t*>(scratch_index), static_cast<uint32_t*>(counts), rows, n,
-              rows / payload_rows, 0};
+  const RadixArgs a = radix_args(keys, payload, out_keys, out_payload, perm, scratch_keys,
+                                 scratch_index, counts, rows, n, payload_rows);
   cudaError_t err = radix_prepare(a);
-  if (err == cudaSuccess) err = radix_step(a, pass, step, static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = radix_step(a, step, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
+
+// 32-bit words of the radix path's counts buffer a row of n (> kClusterElems):
+// the look-back status, the histogram's partial counts, the digit starts
+// and the tile counters.
+int64_t sort_rows_radix_counts_words(int64_t n) { return radix_shape(n).words; }
 
 }  // extern "C"

@@ -20,17 +20,21 @@ length band: up to ``tile_elems()`` (16,384) one thread block sorts it in
 shared memory; up to ``cluster_elems()`` (131,072: the k = 8 and k = 9
 point sets and vocabularies) one thread block cluster sorts it in
 distributed shared memory; longer rows take an LSD radix sort through
-device memory, 4 passes over tiles of ``tile_elems()``.
-``sort_rows.launches`` counts every launch, ``sort_rows.long_launches``
-those of the cluster path.
+device memory: one histogram of all four digits, a scan, and 4 passes over
+tiles of ``RADIX_TILE`` that find their digits' offsets by a look-back over
+the row's earlier tiles. ``sort_rows.launches`` counts every launch,
+``sort_rows.long_launches`` those of the cluster path and
+``sort_rows.radix_launches`` those of the radix path.
 
 Memory: a launch allocates its three outputs and, on the radix path, a
-scratch of 32-bit keys and columns per element and the tiles' digit counts
-(``launch_buffers``). ``sort_transient_bytes`` sums them; the FSW memory
-budgets (``models.fsw.auto_slice_chunk``, ``train.fsw_lazy.
-pick_refresh_group``) count the sort through it, and on the CPU too, where
-the kernel library is not built: ``TILE_ELEMS`` and ``CLUSTER_ELEMS``
-mirror the kernel's ``kTile`` and ``kClusterElems``.
+scratch of 32-bit keys and columns per element and a row's counts
+(``launch_buffers``: the look-back status, 256 words a tile, the digit
+counts of every 16 tiles and of the row). ``sort_transient_bytes`` sums
+them; the FSW memory budgets (``models.fsw.auto_slice_chunk``,
+``train.fsw_lazy.pick_refresh_group``) count the sort through it, and on
+the CPU too, where the kernel library is not built: ``TILE_ELEMS``,
+``CLUSTER_ELEMS``, ``RADIX_TILE`` and ``radix_counts_words`` mirror the
+kernel's ``kTile``, ``kClusterElems``, ``kRadixTile`` and ``RadixShape``.
 
 On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
 it runs ``sort_rows_reference``, the same function in plain tensor ops.
@@ -45,9 +49,12 @@ import math
 import torch
 
 MAX_N = 1 << 30  # columns and perm are int32
-TILE_ELEMS = 16_384  # kTile of csrc/sort_rows.cu: the radix path's tile
+TILE_ELEMS = 16_384  # kTile of csrc/sort_rows.cu: the longest row a block sorts
 CLUSTER_ELEMS = 131_072  # kClusterElems of csrc/sort_rows.cu: longer rows take the radix path
-RADIX = 256  # digits of a radix pass: the radix path counts (R, RADIX, tiles)
+RADIX = 256  # digits of a radix pass
+RADIX_PASSES = 4  # passes of 8-bit digits
+RADIX_TILE = 8_192  # kRadixTile of csrc/sort_rows.cu: a tile a radix downsweep block ranks
+RADIX_HIST_TILES = 16  # kHistTiles: tiles a radix histogram block counts
 
 
 def f2i_keys(x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +107,7 @@ def _lib() -> ctypes.CDLL:
     lib = load("sort_rows")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sort_rows_launch.argtypes = [p] * 8 + [i64, i64, i64, p]
-    lib.sort_rows_radix_step.argtypes = [p] * 8 + [i64, i64, i64, i32, i32, p]
+    lib.sort_rows_radix_step.argtypes = [p] * 8 + [i64, i64, i64, i32, p]
     for name in ("sort_rows_launch", "sort_rows_radix_step"):
         getattr(lib, name).restype = ctypes.c_int
     lib.sort_rows_error_string.argtypes = [ctypes.c_int]
@@ -110,6 +117,8 @@ def _lib() -> ctypes.CDLL:
     for name in ("sort_rows_tile_elems", "sort_rows_cluster_elems", "sort_rows_items_per_thread"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int64
+    lib.sort_rows_radix_counts_words.argtypes = [i64]
+    lib.sort_rows_radix_counts_words.restype = ctypes.c_int64
     return lib
 
 
@@ -148,26 +157,44 @@ def items_per_thread() -> int:
     return int(_lib().sort_rows_items_per_thread())
 
 
+def radix_counts_words(n: int) -> int:
+    """32-bit words of the radix path's counts a row of N: the look-back
+    status (RADIX a tile of RADIX_TILE), the histogram's partial counts
+    (RADIX_PASSES * RADIX a histogram block of RADIX_HIST_TILES tiles), the
+    digit starts (RADIX_PASSES * RADIX) and a tile counter a pass."""
+    tiles = -(-n // RADIX_TILE)
+    hist_blocks = -(-tiles // RADIX_HIST_TILES)
+    return RADIX * tiles + RADIX_PASSES * RADIX * (hist_blocks + 1) + RADIX_PASSES
+
+
+def radix_counts_words_on_card(n: int) -> int:
+    """``radix_counts_words`` as the kernel computes it (the card-only tests
+    hold the host's copy to it)."""
+    return int(_lib().sort_rows_radix_counts_words(n))
+
+
 def launch_buffers(r: int, n: int) -> dict[str, tuple[tuple[int, int], torch.dtype]]:
     """(shape, dtype) of each buffer one ``sort_rows`` launch on (R, N) keys
     allocates, in the C entry point's argument order: the sorted keys and
     payload, ``perm`` and, past ``CLUSTER_ELEMS``, the radix path's (R, N)
-    keys and columns and its (R, RADIX * ceil(N / TILE_ELEMS)) digit
-    counts, all 32-bit."""
+    keys and columns and its (R, radix_counts_words(N)) counts, all
+    32-bit."""
     out = {"keys": ((r, n), torch.float32), "payload": ((r, n), torch.float32),
            "perm": ((r, n), torch.int32)}
     if n > CLUSTER_ELEMS:
         out["scratch_keys"] = ((r, n), torch.int32)
         out["scratch_index"] = ((r, n), torch.int32)
-        out["counts"] = ((r, RADIX * -(-n // TILE_ELEMS)), torch.int32)
+        out["counts"] = ((r, radix_counts_words(n)), torch.int32)
     return out
 
 
 def sort_transient_bytes(r: int, n: int, p: int) -> int:
     """Bytes a ``sort_rows`` launch on (R, N) keys with (P, N) payload rows
     allocates beyond its inputs: the three outputs, 12 B an element, and
-    past ``CLUSTER_ELEMS`` the radix path's scratch, 8 B an element and 4 B
-    a digit of a tile (1/16 B an element)."""
+    past ``CLUSTER_ELEMS`` the radix path's scratch, 8 B an element, and its
+    counts (``radix_counts_words``): 4 B a digit of a tile (1/8 B an
+    element), 4 KiB a histogram block (1/32 B an element), and 4 KiB of digit
+    starts and 16 B of tile counters a row."""
     if r < 1 or not 1 <= n <= MAX_N or p < 1 or r % p:
         raise ValueError(f"sort_rows takes R >= 1 rows of 1 <= N <= {MAX_N} with R % P == 0, "
                          f"got {(r, n, p)}")
@@ -184,21 +211,18 @@ def sort_rows(keys: torch.Tensor, payload: torch.Tensor):
         return sort_rows_reference(keys, payload)
     if keys.device.type != "cuda":
         raise ValueError(f"sort_rows runs on cuda or cpu tensors, not {keys.device}")
-    out = _launch(keys, payload)
-    sort_rows.launches += 1
-    if tile_elems() < keys.shape[1] <= CLUSTER_ELEMS:
-        sort_rows.long_launches += 1
-    return out
+    return _launch(keys, payload)
 
 
 sort_rows.launches = 0  # kernel launches in this process
 sort_rows.long_launches = 0  # those of them on the cluster path
+sort_rows.radix_launches = 0  # those of them on the radix path
 
 
 def _launch(keys: torch.Tensor, payload: torch.Tensor):
     """Buffers allocated (``launch_buffers``) and one launch of
-    ``sort_rows_launch`` on the current stream of the keys' card; raises on
-    a launch error."""
+    ``sort_rows_launch`` on the current stream of the keys' card, counted in
+    ``sort_rows``' launch counts; raises on a launch error."""
     (r, n), p = keys.shape, payload.shape[0]
     bufs = [torch.empty(shape, dtype=dtype, device=keys.device)
             for shape, dtype in launch_buffers(r, n).values()]
@@ -212,4 +236,9 @@ def _launch(keys: torch.Tensor, payload: torch.Tensor):
         raise RuntimeError(
             f"sort_rows launch failed: {lib.sort_rows_error_string(err).decode()} ({err})"
         )
+    sort_rows.launches += 1
+    if n > CLUSTER_ELEMS:
+        sort_rows.radix_launches += 1
+    elif n > TILE_ELEMS:
+        sort_rows.long_launches += 1
     return tuple(bufs[:3])

@@ -13,9 +13,10 @@ shared-vocab sorts at k=8 and k=9), on seeded random keys:
    block adds the cycles since its last mark), one launch each; prints each
    phase's share of the summed cycles and the launch's time;
 2. the radix path's breakdown at its shapes (RADIX_SHAPES: a k = 10
-   genome's refresh sort, 512 rows of 262,144, and a k = 10 query block,
-   1,024 rows of 524,800 with 16 payload rows): each of its 12 launches
-   (upsweep, scan and downsweep of 4 passes) alone through
+   genome's refresh sort, 512 rows of 262,144, a k = 10 query block, 1,024
+   rows of 524,800 with 16 payload rows, and fsw_k10.train_lazy's refresh
+   sort, 512 rows of 646,000): each of its 6 launches (the histogram of all
+   four digits, the scan, and the downsweeps of 4 passes) alone through
    ``sort_rows_radix_step``, with CUDA events between them, the mean of
    RADIX_REPS sorts after a warm-up, with the bytes each launch moves and
    its rate, beside one ``sort_rows`` call;
@@ -33,15 +34,17 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
 
 SHAPES = ((8192, 32896, 16), (512, 32896, 1), (512, 131072, 1))
-RADIX_SHAPES = ((512, 262_144, 1), (1024, 524_800, 16))
+RADIX_SHAPES = ((512, 262_144, 1), (1024, 524_800, 16), (512, 646_000, 1))
 REPS = {8192: 5, 512: 30, 1024: 3}
 RADIX_REPS = 5
-STEPS = ("upsweep", "scan", "downsweep")
+# the radix path's launches in order (sort_rows_radix_step's steps)
+RADIX_LAUNCHES = ("histogram", "scan") + tuple(f"pass {p} downsweep" for p in range(4))
 SEED = 20261016
 MARK = ("#define MARK(k) do { if (threadIdx.x == 0) { long long now_ = clock64(); "
         "atomicAdd(&g_phase[k], (unsigned long long)(now_ - t_prev)); t_prev = now_; } } while (0)\n")
@@ -161,15 +164,20 @@ def _phase_shares(torch, sort, phased) -> None:
               flush=True)
 
 
-def radix_step_bytes(r: int, n: int, p: int, step: int, radix_pass: int) -> int:
-    """Bytes one launch of the radix path moves at least: an upsweep reads
-    the keys; a scan reads and writes the digit counts; a downsweep reads
-    keys and columns (the first pass the keys alone) and writes them (the
-    last pass the keys, perm and the payload, and reads the payload rows)."""
+def radix_step_bytes(r: int, n: int, p: int, step: int) -> int:
+    """Bytes one launch of the radix path moves at least: the histogram
+    reads the keys; the scan touches each word of the counts once (it reads
+    the histogram's counts, writes the digit starts and clears the look-back
+    status); a downsweep reads keys and columns (the first pass the keys
+    alone) and writes them (the last pass the keys, perm and the payload,
+    and reads the payload rows)."""
+    from kf2vecfsw_tpu_torch.kernels.sort import launch_buffers
+
     if step == 0:
         return 4 * r * n
     if step == 1:
-        return 2 * 4 * r * 256 * -(-n // 16_384)
+        return 4 * math.prod(launch_buffers(r, n)["counts"][0])
+    radix_pass = step - 2
     read = 4 * r * n if radix_pass == 0 else 8 * r * n
     write = 12 * r * n if radix_pass == 3 else 8 * r * n
     return read + write + (4 * p * n if radix_pass == 3 else 0)
@@ -188,12 +196,13 @@ def radix_breakdown() -> None:
                 for name, (size, dtype) in sort.launch_buffers(r, n).items()}
         ptrs = [keys.data_ptr(), payload.data_ptr()] + [t.data_ptr() for t in bufs.values()]
         stream = torch.cuda.current_stream().cuda_stream
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(13)]
-        total = [0.0] * 12
+        steps = len(RADIX_LAUNCHES)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        total = [0.0] * steps
         for rep in range(RADIX_REPS + 1):  # the first is the warm-up
             marks[0].record()
-            for i in range(12):
-                err = lib.sort_rows_radix_step(*ptrs, r, n, p, i // 3, i % 3, stream)
+            for i in range(steps):
+                err = lib.sort_rows_radix_step(*ptrs, r, n, p, i, stream)
                 if err != 0:
                     raise RuntimeError(f"radix step {i}: {lib.sort_rows_error_string(err).decode()}")
                 marks[i + 1].record()
@@ -206,13 +215,14 @@ def radix_breakdown() -> None:
         launches = {}
         for i, t in enumerate(total):
             ms = t / RADIX_REPS
-            moved = radix_step_bytes(r, n, p, i % 3, i // 3)
-            launches[f"pass {i // 3} {STEPS[i % 3]}"] = {"ms": ms, "bytes": moved,
-                                                         "tb_per_s": moved / ms / 1e9}
+            moved = radix_step_bytes(r, n, p, i)
+            launches[RADIX_LAUNCHES[i]] = {"ms": ms, "bytes": moved, "tb_per_s": moved / ms / 1e9}
+        downsweeps = [v for k, v in launches.items() if k.endswith("downsweep")]
         print(json.dumps({
             "shape": f"R={r} x N={n}, P={p}", "launches": launches,
-            "by_step_ms": {step: sum(v["ms"] for k, v in launches.items() if k.endswith(step))
-                           for step in STEPS},
+            "downsweeps": {"ms": sum(v["ms"] for v in downsweeps),
+                           "tb_per_s": sum(v["bytes"] for v in downsweeps)
+                           / sum(v["ms"] for v in downsweeps) / 1e9},
             "sum_ms": sum(v["ms"] for v in launches.values()),
             "sort_rows_ms": cuda_ms(torch, lambda: sort.sort_rows(keys, payload), RADIX_REPS)}),
             flush=True)

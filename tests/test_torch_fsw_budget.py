@@ -2,7 +2,7 @@
 
 ``sort_rows`` allocates its three outputs and, for rows longer than
 ``CLUSTER_ELEMS``, the radix path's scratch: 32-bit keys and columns per
-element and each tile's digit counts. The JAX
+element, each tile's look-back status and a row's digit counts. The JAX
 package sizes its sorts for XLA (four f32 buffers an element), and the port
 copied those formulas; these tests hold the repaired budgets:
 - ``sort_transient_bytes`` to the bytes ``_launch`` allocates (read from
@@ -129,38 +129,68 @@ def test_sort_transient_bytes_is_what_launch_allocates(monkeypatch, r, n, p):
     assert live.peak == sort_transient_bytes(r, n, p)
 
 
+@pytest.mark.parametrize("n", [16_384, 16_385, 131_072, 131_073, 646_000])
+def test_radix_launches_count_rows_past_cluster_elems(monkeypatch, n):
+    """A launch counts in ``sort_rows.launches``, and in ``radix_launches``
+    exactly when its rows are longer than CLUSTER_ELEMS (``long_launches``:
+    the cluster path's, from TILE_ELEMS up to CLUSTER_ELEMS)."""
+    monkeypatch.setattr(sort_mod, "_lib", lambda: types.SimpleNamespace(
+        sort_rows_launch=lambda *args: 0))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    counts = sort_mod.sort_rows
+    before = counts.launches, counts.long_launches, counts.radix_launches
+    sort_mod._launch(torch.zeros(1, n), torch.zeros(1, n))
+    radix = n > CLUSTER_ELEMS
+    assert (counts.launches, counts.long_launches, counts.radix_launches) == (
+        before[0] + 1, before[1] + (sort_mod.TILE_ELEMS < n <= CLUSTER_ELEMS), before[2] + radix)
+
+
 def test_sort_transient_bytes_by_hand():
     """12 B an element of outputs; past CLUSTER_ELEMS 8 B an element of
-    radix scratch (keys and columns) and 4 B for each of 256 digits of
-    each tile of 16,384."""
+    radix scratch (keys and columns) and a row's counts: 4 B for each of 256
+    digits of each tile of 8,192 (the look-back status), 4 KiB for each
+    histogram block of 16 tiles, 4 KiB of digit starts and 16 B of tile
+    counters."""
     assert CLUSTER_ELEMS == 131_072 and sort_mod.TILE_ELEMS == 16_384
+    assert sort_mod.RADIX_TILE == 8_192 and sort_mod.RADIX_HIST_TILES == 16
     assert sort_transient_bytes(512, 8192, 1) == 12 * 512 * 8192
     assert sort_transient_bytes(33, 131_072, 33) == 12 * 33 * 131_072
-    # 9 tiles of 131,073: 86,507,520 + 304,128
-    assert sort_transient_bytes(33, 131_073, 1) == 20 * 33 * 131_073 + 4 * 33 * 256 * 9 == 86_812_308
-    # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800, 33 tiles
-    assert sort_transient_bytes(4096, 524_800, 8) == 20 * 4096 * 524_800 + 4 * 4096 * 256 * 33
-    assert sort_transient_bytes(4096, 524_800, 8) == 43_130_028_032
+    # 17 tiles of 131,073 in 2 histogram blocks: 86,508,180 + 980,496
+    assert sort_mod.radix_counts_words(131_073) == 256 * 17 + 1024 * 2 + 1024 + 4 == 7_428
+    assert sort_transient_bytes(33, 131_073, 1) == 20 * 33 * 131_073 + 4 * 33 * 7_428 == 87_488_676
+    # one refresh group of 8 genomes at k = 10: 4,096 rows of 524,800, 65
+    # tiles in 5 histogram blocks
+    assert sort_mod.radix_counts_words(524_800) == 256 * 65 + 1024 * 5 + 1024 + 4 == 22_788
+    assert sort_transient_bytes(4096, 524_800, 8) == 20 * 4096 * 524_800 + 4 * 4096 * 22_788
+    assert sort_transient_bytes(4096, 524_800, 8) == 43_364_974_592
+    # fsw_k10.train_lazy's refresh sort: 512 rows of 646,000, 79 tiles in 5
+    # histogram blocks; counts 54,009,856 B (21,037,056 with 40 tiles of
+    # 16,384, a count of each digit in each)
+    assert sort_mod.radix_counts_words(646_000) == 256 * 79 + 1024 * 5 + 1024 + 4 == 26_372
+    assert sort_transient_bytes(512, 646_000, 1) == 20 * 512 * 646_000 + 54_009_856
     for bad in ((0, 8, 1), (8, 0, 1), (8, 8, 3), (8, (1 << 30) + 1, 1)):
         with pytest.raises(ValueError):
             sort_transient_bytes(*bad)
 
 
 # B = 16 rows a slice: 24 B an element (keys, outputs, radix scratch) plus
-# 1 KiB a row and tile of digit counts; the budget is 1/8 of the card: 2 GiB
-# or 10 GiB.
-#   N = 131,073 (9 tiles): 50,332,032 + 147,456 = 50,479,488 B a slice:
-#     2 GiB / that = 42.5 -> 32; 10 GiB / that = 212.7 -> 128
-#   N = 262,144 (16 tiles): 100,663,296 + 262,144 = 100,925,440: 21.3 -> 16;
-#     106.4 -> 64
-#   N = 524,800 (33 tiles): 201,523,200 + 540,672 = 202,063,872: 10.6 -> 8;
-#     53.1 -> 32
+# a row's counts: 1 KiB a tile of 8,192, 4 KiB a histogram block of 16
+# tiles, 4 KiB and 16 B; the budget is 1/8 of the card: 2 GiB or 10 GiB.
+#   N = 131,073 (17 tiles, 2 blocks): 50,332,032 + 475,392 = 50,807,424 B a
+#     slice: 2 GiB / that = 42.3 -> 32; 10 GiB / that = 211.3 -> 128
+#   N = 262,144 (32 tiles, 2 blocks): 100,663,296 + 721,152 = 101,384,448:
+#     21.2 -> 16; 105.9 -> 64
+#   N = 524,800 (65 tiles, 5 blocks): 201,523,200 + 1,458,432 = 202,981,632:
+#     10.6 -> 8; 52.9 -> 32
 @pytest.mark.parametrize("n,hbm_gib,chunk", [
     (131_073, 16, 32), (131_073, 80, 128), (262_144, 16, 16), (262_144, 80, 64),
     (524_800, 16, 8), (524_800, 80, 32)])
 def test_auto_slice_chunk_counts_the_merge_scratch(monkeypatch, n, hbm_gib, chunk):
     monkeypatch.setenv("KF2VEC_HBM_BYTES", str(hbm_gib * GIB))
-    per_slice = 24 * B * n + 1024 * B * -(-n // 16_384)
+    tiles = -(-n // 8_192)
+    per_slice = 24 * B * n + B * (1024 * tiles + 4096 * (-(-tiles // 16) + 1) + 16)
     assert fsw.slice_sort_bytes(B, n) == per_slice
     got = fsw.auto_slice_chunk(B, n, D_OUT, "cpu")
     assert got == chunk
@@ -204,9 +234,10 @@ def test_pick_refresh_group_per_genome(monkeypatch, n, hbm_gib, group):
     for g in (1, 2, 4, 8):
         assert tlazy.refresh_transient_bytes(D_OUT, n, g, points) == _refresh_by_hand(g, n)
         # the sort stage (digits, keys, weight rows, outputs, radix scratch:
-        # 20 B an element and 1 KiB a row and tile) stays below the jvp's
+        # 20 B an element and a row's counts) stays below the jvp's
+        tiles = -(-n // 8_192)
         sort_stage = (8 * g * n * K + 4 * g * D_OUT * n + 4 * g * n + 20 * g * D_OUT * n
-                      + 1024 * g * D_OUT * -(-n // 16_384))
+                      + g * D_OUT * (1024 * tiles + 4096 * (-(-tiles // 16) + 1) + 16))
         assert sort_stage == (8 * g * n * K + 4 * g * D_OUT * n + 4 * g * n
                               + sort_transient_bytes(g * D_OUT, n, g))
         assert sort_stage < _refresh_by_hand(g, n)

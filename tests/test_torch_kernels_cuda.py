@@ -11,7 +11,11 @@ block sizes of the radix tile sort, the cluster path's lengths from 16,385
 to 131,072 with its seams and 131,073 (the first length on the radix
 path), the radix path at k = 10's lengths (262,144 to 524,800), its tile
 seams and adversarial keys, with its allocations held to
-``sort_transient_bytes``, ties on every other row,
+``sort_transient_bytes`` and counted in ``sort_rows.radix_launches``, at
+fsw_k10.train_lazy's refresh sort (512 x 646,000, a padded tail of equal
+keys; two launches bit-equal), on keys whose digits fill whole tiles or most
+of a row (the look-back's sums reach whole tiles and rows), and on 4,096
+rows (far more tiles than the card holds at a time), ties on every other row,
 all-equal keys (``perm`` the identity),
 keys at the f32 extremes; ``perm`` equal to the plain (stable) version's on
 every row; ``sort_rows.long_launches`` counting the cluster path's launches
@@ -63,10 +67,13 @@ from kf2vecfsw_tpu_torch.kernels.histogram import (
 )
 from kf2vecfsw_tpu_torch.kernels.sort import (
     CLUSTER_ELEMS,
+    RADIX_TILE,
     TILE_ELEMS,
     cluster_elems,
     cluster_shape,
     items_per_thread,
+    radix_counts_words,
+    radix_counts_words_on_card,
     sort_rows,
     sort_rows_reference,
     sort_transient_bytes,
@@ -248,7 +255,7 @@ def test_sort_long_rows_equal_plain_version(card, r, p, n):
     on_cluster = tile_elems() < n <= cluster_elems()
     assert sort_rows.long_launches == before[1] + on_cluster
     assert cluster_elems() == 131_072 == CLUSTER_ELEMS
-    assert tile_elems() == 16_384 == TILE_ELEMS  # the radix path's tile too
+    assert tile_elems() == 16_384 == TILE_ELEMS
     if on_cluster:
         shape = cluster_shape(n)
         assert 1 <= shape["blocks"] <= 8 and shape["threads"] == 1024
@@ -259,14 +266,15 @@ def test_sort_long_rows_equal_plain_version(card, r, p, n):
 
 RADIX_LENGTHS = [262_144, 300_007, 524_800]  # k = 10 point sets, its vocab at 524,800
 # the radix path's seams (131,073: the first length on it; a tile of
-# 16,384 +- 1 at 9, 16 and 32 tiles), a row of 67 tiles, and adversarial
-# keys at 300,007: all equal (perm the identity), only +-0.0, ascending,
-# descending, and sharing their top three bytes (one digit takes every
-# tile in passes 2-4)
+# 8,192 +- 1 at 18, 32 and 64 tiles), a row of 135 tiles, 4,096 rows of 17
+# tiles (69,632 tiles: far more than the card's 2 a SM at a time, so most
+# blocks find their predecessors done), and adversarial keys at 300,007: all
+# equal (perm the identity), only +-0.0, ascending, descending, and sharing
+# their top three bytes (one digit takes every tile in passes 2-4)
 RADIX_CASES = ([(r, n, "ties") for r in (1, 33) for n in RADIX_LENGTHS]
                + [(33, n, "ties") for n in (131_073, 147_455, 147_457, 262_143, 262_145,
                                             524_287, 524_289)]
-               + [(2, 1_100_000, "ties")]
+               + [(2, 1_100_000, "ties"), (4096, 131_073, "ties")]
                + [(33, 300_007, kind) for kind in ("all_equal", "signed_zeros", "ascending",
                                                    "descending", "top_bytes_shared")])
 
@@ -286,35 +294,94 @@ def _radix_keys(kind, gen, r, n, card):
     elif kind == "top_bytes_shared":  # 1.0f's top three bytes, the low byte random
         low = torch.randint(0, 256, (r, n), generator=gen, device=card, dtype=torch.int32)
         keys = (low | 0x3F800000).view(torch.float32)
+    elif kind == "tile_runs":  # each byte constant over runs of 3, 5 and 7 whole tiles
+        col = torch.arange(n, device=card, dtype=torch.int32)
+        bits = ((col // (3 * RADIX_TILE)) % 256 | ((col // (5 * RADIX_TILE)) % 256) << 8
+                | ((col // (7 * RADIX_TILE)) % 256) << 16)
+        keys = (bits | 0x3F000000).expand(r, n).contiguous().view(torch.float32)
+    elif kind == "one_digit_mostly":  # each byte 0x5A in 9 of 10 elements
+        bits = torch.randint(0, 1 << 30, (r, n), generator=gen, device=card, dtype=torch.int32)
+        for b in range(4):
+            common = torch.rand(r, n, generator=gen, device=card) < 0.9
+            keep = ~(0xFF << (8 * b)) & 0xFFFFFFFF  # the other bytes, as int32
+            keep -= (keep >= 1 << 31) << 32
+            bits = torch.where(common, (bits & keep) | (0x5A << (8 * b)), bits)
+        keys = bits.view(torch.float32)
     return keys.contiguous()
+
+
+def _assert_radix_launch_equals_plain_version(keys, payload):
+    """One sort_rows launch on the radix path against the plain version,
+    ``perm`` included; counted once in ``launches`` and ``radix_launches``
+    and not in ``long_launches``; the bytes it asks the caching allocator
+    for are ``sort_transient_bytes`` (the allocator's requested bytes, which
+    its rounding and block reuse leave out). Returns the outputs."""
+    (r, n), p = keys.shape, payload.shape[0]
+    assert radix_counts_words_on_card(n) == radix_counts_words(n)
+    before = sort_rows.launches, sort_rows.long_launches, sort_rows.radix_launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    got = sort_rows(keys, payload)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
+    assert (sort_rows.launches, sort_rows.long_launches, sort_rows.radix_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert grown == sort_transient_bytes(r, n, p)
+    ref = sort_rows_reference(keys, payload)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return got
 
 
 @pytest.mark.parametrize("r,n,kind", RADIX_CASES)
 def test_sort_radix_lengths_equal_plain_version(card, r, n, kind):
     """Rows past CLUSTER_ELEMS take the radix path: exact, ``perm`` included,
-    at payload rows P in {1, R, R/3}, counted in ``launches`` and not in
-    ``long_launches``, and the launch's allocations are
-    ``sort_transient_bytes`` (outputs, radix scratch and digit counts; the
-    caching allocator may hand out up to 1 MiB more per block)."""
+    at payload rows P in {1, R, R/3}, counted in ``launches`` and
+    ``radix_launches`` and not in ``long_launches``, and the bytes the
+    launch asks for are ``sort_transient_bytes`` (outputs, radix scratch,
+    look-back status and digit counts)."""
     gen = torch.Generator(device=card).manual_seed(r + n)
     keys = _radix_keys(kind, gen, r, n, card)
     for p in sorted({1, r} | ({r // 3} if r % 3 == 0 else set())):
         payload = torch.rand(p, n, generator=gen, device=card)
-        before = sort_rows.launches, sort_rows.long_launches
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        got = sort_rows(keys, payload)
-        torch.cuda.synchronize()
-        grown = torch.cuda.max_memory_allocated() - base
-        assert (sort_rows.launches, sort_rows.long_launches) == (before[0] + 1, before[1])
-        assert sort_transient_bytes(r, n, p) <= grown <= sort_transient_bytes(r, n, p) + (4 << 20)
-        ref = sort_rows_reference(keys, payload)
-        for a, b in zip(got, ref):
-            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        got = _assert_radix_launch_equals_plain_version(keys, payload)
         if kind == "all_equal":
             assert torch.equal(got[2], torch.arange(n, dtype=torch.int32, device=card).expand(r, n))
-        del got, ref
+        del got
+
+
+@pytest.mark.parametrize("kind", ["tile_runs", "one_digit_mostly"])
+def test_sort_radix_run_heavy_keys_equal_plain_version(card, kind):
+    """Keys whose digits fill whole tiles (a tile's count of one digit is the
+    whole tile, of the others 0, and runs of tiles send all their items to
+    one stretch of the row) or leave most of a row in one digit (a digit's
+    run spans many tiles, and the look-back's sums reach the row's length):
+    exact at P in {1, R, R/3}."""
+    r, n = 33, 646_000
+    gen = torch.Generator(device=card).manual_seed(n + len(kind))
+    keys = _radix_keys(kind, gen, r, n, card)
+    for p in (1, r // 3, r):
+        payload = torch.rand(p, n, generator=gen, device=card)
+        _assert_radix_launch_equals_plain_version(keys, payload)
+
+
+def test_sort_radix_refresh_row_equals_plain_version(card):
+    """fsw_k10.train_lazy's refresh sort: 512 slices of a point set of
+    503,934 points padded to 646,000 (the padding's keys equal, and equal to
+    a real key of the row), 40,448 tiles; exact at P in {1, R}, and two
+    launches on the same input are bit-equal."""
+    r, n, points = 512, 646_000, 503_934
+    gen = torch.Generator(device=card).manual_seed(n)
+    keys = torch.randn(r, n, generator=gen, device=card)
+    keys[:, points:] = keys[:, :1]
+    for p in (1, r):
+        payload = torch.rand(p, n, generator=gen, device=card)
+        got = _assert_radix_launch_equals_plain_version(keys, payload)
+        again = sort_rows(keys, payload)
+        for a, b in zip(got, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        del got, again
 
 
 def test_sort_equals_plain_version_around_the_block_sizes(card):

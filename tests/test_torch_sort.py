@@ -147,7 +147,7 @@ def test_long_rows_on_cpu_take_the_plain_version_and_count_no_launch(monkeypatch
         raise AssertionError("the CPU path reached the CUDA library")
 
     monkeypatch.setattr(sort_mod, "_lib", no_kernel)
-    before = (sort_rows.launches, sort_rows.long_launches)
+    before = (sort_rows.launches, sort_rows.long_launches, sort_rows.radix_launches)
     rng = np.random.default_rng(n)
     keys = np.round(rng.normal(size=(2, n)) * 8).astype(np.float32) + np.float32(0)  # ties, no -0.0
     payload = rng.random((1, n)).astype(np.float32)
@@ -155,7 +155,7 @@ def test_long_rows_on_cpu_take_the_plain_version_and_count_no_launch(monkeypatch
     _check_consistent(keys, payload, sk, sp, perm)
     for i in range(2):
         np.testing.assert_array_equal(perm[i], np.argsort(keys[i], kind="stable"))
-    assert (sort_rows.launches, sort_rows.long_launches) == before
+    assert (sort_rows.launches, sort_rows.long_launches, sort_rows.radix_launches) == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
