@@ -49,6 +49,15 @@ Three forwards train the model:
   row walked by warps, with no (G*C, N) buffer; on the CPU the same plain
   jvp, unsort and one-hot product.
 
+The first two are exact: under autograd they sort at every step, and a
+forward chunked by slices (``auto_slice_chunk``) recomputes each chunk, its
+sort included, in the backward. Under autograd their sorts run under the
+span ``fsw.exact.sort`` and their unsorts under ``fsw.exact.unsort``, and
+``utils.phases.count`` adds every such sort's slots (rows x N, padding and
+recomputes included; a host integer from shapes) to ``fsw.exact.slots``.
+Inference (the export, ``query``, the serve daemon) marks and counts none
+of them.
+
 On a grid with a model axis (``parallel.mesh.shard_module``) each rank
 holds d_out / n_model of the slices and frequencies and the matching input
 columns of fc1, which is row-parallel (``mlp.row_parallel``); the lookup,
@@ -93,13 +102,31 @@ from ..kmer.vocab import (
     codes_to_digit_matrix,
 )
 from ..utils.membudget import hbm_fraction
-from ..utils.phases import phase
+from ..utils.phases import count, phase
 from .mlp import enter_model_axis, init_params_, row_parallel
 
 # shared-vocab gate: V beyond this would blow the sort transients; a batch
 # beyond this is not the reference's (its FSW batch is 16)
 FSW_SHARED_VOCAB_MAX = 1 << 18
 FSW_SHARED_BATCH_MAX = 64
+
+
+def _exact_sort(ctx, p: torch.Tensor, w: torch.Tensor):
+    """``sort_rows(p, w)`` of an exact forward. Under autograd (a training
+    step: p needs a gradient) it runs under the span ``fsw.exact.sort`` and
+    counts its R x N slots into ``fsw.exact.slots`` (a checkpointed chunk's
+    recompute sorts, and counts, again); inference adds no span or count to
+    a serving request's collector."""
+    if not ctx.needs_input_grad[0]:
+        return sort_rows(p, w)
+    count("fsw.exact.slots", p.shape[0] * p.shape[1])
+    with phase("fsw.exact.sort"):
+        return sort_rows(p, w)
+
+
+def _exact_unsort(d: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    with phase("fsw.exact.unsort"):
+        return unsort(d, perm)
 
 
 class SortPW(torch.autograd.Function):
@@ -111,7 +138,7 @@ class SortPW(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, w):
-        ps, ws, perm = sort_rows(p, w)
+        ps, ws, perm = _exact_sort(ctx, p, w)
         ctx.save_for_backward(perm)
         ctx.mark_non_differentiable(ws)
         return ps, ws
@@ -119,7 +146,7 @@ class SortPW(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_ps, _d_ws):
         (perm,) = ctx.saved_tensors
-        return unsort(d_ps, perm), None
+        return _exact_unsort(d_ps, perm), None
 
 
 class SortShared(torch.autograd.Function):
@@ -131,7 +158,7 @@ class SortShared(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, wn):
-        ps, _, perm = sort_rows(p, wn[:1])
+        ps, _, perm = _exact_sort(ctx, p, wn[:1])
         ctx.save_for_backward(perm)
         wsb = wn[:, perm.long()]
         ctx.mark_non_differentiable(wsb)
@@ -140,7 +167,7 @@ class SortShared(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_ps, _d_wsb):
         (perm,) = ctx.saved_tensors
-        return unsort(d_ps, perm), None
+        return _exact_unsort(d_ps, perm), None
 
 
 def _normalized(weights: torch.Tensor) -> torch.Tensor:
@@ -232,15 +259,44 @@ def slice_sort_bytes(b: int, n: int) -> int:
     return 4 * b * n + sort_transient_bytes(b, n, b)
 
 
-def auto_slice_chunk(b: int, n: int, d_out: int, device: str | torch.device) -> int:
-    """The largest power-of-two slice chunk (at least 8) whose sort,
-    ``slice_sort_bytes`` a slice, fits ``fsw_sort_budget_bytes``; 0 when all
-    d_out slices fit. Equal to the JAX package's ``_auto_slice_chunk`` up to
-    N = ``CLUSTER_ELEMS``, never larger beyond it (that one sizes XLA's sort,
-    which has no radix scratch)."""
+# f32 buffers of a chunk's (B*c, N) that its backward holds at its peak under
+# ``checkpoint``: the recomputed sort's outputs, the cos/sinc chain's saved
+# tensors and their gradients (tests/test_torch_fsw_exact.py counts them)
+TRAIN_SLICE_BUFFERS = 17
+
+
+def slice_train_bytes(b: int, n: int) -> int:
+    """Bytes one slice adds to a chunk of a forward under autograd: the
+    backward recomputes the chunk and holds TRAIN_SLICE_BUFFERS f32 buffers
+    of its B rows of N, more than the recompute's sort (``slice_sort_bytes``)."""
+    return max(4 * TRAIN_SLICE_BUFFERS * b * n, slice_sort_bytes(b, n))
+
+
+def fsw_train_budget_bytes(device: str | torch.device) -> int:
+    """Budget of a training forward's chunk, its backward included: 3/8 of
+    the device memory. A training step holds nothing else of its size
+    beside its data; 3/8 is what the chunks sized by their sort alone in
+    1/8 took once their backward ran (``slice_train_bytes`` is 2.8-3.4x
+    ``slice_sort_bytes``), so the published shapes keep those chunks."""
+    return hbm_fraction(3, 8, device)
+
+
+def auto_slice_chunk(b: int, n: int, d_out: int, device: str | torch.device,
+                     training: bool = False) -> int:
+    """The largest power-of-two slice chunk (at least 8) that fits its
+    budget; 0 when all d_out slices fit. Without ``training`` a slice costs
+    its sort, ``slice_sort_bytes``, in ``fsw_sort_budget_bytes``: equal to
+    the JAX package's ``_auto_slice_chunk`` up to N = ``CLUSTER_ELEMS``,
+    never larger beyond it (that one sizes XLA's sort, which has no radix
+    scratch). With ``training`` (a forward under autograd, each chunk
+    recomputed in the backward) a slice costs ``slice_train_bytes`` in
+    ``fsw_train_budget_bytes``; the JAX package sizes it by its sort alone."""
     if b < 1 or n < 1:
         return 0
-    chunk = max(8, fsw_sort_budget_bytes(device) // slice_sort_bytes(b, n))
+    if training:
+        chunk = max(8, fsw_train_budget_bytes(device) // slice_train_bytes(b, n))
+    else:
+        chunk = max(8, fsw_sort_budget_bytes(device) // slice_sort_bytes(b, n))
     if chunk >= d_out:
         return 0
     p = 8
@@ -300,7 +356,8 @@ class FSWDistEmbed(nn.Module):
         in the first k columns, frequency weight in the last (the JAX
         package's ``fsw_dist_embed_apply``) — or (B, V) weights over the
         canonical vocab at k (``forward_shared``). slice_chunk=None picks
-        ``auto_slice_chunk`` for x's device."""
+        ``auto_slice_chunk`` for x's device, a training chunk where the
+        chunks are recomputed in the backward (under autograd)."""
         if x.dim() == 2:
             return self.forward_shared(x, vocab_digits(self.k, x.device), slice_chunk)
         kmers = x[..., :-1].long()
@@ -308,7 +365,8 @@ class FSWDistEmbed(nn.Module):
         b, n, _ = kmers.shape
         points = lookup_points(enter_model_axis(self.lookup, self.model_axis), kmers)
         if slice_chunk is None:
-            slice_chunk = auto_slice_chunk(b, n, self.slices.shape[0], x.device)
+            slice_chunk = auto_slice_chunk(b, n, self.slices.shape[0], x.device,
+                                           torch.is_grad_enabled())
         return self.head(fsw_embed(self.slices, self.freqs, points, weights, slice_chunk))
 
     def forward_shared(self, w: torch.Tensor, digits: torch.Tensor,
@@ -318,7 +376,8 @@ class FSWDistEmbed(nn.Module):
         b, v = w.shape
         points = lookup_points(enter_model_axis(self.lookup, self.model_axis), digits)
         if slice_chunk is None:
-            slice_chunk = auto_slice_chunk(b, v, self.slices.shape[0], w.device)
+            slice_chunk = auto_slice_chunk(b, v, self.slices.shape[0], w.device,
+                                           torch.is_grad_enabled())
         return self.head(fsw_embed_shared(self.slices, self.freqs, points, w, slice_chunk))
 
     def head(self, e: torch.Tensor) -> torch.Tensor:

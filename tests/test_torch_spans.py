@@ -9,7 +9,9 @@ loop, on the CPU.
   exact, shared vocab and per genome) and the classifier's hold one
   ``train.step`` per batch with its forward, loss, backward and two adam
   spans inside it, one ``fsw.refresh`` per refresh with its stages inside
-  it (``jvp`` once per refresh group), and no step overlapping a refresh.
+  it (``jvp`` once per refresh group), and no step overlapping a refresh;
+  an exact step's ``fsw.exact.sort`` inside its forward and its
+  ``fsw.exact.unsort`` inside its backward.
 - The parameters and the epoch loss are bit-identical with the spans
   recording and without.
 - The daemon's ``phases_ms`` keys for a placement are the same with and
@@ -156,7 +158,14 @@ def test_epoch_spans_nest(route):
     refreshes = spans.get("fsw.refresh", [])
     assert len(refreshes) == (planes.refreshes if planes is not None else 0)
     if planes is None:
-        assert not [n for n in spans if n.startswith("fsw.")]
+        # the exact route: a step's one sort in its forward, its unsort in
+        # its backward (no slice chunks at these sizes)
+        assert {n for n in spans if n.startswith("fsw.")} == (
+            set() if route == "classifier" else {"fsw.exact.sort", "fsw.exact.unsort"})
+        for name, part in (("fsw.exact.sort", "train.forward"),
+                           ("fsw.exact.unsort", "train.backward")):
+            assert len(spans.get(name, [])) == (0 if route == "classifier" else STEPS), name
+            assert all(_within(sp, spans[part]) for sp in spans.get(name, [])), name
         return
     assert len(refreshes) == 2
     shared = route.endswith("shared")
