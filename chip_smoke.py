@@ -239,8 +239,15 @@ from kf2vecfsw_tpu_torch.io.fasta import INVALID, encode_bases, read_sequences_r
 from kf2vecfsw_tpu_torch.io.native import lib as textio_lib
 from kf2vecfsw_tpu_torch.kernels import build
 from kf2vecfsw_tpu_torch.kernels.refresh import (
+    exact_coefficients,
+    exact_coefficients_grad,
+    exact_coefficients_grad_reference,
+    exact_coefficients_reference,
+    exact_coefficients_shared,
+    exact_coefficients_shared_grad,
     pergenome_planes,
     pergenome_planes_reference,
+    quantile_coefficients,
     refresh_planes,
     refresh_planes_reference,
     scratch_bytes,
@@ -351,6 +358,17 @@ H100_LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 REFRESH_GOAL_MS = 30.0  # the kernel's goal at PHASE5_REFRESH
 PERGENOME_REPLACES = ("no Pallas kernel: the per-genome lazy refresh's XLA ops at "
                       "kf2vecfsw_tpu/models/fsw.py:468 (fsw_lazy_refresh_pergenome)")
+EXACT_REPLACES = ("no Pallas kernel: the exact forwards' XLA ops at kf2vecfsw_tpu/models/fsw.py "
+                  "(fsw_embed, fsw_embed_shared) and their autograd")
+# phase 5: the exact forwards' coefficients at fsw_k10.train_exact's chunk
+# (items, slices, N, real points an item; the last chunk's frequencies) and
+# at fsw_k7.train_exact's step (items, slices; V = V_MAIN)
+PHASE5_EXACT_ROWS = (16, 32, 646_000, 503_934)
+PHASE5_EXACT_SHARED = (16, FSW_OUT_DIM)
+# the forward's lane instructions a coefficient: one cospif, the sinc's
+# series, the prefix and a product (the backward's, delta and its slope,
+# are REFRESH_INSTR_PER_COEFF less the segment sums: counted as those)
+EXACT_VALUE_INSTR_PER_COEFF = 60
 # phase 5: the per-genome refresh's planes at fsw_k10.train_lazy's group: slices,
 # N (the cell's padded point sets), real points (its longest genome's), k = K10
 PHASE5_PERGENOME = (FSW_OUT_DIM, 646_000, 503_934)
@@ -879,12 +897,14 @@ def counted(fn, *args):
     sort_rows')."""
     kmer_hist.launches = sort_rows.launches = sort_rows.long_launches = 0
     sort_rows.radix_launches = refresh_planes.launches = pergenome_planes.launches = 0
+    exact_coefficients.launches = 0
     out = fn(*args)
     return out, {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
                  "sort_rows_long": sort_rows.long_launches,
                  "sort_rows_radix": sort_rows.radix_launches,
                  "refresh_planes": refresh_planes.launches,
-                 "pergenome_planes": pergenome_planes.launches}
+                 "pergenome_planes": pergenome_planes.launches,
+                 "exact_coefficients": exact_coefficients.launches}
 
 
 def serve_on_card(tag: str, work: str, lib_dir: str, q_dir: str, names: list[str],
@@ -1310,12 +1330,13 @@ class TrainerClock:
     def _export(self, fn):
         def timed(model, feats, names, *args, **kw):
             self._format_s = 0.0
-            launches = sort_rows.launches
+            launches = sort_rows.launches, exact_coefficients.launches
             t0 = time.perf_counter()
             out = fn(model, feats, names, *args, **kw)
             self.exports.append({"rows": len(names), "s": time.perf_counter() - t0,
                                  "format_s": self._format_s,
-                                 "sort_rows": sort_rows.launches - launches})
+                                 "sort_rows": sort_rows.launches - launches[0],
+                                 "exact_coefficients": exact_coefficients.launches - launches[1]})
             return out
         return timed
 
@@ -1579,7 +1600,7 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     release_serving_caches()
     torch.cuda.reset_peak_memory_stats()
     kmer_hist.launches = sort_rows.launches = refresh_planes.launches = 0
-    pergenome_planes.launches = 0
+    pergenome_planes.launches = exact_coefficients.launches = 0
     t0 = time.perf_counter()
     with TrainerClock() as clock:
         cli_main(["train_model_set", "-input_dir", feats, "-subtrees",
@@ -1588,7 +1609,8 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     seconds = time.perf_counter() - t0
     launches = {"kmer_hist": kmer_hist.launches, "sort_rows": sort_rows.launches,
                 "refresh_planes": refresh_planes.launches,
-                "pergenome_planes": pergenome_planes.launches}
+                "pergenome_planes": pergenome_planes.launches,
+                "exact_coefficients": exact_coefficients.launches}
     peak = torch.cuda.max_memory_allocated()
     lines = route_lines(out_dir)
     check(lines == list(FSW_ROUTES[route]) * n_clades,
@@ -1613,6 +1635,9 @@ def train_fsw(route: str, feats: str, tree_dir: str, out_dir: str, n_clades: int
     check(pergenome_launches_fit(route, launches, out["refreshes"]),
           f"{route}: pergenome_planes launched {launches['pergenome_planes']} times over "
           f"{out['refreshes']} refreshes")
+    check(exact_launches_fit(route, launches, clock.exports, out["steps"]),
+          f"{route}: exact_coefficients launched {launches['exact_coefficients']} times over "
+          f"{out['steps']} steps and the exports {clock.exports}")
     check(peak >= 2 * FSW_MODEL_BYTES, f"{route}: peak device memory {peak} B")
     log(f"phase train_fsw {route}: {json.dumps(out)}")
     return out
@@ -1624,6 +1649,18 @@ def pergenome_launches_fit(route: str, launches: dict, refreshes: int) -> bool:
     if route == "lazy_pergenome":
         return launches["pergenome_planes"] >= refreshes > 0
     return launches["pergenome_planes"] == 0
+
+
+def exact_launches_fit(route: str, launches: dict, exports: list[dict], steps: int) -> bool:
+    """The exact coefficients launch once a sort in every export's forward
+    and, in training, at least twice a step (forward and backward, three
+    times a chunk where the slices are chunked) on an exact route, never on
+    a lazy one."""
+    in_exports = sum(e["exact_coefficients"] for e in exports)
+    if any(e["exact_coefficients"] != e["sort_rows"] for e in exports):
+        return False
+    outside = launches["exact_coefficients"] - in_exports
+    return outside >= 2 * steps if route.startswith("exact") else outside == 0
 
 
 def divided_backbone(work: str, tag: str, seed: int, n_leaves: int, lengths: tuple[int, int],
@@ -1851,6 +1888,10 @@ def train_fsw_k10(feats: str, tree_dir: str, out_dir: str, route: str,
     check(pergenome_launches_fit(route, launches, out["refreshes"]),
           f"k=10 {route}: pergenome_planes launches ({launches}) over {out['refreshes']} "
           "refreshes")
+    steps = sum(n for n, _ in clock.epochs["distance"])
+    check(exact_launches_fit(route, launches, clock.exports, steps),
+          f"k=10 {route}: exact_coefficients launches ({launches}) over {steps} steps and "
+          f"the exports {clock.exports}")
     return out
 
 
@@ -2025,6 +2066,7 @@ def phase_fsw_k10(work: str) -> dict:
         query[f"{dev}_s"] = time.perf_counter() - t1
     check(query["cuda"]["sort_rows"] >= 1 and query["cuda"]["sort_rows_long"] == 0
           and query["cuda"]["sort_rows_radix"] == query["cuda"]["sort_rows"]
+          and query["cuda"]["exact_coefficients"] == query["cuda"]["sort_rows"]
           and not any(query["cpu"].values()), f"k=10 query launches {query}")
     _, emb_cuda = read_table(os.path.join(work, "k10_q_out_cuda", f"embedding_subtree_{clade}.emb"),
                              header=False)
@@ -3068,6 +3110,105 @@ def phase_pergenome_timings(dev) -> dict:
     return out
 
 
+def _exact_rel_errs(got, want) -> list[float]:
+    return [(torch.linalg.vector_norm(a.double() - w) / torch.linalg.vector_norm(w)).item()
+            for a, w in zip(got, want)]
+
+
+def _exact_plain(ps, wsb, freqs, grad):
+    """(E, d_ps, d_xi) of the plain chain on the card: the float32 product of
+    ps ((B, C, N), or (C, V) shared) and ``quantile_coefficients``, summed,
+    and autograd."""
+    ps, xi = ps.detach().requires_grad_(), freqs.detach().requires_grad_()
+    e = torch.sum((ps if ps.dim() == 3 else ps[None])
+                  * quantile_coefficients(wsb, xi[None, :, None]), dim=-1)
+    e.backward(grad)
+    return e.detach(), ps.grad, xi.grad
+
+
+def phase_exact_timings(dev) -> dict:
+    """The exact forwards' coefficients at PHASE5_EXACT_ROWS (per genome:
+    bound by bytes, ps and ws read once and ws once more for the tile sums
+    forward, ws and ps read and d_ps written backward, 12 B a position
+    each) and PHASE5_EXACT_SHARED (shared, bound by lane work: every item's
+    coefficient of every slice and position); each kernel's E, d_ps and
+    d_xi against float64 (relative norm errors: per genome under a tenth of
+    the plain chain's, whose float32 scan runs over 646,000 weights; shared
+    within the planes' tolerance, 1e-5 + 1e-7 C), its time beside its bound,
+    the plain chain's (its product, row sum and autograd, float32 on the
+    card) and the plain chain's own error."""
+    out = {}
+    b, c, n, real = PHASE5_EXACT_ROWS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    w = torch.rand(b, n, generator=gen, device=dev)
+    keys = torch.randn(b * c, n, generator=gen, device=dev)
+    w[:, real:] = 0.0
+    keys[:, real:] = keys[:, :1]  # the padding rows are one point: they sort together
+    ps, ws, _ = sort_rows(keys, fsw_model._normalized(w))
+    del keys, w
+    freqs = torch.arange(FSW_OUT_DIM - c, FSW_OUT_DIM, dtype=torch.float32, device=dev)
+    grad = torch.randn(b, c, generator=gen, device=dev)
+    v3 = (b, c, n)
+    rows_out = [*exact_coefficients(ps, ws, freqs)]
+    rows_out[1:] = exact_coefficients_grad(ps, ws, freqs, rows_out[1], grad)
+    want = (exact_coefficients_reference(ps.double().view(v3), ws.double().view(v3),
+                                         freqs.double()),
+            *exact_coefficients_grad_reference(ps.double().view(v3), ws.double().view(v3),
+                                               freqs.double(), grad.double()))
+    err = _exact_rel_errs((rows_out[0], rows_out[1].view(v3), rows_out[2]), want)
+    plain_err = _exact_rel_errs(_exact_plain(ps.view(v3), ws.view(v3), freqs, grad), want)
+    del want, rows_out
+    check(all(a <= b / 10 for a, b in zip(err, plain_err)),
+          f"exact_coefficients at {PHASE5_EXACT_ROWS}: relative errors {err} of E, d_ps and "
+          f"d_xi against float64, not a tenth of the plain chain's {plain_err}")
+    _, tile_sums = exact_coefficients(ps, ws, freqs)
+    fwd_ms = cuda_ms(lambda: exact_coefficients(ps, ws, freqs), reps=10)
+    bwd_ms = cuda_ms(lambda: exact_coefficients_grad(ps, ws, freqs, tile_sums, grad), reps=10)
+    plain_ms = cuda_ms(lambda: _exact_plain(ps.view(v3), ws.view(v3), freqs, grad), reps=2,
+                       warmup=1)
+    bytes_ms = 1e3 * 12 * b * c * n / H100_BYTES_PER_S
+    out["rows"] = {"shape": [b, c, n], "real_points": real, "forward_ms": fwd_ms,
+                   "backward_ms": bwd_ms, "bound_ms": bytes_ms, "bound_by": "bytes",
+                   "forward_operations_ms": 1e3 * b * c * real * EXACT_VALUE_INSTR_PER_COEFF
+                   / H100_LANE_INSTR_PER_S,
+                   "backward_operations_ms": 1e3 * b * c * real * REFRESH_INSTR_PER_COEFF
+                   / H100_LANE_INSTR_PER_S,
+                   "plain_forward_backward_ms": plain_ms, "rel_err_e_dps_dxi": err,
+                   "plain_rel_err_e_dps_dxi": plain_err}
+    del ps, ws, tile_sums
+    b, c = PHASE5_EXACT_SHARED
+    w = torch.rand(b, V_MAIN, generator=gen, device=dev)
+    w[w < 0.2] = 0.0  # absent k-mers
+    wn = fsw_model._normalized(w)
+    ps, _, perm = sort_rows(torch.randn(c, V_MAIN, generator=gen, device=dev), wn[:1])
+    freqs = torch.arange(c, dtype=torch.float32, device=dev)
+    grad = torch.randn(b, c, generator=gen, device=dev)
+    got = (exact_coefficients_shared(ps, perm, wn, freqs),
+           *exact_coefficients_shared_grad(ps, perm, wn, freqs, grad))
+    wsb = wn.double()[:, perm.long()]
+    want = (exact_coefficients_reference(ps.double(), wsb, freqs.double()),
+            *exact_coefficients_grad_reference(ps.double(), wsb, freqs.double(), grad.double()))
+    del wsb
+    err = _exact_rel_errs(got, want)
+    plain_err = _exact_rel_errs(_exact_plain(ps, wn[:, perm.long()], freqs, grad), want)
+    check(max(err) <= 1e-5 + 1e-7 * c, f"exact_coefficients_shared at {PHASE5_EXACT_SHARED}: "
+          f"relative errors {err} of E, d_ps and d_xi against float64")
+    fwd_ms = cuda_ms(lambda: exact_coefficients_shared(ps, perm, wn, freqs), reps=20)
+    bwd_ms = cuda_ms(lambda: exact_coefficients_shared_grad(ps, perm, wn, freqs, grad), reps=20)
+    plain_ms = cuda_ms(lambda: _exact_plain(ps, wn[:, perm.long()], freqs, grad), reps=5,
+                       warmup=1)
+    coeffs = b * c * V_MAIN
+    out["shared"] = {"shape": [b, c, V_MAIN], "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                     "forward_bound_ms": 1e3 * coeffs * EXACT_VALUE_INSTR_PER_COEFF
+                     / H100_LANE_INSTR_PER_S,
+                     "backward_bound_ms": 1e3 * coeffs * REFRESH_INSTR_PER_COEFF
+                     / H100_LANE_INSTR_PER_S, "bound_by": "operations",
+                     "plain_forward_backward_ms": plain_ms, "rel_err_e_dps_dxi": err,
+                     "plain_rel_err_e_dps_dxi": plain_err}
+    log(f"phase timings: exact_coefficients {json.dumps(out)}")
+    return out
+
+
 def phase_unsort_timings(dev) -> list[dict]:
     """The sort's backward at FSW training shapes: ``unsort`` (one library
     scatter_ by ``perm``) of a cotangent, bound by reading it and perm and
@@ -3127,6 +3268,7 @@ def main() -> int:
     unsort_timing = phase_unsort_timings(dev)
     refresh_timing = phase_refresh_timings(dev)
     pergenome_timing = phase_pergenome_timings(dev)
+    exact_timing = phase_exact_timings(dev)
     for tag, run in paths.items():
         log(f"phase timings: process_query_data {tag} stages (s) {json.dumps(run['stage_s'])}")
         res = serve[tag]
@@ -3271,6 +3413,16 @@ def main() -> int:
             "train_fsw": sum(run["launches"]["pergenome_planes"] for run in fsw["routes"].values()),
             "fsw_k10_lazy": fsw_k10["lazy"]["launches"]["pergenome_planes"]},
         **pergenome_timing,
+    }, {
+        "name": "exact_coefficients", "route": "cuda", "source": REFRESH_SOURCE,
+        "replaces": EXACT_REPLACES, "tpu_kernels": [],
+        "launches": fsw["routes"]["exact_pergenome"]["launches"]["exact_coefficients"],
+        "launches_by_path": {
+            "train_fsw": {route: run["launches"]["exact_coefficients"]
+                          for route, run in fsw["routes"].items()},
+            "fsw_k10_exact": fsw_k10["exact"]["launches"]["exact_coefficients"],
+            "fsw_k10_query": fsw_k10["query"]["cuda"]["exact_coefficients"]},
+        **exact_timing,
     }]}
     print(json.dumps(report))
     print(smi)

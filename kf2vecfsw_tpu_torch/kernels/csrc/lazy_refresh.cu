@@ -119,6 +119,50 @@
 //   bases past k, not once a k: the build counts in set-up.
 // Numerics as the shared route's: float32 but for the prefix and the tile
 // reductions, no fast-math.
+//
+// THE EXACT FORWARDS' COEFFICIENTS (lazy_refresh_exact_rows_launch,
+// lazy_refresh_exact_shared_launch). Replace no Pallas kernel either: the
+// JAX package's exact forwards (kf2vecfsw_tpu/models/fsw.py, fsw_embed and
+// fsw_embed_shared) and the port's plain chain (models/fsw.py on the CPU,
+// quantile_coefficients times ps, a row sum, and autograd's backward) run
+// the cumsum, the cos/sinc coefficients and their gradients as about 20
+// elementwise passes forward and more backward, each a round trip of a
+// (B c, N) f32 buffer. These kernels take the sort's outputs (the sort and
+// the unsort stay sort_rows.cu's and a scatter) and, for row r (item b,
+// slice c), its sorted ps and ws, xi = freqs[c] and the cotangent gE[b, c],
+// compute with delta and ddelta = d delta / d xi as above
+//   forward:  E[b, c] = sum_p ps[r, p] delta_p,
+//   backward: d_ps[r, p] = gE[b, c] delta_p,
+//             d xi[c] = sum_b gE[b, c] sum_p ps[r, p] ddelta_p;
+// the weights get no gradient.
+// - Per genome (rows of N, each item its own weights): the per-genome
+//   planes' walk. tile_sums_kernel sums each tile's weights in double (the
+//   forward's pass; the backward reuses its output); a warp walks a tile of
+//   kPgTile from the earlier tiles' sum, the prefix compensated, zero-weight
+//   steps skipped (their delta and d_ps are 0); the forward writes a float a
+//   tile, the backward d_ps once and a float a tile; exact_rows_reduce_kernel
+//   sums a row's tiles in double in a fixed order, into E or, over the B
+//   rows of a slice weighted by gE, into d xi. Bound: bytes. The forward
+//   reads ps and ws once and ws once more for the tile sums (12 B a
+//   position), the backward ws and ps and writes d_ps (12 B): at
+//   fsw_k10.train_exact's chunk of 16 x 32 rows of 646,000, 1.2 ms each at
+//   3.35 TB/s, against 0.6 and 0.9 ms of lane work on its 78% real points.
+// - Shared vocab (C rows of V, every item's weights over one order): one
+//   block a slice row, cut into tiles of kExTile = 512, one warp a tile,
+//   the items in groups of kItems. The block stages a group's weight rows
+//   interleaved in shared memory where they fit and every tile has its own
+//   warp (V <= 8,192 on an H100: k <= 7), reading wn[i, perm[c, p]] from
+//   there, from device memory otherwise. A tile's weights per item, in
+//   double, give each warp its starting prefix (in shared memory when
+//   staged, in an (n, C, tiles) scratch otherwise); the walk carries it
+//   compensated. The forward takes a block an item group and sums ps delta
+//   over the block's warps in double; the backward takes a block every
+//   group, sums gE delta over the batch in registers, writes d_ps (C, V)
+//   once and d xi[c] from the warps' sums in double: nothing of size (B, C,
+//   V) is gathered or written. Bound: lane work, the B C V coefficients
+//   (6.7e7 at fsw_k7.train_exact): about 0.15 ms forward at 75 lane
+//   instructions a coefficient and 0.25 ms backward at 120.
+// No float atomics anywhere: two launches give the same bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -598,6 +642,381 @@ cudaError_t launch_pergenome_planes(unsigned blocks, cudaStream_t s, const float
   return cudaGetLastError();
 }
 
+// ---- the exact forwards' coefficients ------------------------------------------
+
+constexpr int kExWarps = 16;  // a shared-route block: one slice row, a tile a warp
+constexpr int kExThreads = kExWarps * kLanes;
+constexpr int kExSteps = 8;  // steps of 64 positions a shared-route tile
+constexpr int64_t kExTile = kExSteps * 2 * kLanes;  // 512 positions
+constexpr int kExReduceWarps = 4;
+
+// delta alone, as `coefficient` computes it (the forward needs no slope)
+__device__ __forceinline__ float coefficient_value(float w, float cbar, float xi,
+                                                   float half_xi) {
+  float sn, dsn;
+  sinc_and_slope(half_xi * w, sn, dsn);
+  const float sw = kSqrt2 * w;
+  return sw * cospif(xi * cbar) * sn;
+}
+
+// A step of a warp's walk: lane l's pair of weights (wa, wb) at positions
+// 2 l and 2 l + 1 of the step. Gives each position's cbar and adds the
+// step's weights to the prefix hi + lo, compensated (Kahan), as
+// pergenome_planes_kernel does.
+__device__ __forceinline__ void pair_prefix(float wa, float wb, int lane, float& hi, float& lo,
+                                            float& cbar_a, float& cbar_b) {
+  const unsigned full = 0xffffffffu;
+  float incl = wa + wb;  // the step's inclusive prefix of the lanes' pairs
+#pragma unroll
+  for (int d = 1; d < kLanes; d *= 2) {
+    const float up = __shfl_up_sync(full, incl, d);
+    if (lane >= d) incl += up;
+  }
+  const float total = __shfl_sync(full, incl, kLanes - 1);
+  float before = __shfl_up_sync(full, incl, 1);
+  if (lane == 0) before = 0.f;
+  cbar_a = hi + (fmaf(0.5f, wa, before) + lo);
+  cbar_b = hi + ((before + fmaf(0.5f, wb, wa)) + lo);
+  const float y = total + lo, sum = hi + y;
+  lo = y - (sum - hi);
+  hi = sum;
+}
+
+// The exact per-genome route: one warp a tile of kPgTile positions of one
+// row (row b C + c: item b, slice c), walked as pergenome_planes_kernel
+// walks it, from the row's earlier tiles' weights (tile_sums). Forward:
+// partials[tile] = sum_p ps_p delta_p. Backward (kGrad): d_ps[row, p] =
+// grad[row] delta_p at every position of the tile, zero-weight steps
+// included, and partials[tile] = sum_p ps_p ddelta_p.
+template <bool kGrad>
+__global__ void __launch_bounds__(kPgThreads)
+exact_rows_kernel(const float* __restrict__ ps, const float* __restrict__ ws,
+                  const double* __restrict__ tile_sums, const float* __restrict__ freqs,
+                  const float* __restrict__ grad, float* __restrict__ d_ps,
+                  float* __restrict__ partials, int64_t tiles, int64_t c_total, int64_t n,
+                  int64_t tiles_per_row) {
+  constexpr int kStep = 2 * kLanes;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x % kLanes;
+  const int64_t tile = int64_t(blockIdx.x) * kPgWarps + threadIdx.x / kLanes;
+  if (tile >= tiles) return;  // the whole warp
+  const int64_t row = tile / tiles_per_row, t = tile - row * tiles_per_row;
+  const float xi = freqs[row % c_total], half_xi = 0.5f * xi;
+  const float g = kGrad ? grad[row] : 0.f;
+
+  double start = 0.0;
+  for (int64_t u = lane; u < t; u += kLanes) start += tile_sums[row * tiles_per_row + u];
+  start = warp_sum(start);
+  float hi = static_cast<float>(start);
+  float lo = static_cast<float>(start - static_cast<double>(hi));
+
+  const int64_t begin = t * kPgTile;
+  const int64_t end = begin + kPgTile < n ? begin + kPgTile : n;
+  const int steps = static_cast<int>((end - begin + kStep - 1) / kStep);
+  const float* ps_row = ps + row * n;
+  const float* ws_row = ws + row * n;
+  float* dps_row = kGrad ? d_ps + row * n : nullptr;
+  // a lane's two positions' weight and projection two steps ahead
+  auto load = [&](int64_t p, float& w, float& x) {
+    const bool in = p < end;
+    w = in ? ws_row[p] : 0.f;
+    x = in ? ps_row[p] : 0.f;
+  };
+  int64_t p = begin + 2 * lane;
+  float wa0, xa0, wb0, xb0, wa1, xa1, wb1, xb1;
+  load(p, wa0, xa0);
+  load(p + 1, wb0, xb0);
+  load(p + kStep, wa1, xa1);
+  load(p + kStep + 1, wb1, xb1);
+  float acc = 0.f;
+#pragma unroll 1
+  for (int r = 0; r < steps; ++r, p += kStep) {
+    float wa2, xa2, wb2, xb2;
+    load(p + 2 * kStep, wa2, xa2);
+    load(p + 2 * kStep + 1, wb2, xb2);
+    float da = 0.f, db = 0.f;
+    // a step of zero weights (padding, past the row's end) adds nothing
+    if (__any_sync(full, wa0 != 0.f || wb0 != 0.f)) {
+      float cbar_a, cbar_b;
+      pair_prefix(wa0, wb0, lane, hi, lo, cbar_a, cbar_b);
+      if (kGrad) {
+        float dda, ddb;
+        coefficient(wa0, cbar_a, xi, half_xi, da, dda);
+        coefficient(wb0, cbar_b, xi, half_xi, db, ddb);
+        acc = fmaf(xa0, dda, acc);
+        acc = fmaf(xb0, ddb, acc);
+      } else {
+        da = coefficient_value(wa0, cbar_a, xi, half_xi);
+        db = coefficient_value(wb0, cbar_b, xi, half_xi);
+        acc = fmaf(xa0, da, acc);
+        acc = fmaf(xb0, db, acc);
+      }
+    }
+    if (kGrad) {
+      if (p < end) dps_row[p] = g * da;
+      if (p + 1 < end) dps_row[p + 1] = g * db;
+    }
+    wa0 = wa1;
+    xa0 = xa1;
+    wb0 = wb1;
+    xb0 = xb1;
+    wa1 = wa2;
+    xa1 = xa2;
+    wb1 = wb2;
+    xb1 = xb2;
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) partials[tile] = acc;
+}
+
+// out[o] = sum_{b < nb} scale_b sum_t partials[row, t], row = b c_total + o,
+// scale_b = grad[row] (1 without grad): one warp an output, a row's tiles
+// summed in double in a fixed order (lane l takes tiles l, l + 32, ..., then
+// a butterfly) and the rows in b order, so two launches give the same bits.
+// The forward takes nb = 1 and c_total = rows (out = E); the backward nb =
+// B (out = d xi).
+__global__ void __launch_bounds__(kExReduceWarps * kLanes)
+exact_rows_reduce_kernel(const float* __restrict__ partials, const float* __restrict__ grad,
+                         float* __restrict__ out, int64_t outs, int64_t nb, int64_t c_total,
+                         int64_t tiles_per_row) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t o = int64_t(blockIdx.x) * kExReduceWarps + threadIdx.x / kLanes;
+  if (o >= outs) return;  // the whole warp
+  double acc = 0.0;
+  for (int64_t b = 0; b < nb; ++b) {
+    const int64_t row = b * c_total + o;
+    double s = 0.0;
+    for (int64_t t = lane; t < tiles_per_row; t += kLanes) s += partials[row * tiles_per_row + t];
+    s = warp_sum(s);
+    acc += grad ? static_cast<double>(grad[row]) * s : s;
+  }
+  if (lane == 0) out[o] = static_cast<float>(acc);
+}
+
+// The exact shared route: one block a slice row c of V sorted positions,
+// cut into tiles of kExTile, tile t walked by warp t mod kExWarps; the
+// items in groups of kItems, a group's weights wn[i, perm[c, p]] read from
+// shared memory where the block stages them (kStaged: every tile its own
+// warp's, and V + 1 float4 entries fit), from device memory otherwise.
+// Forward (a block an item group, blockIdx.y): out[i, c] = sum_p ps[c, p]
+// delta_{i, p}. Backward (kGrad, a block every group): d_ps[c, p] = sum_i
+// grad[i, c] delta_{i, p}, summed over the batch in registers and written
+// once a tile; out[c] = d xi_c = sum_i grad[i, c] sum_p ps[c, p]
+// ddelta_{i, p}. Unstaged, tsum (n, C, tiles) holds each tile's weights of
+// each item in double; staged, the group's tile sums stay in shared memory.
+template <bool kGrad, bool kStaged>
+__global__ void __launch_bounds__(kExThreads, 1)
+exact_shared_kernel(const float* __restrict__ ps, const int32_t* __restrict__ perm,
+                    const float* __restrict__ wn, const float* __restrict__ freqs,
+                    const float* __restrict__ grad, double* __restrict__ tsum,
+                    float* __restrict__ out, float* __restrict__ d_ps, int64_t n,
+                    int64_t c_total, int64_t v, int64_t tiles_per_row) {
+  constexpr int kStep = 2 * kLanes;
+  const unsigned full = 0xffffffffu;
+  extern __shared__ float4 ex_smem[];
+  float4* w_smem = ex_smem;  // kStaged: V + 1 entries, the last one zero
+  const float* w_items = reinterpret_cast<const float*>(ex_smem);
+  double* tile_s = reinterpret_cast<double*>(ex_smem + (kStaged ? v + 1 : 0));  // [warp][item]
+  double* part_s = tile_s + kExWarps * kItems;  // forward [warp][item], backward [warp]
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int64_t c = blockIdx.x;
+  const float xi = freqs[c], half_xi = 0.5f * xi;
+  const float* ps_row = ps + c * v;
+  const int32_t* perm_row = perm + c * v;
+  const int64_t groups = (n + kItems - 1) / kItems;
+  const int64_t g_begin = kGrad ? 0 : blockIdx.y, g_end = kGrad ? groups : g_begin + 1;
+  const int64_t sweeps = (tiles_per_row + kExWarps - 1) / kExWarps;  // 1 when staged
+  // weight of item i0 + it at column col (col == V past the row's end: 0)
+  auto weight = [&](int64_t i0, int it, int32_t col) -> float {
+    if (kStaged) return w_items[4 * int64_t(col) + it];
+    return (col < v && i0 + it < n) ? __ldg(wn + (i0 + it) * v + col) : 0.f;
+  };
+  if (lane == 0) {
+    for (int it = 0; it < kItems; ++it) part_s[warp * kItems + it] = 0.0;
+  }
+
+  if (!kStaged) {
+    // every tile's weights of the block's items, in double
+    for (int64_t t = warp; t < tiles_per_row; t += kExWarps) {
+      for (int64_t gr = g_begin; gr < g_end; ++gr) {
+        const int64_t i0 = gr * kItems;
+        for (int it = 0; it < kItems && i0 + it < n; ++it) {
+          double s = 0.0;
+          for (int64_t q = lane; q < kExTile; q += kLanes) {
+            const int64_t p = t * kExTile + q;
+            if (p < v) s += weight(i0, it, perm_row[p]);
+          }
+          s = warp_sum(s);
+          if (lane == 0) tsum[((i0 + it) * c_total + c) * tiles_per_row + t] = s;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float gx = 0.f;
+  for (int64_t sw = 0; sw < sweeps; ++sw) {
+    const int64_t t = sw * kExWarps + warp;
+    const bool active = t < tiles_per_row;
+    // the tile's columns and projections: step s, lane l at positions
+    // t kExTile + 64 s + 2 l + h; past V column V (weight 0), projection 0
+    int32_t col[kExSteps][2];
+    float x[kExSteps][2], dps[kExSteps][2];
+#pragma unroll
+    for (int s = 0; s < kExSteps; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t p = t * kExTile + s * kStep + 2 * lane + h;
+        const bool in = active && p < v;
+        col[s][h] = in ? perm_row[p] : static_cast<int32_t>(v);
+        x[s][h] = in ? ps_row[p] : 0.f;
+        dps[s][h] = 0.f;
+      }
+    }
+    for (int64_t gr = g_begin; gr < g_end; ++gr) {
+      const int64_t i0 = gr * kItems;
+      if (kStaged) {
+        __syncthreads();  // the previous group's weights and sums are spent
+        for (int64_t cl = threadIdx.x; cl <= v; cl += kExThreads) {
+          float e[kItems];
+#pragma unroll
+          for (int it = 0; it < kItems; ++it) {
+            e[it] = (cl < v && i0 + it < n) ? wn[(i0 + it) * v + cl] : 0.f;
+          }
+          w_smem[cl] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+        __syncthreads();
+        double s[kItems] = {};
+#pragma unroll
+        for (int st = 0; st < kExSteps; ++st) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 w4 = w_smem[col[st][h]];
+            s[0] += w4.x;
+            s[1] += w4.y;
+            s[2] += w4.z;
+            s[3] += w4.w;
+          }
+        }
+#pragma unroll
+        for (int it = 0; it < kItems; ++it) {
+          s[it] = warp_sum(s[it]);
+          if (lane == 0) tile_s[warp * kItems + it] = s[it];
+        }
+        __syncthreads();
+      }
+      if (!active) continue;
+#pragma unroll 1
+      for (int it = 0; it < kItems; ++it) {
+        const int64_t i = i0 + it;
+        if (i >= n) break;
+        // the tile's starting prefix, the row's earlier tiles summed in
+        // double in a fixed order, enters the walk as hi + lo
+        double start = 0.0;
+        if (kStaged) {
+          for (int u = 0; u < warp; ++u) start += tile_s[u * kItems + it];
+        } else {
+          for (int64_t u = lane; u < t; u += kLanes) {
+            start += tsum[(i * c_total + c) * tiles_per_row + u];
+          }
+          start = warp_sum(start);
+        }
+        float hi = static_cast<float>(start);
+        float lo = static_cast<float>(start - static_cast<double>(hi));
+        const float gi = kGrad ? grad[i * c_total + c] : 0.f;
+        float acc = 0.f;
+#pragma unroll
+        for (int st = 0; st < kExSteps; ++st) {
+          const float wa = weight(i0, it, col[st][0]), wb = weight(i0, it, col[st][1]);
+          if (__any_sync(full, wa != 0.f || wb != 0.f)) {
+            float cbar_a, cbar_b;
+            pair_prefix(wa, wb, lane, hi, lo, cbar_a, cbar_b);
+            if (kGrad) {
+              float da, dda, db, ddb;
+              coefficient(wa, cbar_a, xi, half_xi, da, dda);
+              coefficient(wb, cbar_b, xi, half_xi, db, ddb);
+              dps[st][0] = fmaf(gi, da, dps[st][0]);
+              dps[st][1] = fmaf(gi, db, dps[st][1]);
+              acc = fmaf(x[st][0], dda, acc);
+              acc = fmaf(x[st][1], ddb, acc);
+            } else {
+              acc = fmaf(x[st][0], coefficient_value(wa, cbar_a, xi, half_xi), acc);
+              acc = fmaf(x[st][1], coefficient_value(wb, cbar_b, xi, half_xi), acc);
+            }
+          }
+        }
+        if (kGrad) {
+          gx = fmaf(gi, acc, gx);
+        } else {
+          acc = warp_sum(acc);
+          if (lane == 0) part_s[warp * kItems + it] += acc;
+        }
+      }
+    }
+    if (kGrad && active) {
+#pragma unroll
+      for (int s = 0; s < kExSteps; ++s) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t p = t * kExTile + s * kStep + 2 * lane + h;
+          if (p < v) d_ps[c * v + p] = dps[s][h];
+        }
+      }
+    }
+  }
+
+  // the warps' sums, in warp order, in double
+  if (kGrad) {
+    gx = warp_sum(gx);
+    if (lane == 0) part_s[warp * kItems] = gx;
+  }
+  __syncthreads();
+  if (kGrad) {
+    if (threadIdx.x == 0) {
+      double s = 0.0;
+      for (int w = 0; w < kExWarps; ++w) s += part_s[w * kItems];
+      out[c] = static_cast<float>(s);
+    }
+  } else if (threadIdx.x < kItems) {
+    const int64_t i = g_begin * kItems + threadIdx.x;
+    if (i < n) {
+      double s = 0.0;
+      for (int w = 0; w < kExWarps; ++w) s += part_s[w * kItems + threadIdx.x];
+      out[i * c_total + c] = static_cast<float>(s);
+    }
+  }
+}
+
+// shared memory of a shared-route block: the staged weights, then the
+// tile sums and the warps' sums
+int64_t exact_shared_smem(bool staged, int64_t v) {
+  return (staged ? (v + 1) * int64_t(sizeof(float4)) : 0) +
+         2 * kExWarps * kItems * int64_t(sizeof(double));
+}
+
+// whether a shared-route block stages its weights: every tile its own warp's
+// and the entries fit; -1 if the card cannot be queried
+int exact_shared_staged(int64_t v) {
+  int smem = 0;
+  if (device_attribute(cudaDevAttrMaxSharedMemoryPerBlockOptin, &smem) != 0) return -1;
+  const int64_t tiles = (v + kExTile - 1) / kExTile;
+  return tiles <= kExWarps && exact_shared_smem(true, v) <= smem ? 1 : 0;
+}
+
+template <bool kGrad, bool kStaged>
+cudaError_t launch_exact_shared(dim3 grid, cudaStream_t s, const float* ps, const int32_t* perm,
+                                const float* wn, const float* freqs, const float* grad,
+                                double* tsum, float* out, float* d_ps, int64_t n,
+                                int64_t c_total, int64_t v, int64_t tiles_per_row) {
+  const int smem = static_cast<int>(exact_shared_smem(kStaged, v));
+  cudaError_t err = cudaFuncSetAttribute(exact_shared_kernel<kGrad, kStaged>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  exact_shared_kernel<kGrad, kStaged><<<grid, kExThreads, smem, s>>>(
+      ps, perm, wn, freqs, grad, tsum, out, d_ps, n, c_total, v, tiles_per_row);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -747,6 +1166,119 @@ int lazy_refresh_pergenome_launch(const void* ps, const void* ws, const void* pe
   pergenome_reduce_kernel<<<static_cast<unsigned>(reduce_blocks), kReduceThreads, 0, s>>>(
       part, static_cast<float*>(s_out), static_cast<float*>(g2_out), rows, tiles_per_row, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the exact per-genome route's coefficients on `stream` without
+// synchronising; returns the first error of a launch, 0 on success.
+// ps, ws: f32 (R, N) sorted projections and weights, row b C + c for item b
+// and slice c (R = B C); freqs: f32 (C,); tile_sums: f64 (R, tiles_per_row)
+// and partials: f32 (R, tiles_per_row), tiles_per_row = ceil(N / tile).
+// Forward (grad null): writes tile_sums and out = E, f32 (R,). Backward:
+// reads the forward's tile_sums and grad, f32 (R,), and writes d_ps, f32
+// (R, N), and out = d xi, f32 (C,). Every row is contiguous.
+int lazy_refresh_exact_rows_launch(const void* ps, const void* ws, const void* freqs,
+                                   const void* grad, void* tile_sums, void* partials, void* d_ps,
+                                   void* out, int64_t rows, int64_t c_total, int64_t n,
+                                   int64_t tiles_per_row, void* stream) {
+  if (rows < 1 || c_total < 1 || rows % c_total != 0 || n < 1 || n > INT32_MAX ||
+      tiles_per_row != (n + kPgTile - 1) / kPgTile || (grad != nullptr && d_ps == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = rows * tiles_per_row;
+  const int64_t tile_blocks = (tiles + kPgWarps - 1) / kPgWarps;
+  const int64_t outs = grad ? c_total : rows;
+  const int64_t reduce_blocks = (outs + kExReduceWarps - 1) / kExReduceWarps;
+  if (tile_blocks > INT32_MAX || reduce_blocks > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(ps);
+  const float* w = static_cast<const float*>(ws);
+  const float* f = static_cast<const float*>(freqs);
+  const float* g = static_cast<const float*>(grad);
+  double* sums = static_cast<double*>(tile_sums);
+  float* part = static_cast<float*>(partials);
+  const unsigned blocks = static_cast<unsigned>(tile_blocks);
+  cudaError_t launch;
+  if (g == nullptr) {
+    tile_sums_kernel<<<blocks, kPgThreads, 0, s>>>(w, sums, tiles, n, tiles_per_row);
+    launch = cudaGetLastError();
+    if (launch != cudaSuccess) return static_cast<int>(launch);
+    exact_rows_kernel<false><<<blocks, kPgThreads, 0, s>>>(p, w, sums, f, nullptr, nullptr, part,
+                                                           tiles, c_total, n, tiles_per_row);
+  } else {
+    exact_rows_kernel<true><<<blocks, kPgThreads, 0, s>>>(
+        p, w, sums, f, g, static_cast<float*>(d_ps), part, tiles, c_total, n, tiles_per_row);
+  }
+  launch = cudaGetLastError();
+  if (launch != cudaSuccess) return static_cast<int>(launch);
+  // forward: E[row] over each row's tiles; backward: d xi[c] over the B rows of slice c
+  exact_rows_reduce_kernel<<<static_cast<unsigned>(reduce_blocks), kExReduceWarps * kLanes, 0,
+                             s>>>(part, g, static_cast<float*>(out), outs,
+                                  g ? rows / c_total : 1, g ? c_total : rows, tiles_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Positions of a tile of the exact shared route.
+int64_t lazy_refresh_exact_shared_tile() { return kExTile; }
+
+// Doubles of device scratch a launch of the exact shared route takes for n
+// items, C slices and V entries: 0 where its blocks stage the weights,
+// n C ceil(V / tile) otherwise; -1 if the card cannot be queried.
+int64_t lazy_refresh_exact_shared_scratch(int64_t n, int64_t c_total, int64_t v) {
+  const int staged = exact_shared_staged(v);
+  if (staged < 0) return -1;
+  return staged ? 0 : n * c_total * ((v + kExTile - 1) / kExTile);
+}
+
+// Launches the exact shared route's coefficients on `stream` without
+// synchronising; returns the first error of a device query,
+// cudaFuncSetAttribute or the launch, 0 on success.
+// ps: f32 (C, V) sorted projections; perm: int32 (C, V), a permutation of
+// [0, V) in every row; wn: f32 (n, V) normalised weight rows; freqs: f32
+// (C,); scratch: f64, scratch_len = lazy_refresh_exact_shared_scratch(n, C,
+// V) entries (null when 0). Forward (grad null): out = E, f32 (n, C).
+// Backward: grad f32 (n, C); writes d_ps, f32 (C, V), and out = d xi, f32
+// (C,). Every row is contiguous.
+int lazy_refresh_exact_shared_launch(const void* ps, const void* perm, const void* wn,
+                                     const void* freqs, const void* grad, void* scratch,
+                                     void* d_ps, void* out, int64_t n, int64_t c_total,
+                                     int64_t v, int64_t scratch_len, void* stream) {
+  if (n < 1 || c_total < 1 || c_total > INT32_MAX || v < 1 || v > INT32_MAX - 1 ||
+      (grad != nullptr && d_ps == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int staged = exact_shared_staged(v);
+  if (staged < 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int64_t tiles_per_row = (v + kExTile - 1) / kExTile;
+  const int64_t groups = (n + kItems - 1) / kItems;
+  if (scratch_len != (staged ? 0 : n * c_total * tiles_per_row) ||
+      (!staged && scratch == nullptr) || (grad == nullptr && groups > 65535)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(ps);
+  const int32_t* col = static_cast<const int32_t*>(perm);
+  const float* w = static_cast<const float*>(wn);
+  const float* f = static_cast<const float*>(freqs);
+  const float* g = static_cast<const float*>(grad);
+  double* ts = static_cast<double*>(scratch);
+  float* o = static_cast<float*>(out);
+  float* dp = static_cast<float*>(d_ps);
+  const dim3 grid(static_cast<unsigned>(c_total), g ? 1u : static_cast<unsigned>(groups));
+  cudaError_t launch;
+  if (g == nullptr) {
+    launch = staged ? launch_exact_shared<false, true>(grid, s, p, col, w, f, g, ts, o, dp, n,
+                                                       c_total, v, tiles_per_row)
+                    : launch_exact_shared<false, false>(grid, s, p, col, w, f, g, ts, o, dp, n,
+                                                        c_total, v, tiles_per_row);
+  } else {
+    launch = staged ? launch_exact_shared<true, true>(grid, s, p, col, w, f, g, ts, o, dp, n,
+                                                      c_total, v, tiles_per_row)
+                    : launch_exact_shared<true, false>(grid, s, p, col, w, f, g, ts, o, dp, n,
+                                                       c_total, v, tiles_per_row);
+  }
+  return static_cast<int>(launch);
 }
 
 }  // extern "C"

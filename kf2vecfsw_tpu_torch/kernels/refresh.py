@@ -32,7 +32,26 @@ On a CUDA tensor each wrapper launches its kernel or raises, under the span
 ``refresh_planes.launches`` counts the shared kernel's launches, one a
 refresh; ``pergenome_planes.launches`` the per-genome kernel's, one a
 refresh group. The coefficients' plain formula (``quantile_coefficients``)
-lives here too: the exact FSW forward (``models.fsw``) uses it as well.
+lives here too: the exact FSW forward (``models.fsw``) runs it on the CPU.
+
+The exact forwards' coefficients on the card, from the same source: for row
+r (item b, slice c) of a sort, its sorted projections ps and weights, xi =
+freqs[c] and the cotangent gE[b, c],
+
+    forward:  E[b, c] = sum_p ps[r, p] delta_p,
+    backward: d_ps[r, p] = gE[b, c] delta_p,
+              d_xi[c] = sum_b gE[b, c] sum_p ps[r, p] d delta_p / d xi,
+
+the weights getting no gradient. ``exact_coefficients`` and
+``exact_coefficients_grad`` take the per-genome route's (B*C, N) rows (row
+b*C + c, each item its own weights; the backward reuses the forward's tile
+sums), ``exact_coefficients_shared`` and ``exact_coefficients_shared_grad``
+the shared route's (C, V) rows with ``perm`` and the items' (n, V) weights
+(d_ps summed over the items). They run on CUDA tensors only, and raise on
+any other or on one they cannot take: their plain versions are
+``exact_coefficients_reference`` and ``exact_coefficients_grad_reference``,
+and the CPU's exact forward is the plain chain. ``exact_coefficients.
+launches`` counts the four entry points' calls, forward or backward.
 """
 
 from __future__ import annotations
@@ -52,6 +71,7 @@ MAX_K = 9  # 2 bits a base in the kernel's 32-bit codes: the shared route's k
 MAX_VOCAB = 1 << 18  # models.fsw.FSW_SHARED_VOCAB_MAX, the shared route's largest vocab
 PERGENOME_MAX_K = 31  # 2 bits a base in the per-genome kernel's 64-bit codes: defaults.MAX_K_LEN
 PERGENOME_TILE = 4096  # kPgTile of csrc/lazy_refresh.cu: the positions of a tile of a row
+EXACT_SHARED_TILE = 512  # kExTile of csrc/lazy_refresh.cu: a shared-route tile's positions
 
 
 def quantile_coefficients(ws: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -70,6 +90,25 @@ def delta_and_gdelta(ws: torch.Tensor, freqs: torch.Tensor, xi_shape):
     """delta = quantile_coefficients(ws, xi) and d delta / d xi, by jvp."""
     return torch.func.jvp(lambda xi: quantile_coefficients(ws, xi.view(xi_shape)),
                           (freqs.detach(),), (torch.ones_like(freqs),))
+
+
+def exact_coefficients_reference(ps: torch.Tensor, ws: torch.Tensor,
+                                 freqs: torch.Tensor) -> torch.Tensor:
+    """Plain-ops version of the exact forwards' coefficients: E (B, C) = sum_p
+    ps delta over sorted weights ws (B, C, N), freqs (C,) and sorted
+    projections ps (B, C, N), or (C, N) shared by every item."""
+    return torch.sum(ps * quantile_coefficients(ws, freqs[:, None]), dim=-1)
+
+
+def exact_coefficients_grad_reference(ps: torch.Tensor, ws: torch.Tensor, freqs: torch.Tensor,
+                                      grad: torch.Tensor):
+    """Plain-ops version of their backward for the cotangent grad (B, C):
+    (d_ps, d_xi), d_ps = grad delta in ps's shape (summed over the items
+    where ps is shared) and d_xi[c] = sum_b grad[b, c] sum_p ps d delta /
+    d xi, the derivative by jvp."""
+    delta, gdelta = delta_and_gdelta(ws, freqs, (-1, 1))
+    d_ps = (grad[..., None] * delta).sum_to_size(ps.shape)
+    return d_ps, torch.sum(grad * torch.sum(ps * gdelta, dim=-1), dim=0)
 
 
 def refresh_groups(n: int, group: int):
@@ -143,6 +182,14 @@ def _lib() -> ctypes.CDLL:
     lib.lazy_refresh_pergenome_launch.restype = ctypes.c_int
     lib.lazy_refresh_pergenome_tile.argtypes = []
     lib.lazy_refresh_pergenome_tile.restype = i64
+    lib.lazy_refresh_exact_rows_launch.argtypes = [p] * 8 + [i64] * 4 + [p]
+    lib.lazy_refresh_exact_rows_launch.restype = ctypes.c_int
+    lib.lazy_refresh_exact_shared_tile.argtypes = []
+    lib.lazy_refresh_exact_shared_tile.restype = i64
+    lib.lazy_refresh_exact_shared_scratch.argtypes = [i64] * 3
+    lib.lazy_refresh_exact_shared_scratch.restype = i64
+    lib.lazy_refresh_exact_shared_launch.argtypes = [p] * 8 + [i64] * 4 + [p]
+    lib.lazy_refresh_exact_shared_launch.restype = ctypes.c_int
     return lib
 
 
@@ -322,3 +369,174 @@ def pergenome_planes(ps: torch.Tensor, ws: torch.Tensor, perm: torch.Tensor,
 
 
 pergenome_planes.launches = 0  # kernel launches in this process, one a refresh group
+
+
+# -- the exact forwards' coefficients -------------------------------------------
+
+
+def exact_shared_tile() -> int:
+    """The shared-route kernel's tile (``EXACT_SHARED_TILE``, the host's copy,
+    which the card-only tests hold to it)."""
+    return int(_lib().lazy_refresh_exact_shared_tile())
+
+
+def exact_rows_scratch_bytes(rows: int, n: int) -> int:
+    """Bytes a per-genome launch allocates beyond its inputs and outputs: for
+    each tile its weights' sum in double (the forward's, kept for the
+    backward) and its float partial."""
+    return 12 * rows * pergenome_tiles(n)
+
+
+def exact_shared_scratch_bytes(n: int, c: int, v: int) -> int:
+    """Bytes a shared-route launch allocates beyond its inputs and outputs on
+    the current card: none where its blocks stage the weights, else each
+    tile's weights of each item in double."""
+    got = int(_lib().lazy_refresh_exact_shared_scratch(n, c, v))
+    if got < 0:
+        raise RuntimeError("lazy_refresh: the card's shared memory could not be read")
+    return 8 * got
+
+
+def _check_tensors(fn: str, tensors: dict) -> None:
+    """Every tensor contiguous, of its dtype, on one device."""
+    first = next(iter(tensors.values()))[0]
+    for name, (t, dtype) in tensors.items():
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+        if t.device != first.device:
+            raise ValueError(f"{fn}: tensors on {first.device} and {name} on {t.device}")
+
+
+def _check_card(fn: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn} runs on cuda tensors, not {t.device}: the CPU's exact "
+                         "forward is the plain chain (models.fsw)")
+
+
+def _check_rows(ps, ws, freqs, grad=None, tile_sums=None) -> None:
+    tensors = {"ps": (ps, torch.float32), "ws": (ws, torch.float32),
+               "freqs": (freqs, torch.float32)}
+    if grad is not None:
+        tensors.update(grad=(grad, torch.float32), tile_sums=(tile_sums, torch.float64))
+    _check_tensors("exact_coefficients", tensors)
+    if ps.dim() != 2 or freqs.dim() != 1 or ws.shape != ps.shape:
+        raise ValueError(f"exact_coefficients takes ps and ws (B*C, N) and freqs (C,), got "
+                         f"{tuple(ps.shape)}, {tuple(ws.shape)} and {tuple(freqs.shape)}")
+    (rows, n), c = ps.shape, freqs.shape[0]
+    if c < 1 or rows < 1 or rows % c or not 1 <= n <= MAX_N:
+        raise ValueError(f"exact_coefficients takes B*C >= 1 rows of 1 <= N <= {MAX_N} over C "
+                         f">= 1 slices, got {rows} rows of {n} and {c} slices")
+    if grad is not None and (grad.shape != (rows // c, c)
+                             or tile_sums.shape != (rows, pergenome_tiles(n))):
+        raise ValueError(f"grad {tuple(grad.shape)} and tile_sums {tuple(tile_sums.shape)} do "
+                         f"not fit {rows} rows of {n} over {c} slices")
+    _check_card("exact_coefficients", ps)
+
+
+def _check_shared(ps, perm, wn, freqs, grad=None) -> None:
+    tensors = {"ps": (ps, torch.float32), "perm": (perm, torch.int32),
+               "wn": (wn, torch.float32), "freqs": (freqs, torch.float32)}
+    if grad is not None:
+        tensors["grad"] = (grad, torch.float32)
+    _check_tensors("exact_coefficients_shared", tensors)
+    if ps.dim() != 2 or wn.dim() != 2 or freqs.dim() != 1:
+        raise ValueError("exact_coefficients_shared takes ps and perm (C, V), wn (n, V) and "
+                         "freqs (C,)")
+    (c, v), n = ps.shape, wn.shape[0]
+    if perm.shape != ps.shape or wn.shape[1] != v or freqs.shape[0] != c or (
+            grad is not None and grad.shape != (n, c)):
+        raise ValueError(f"shapes ps {tuple(ps.shape)}, perm {tuple(perm.shape)}, wn "
+                         f"{tuple(wn.shape)}, freqs {tuple(freqs.shape)} and grad "
+                         f"{None if grad is None else tuple(grad.shape)} do not agree")
+    if n < 1 or c < 1 or not 1 <= v <= MAX_VOCAB:
+        raise ValueError(f"exact_coefficients_shared takes n >= 1 items, C >= 1 slices and "
+                         f"1 <= V <= {MAX_VOCAB}, got {(n, c, v)}")
+    _check_card("exact_coefficients_shared", ps)
+
+
+def _launched(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           f"{_lib().lazy_refresh_error_string(err).decode()} ({err})")
+    exact_coefficients.launches += 1
+
+
+def _rows_launch(ps, ws, freqs, grad, tile_sums, d_ps, out) -> None:
+    (rows, n), c = ps.shape, freqs.shape[0]
+    tiles = pergenome_tiles(n)
+    with torch.cuda.device(ps.device):
+        partials = torch.empty((rows, tiles), dtype=torch.float32, device=ps.device)
+        err = _lib().lazy_refresh_exact_rows_launch(
+            ps.data_ptr(), ws.data_ptr(), freqs.data_ptr(),
+            None if grad is None else grad.data_ptr(), tile_sums.data_ptr(), partials.data_ptr(),
+            None if d_ps is None else d_ps.data_ptr(), out.data_ptr(), rows, c, n, tiles,
+            torch.cuda.current_stream(ps.device).cuda_stream,
+        )
+    _launched(err, "exact_coefficients")
+
+
+def exact_coefficients(ps: torch.Tensor, ws: torch.Tensor, freqs: torch.Tensor):
+    """(E (B, C), tile_sums) of the per-genome route's sort: ``ps`` and ``ws``
+    (B*C, N) the sorted projections and weights (row b*C + c: item b, slice
+    c), ``freqs`` (C,). ``tile_sums`` (B*C, tiles) f64, each tile's weights,
+    is the backward's."""
+    _check_rows(ps, ws, freqs)
+    (rows, n), c = ps.shape, freqs.shape[0]
+    tile_sums = torch.empty((rows, pergenome_tiles(n)), dtype=torch.float64, device=ps.device)
+    e = torch.empty((rows // c, c), dtype=torch.float32, device=ps.device)
+    _rows_launch(ps, ws, freqs, None, tile_sums, None, e)
+    return e, tile_sums
+
+
+def exact_coefficients_grad(ps: torch.Tensor, ws: torch.Tensor, freqs: torch.Tensor,
+                            tile_sums: torch.Tensor, grad: torch.Tensor):
+    """(d_ps (B*C, N), d_xi (C,)) of ``exact_coefficients``' E for the
+    cotangent ``grad`` (B, C), from its inputs and ``tile_sums``."""
+    _check_rows(ps, ws, freqs, grad, tile_sums)
+    d_ps = torch.empty_like(ps)
+    d_xi = torch.empty_like(freqs)
+    _rows_launch(ps, ws, freqs, grad, tile_sums, d_ps, d_xi)
+    return d_ps, d_xi
+
+
+def _shared_launch(ps, perm, wn, freqs, grad, d_ps, out) -> None:
+    (c, v), n = ps.shape, wn.shape[0]
+    with torch.cuda.device(ps.device):
+        entries = exact_shared_scratch_bytes(n, c, v) // 8
+        scratch = (torch.empty(entries, dtype=torch.float64, device=ps.device)
+                   if entries else None)
+        err = _lib().lazy_refresh_exact_shared_launch(
+            ps.data_ptr(), perm.data_ptr(), wn.data_ptr(), freqs.data_ptr(),
+            None if grad is None else grad.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if d_ps is None else d_ps.data_ptr(), out.data_ptr(), n, c, v, entries,
+            torch.cuda.current_stream(ps.device).cuda_stream,
+        )
+    _launched(err, "exact_coefficients_shared")
+
+
+def exact_coefficients_shared(ps: torch.Tensor, perm: torch.Tensor, wn: torch.Tensor,
+                              freqs: torch.Tensor) -> torch.Tensor:
+    """E (n, C) of the shared route's sort: ``ps`` (C, V) the sorted
+    projections, ``perm`` (C, V) their int32 columns, ``wn`` (n, V) the
+    items' normalised weights, ``freqs`` (C,). ``perm`` must be a
+    permutation of each row's columns: the kernel cannot check it without a
+    sync."""
+    _check_shared(ps, perm, wn, freqs)
+    e = torch.empty((wn.shape[0], ps.shape[0]), dtype=torch.float32, device=ps.device)
+    _shared_launch(ps, perm, wn, freqs, None, None, e)
+    return e
+
+
+def exact_coefficients_shared_grad(ps: torch.Tensor, perm: torch.Tensor, wn: torch.Tensor,
+                                   freqs: torch.Tensor, grad: torch.Tensor):
+    """(d_ps (C, V), d_xi (C,)) of ``exact_coefficients_shared``' E for the
+    cotangent ``grad`` (n, C), d_ps summed over the items."""
+    _check_shared(ps, perm, wn, freqs, grad)
+    d_ps = torch.empty_like(ps)
+    d_xi = torch.empty_like(freqs)
+    _shared_launch(ps, perm, wn, freqs, grad, d_ps, d_xi)
+    return d_ps, d_xi
+
+
+exact_coefficients.launches = 0  # calls of the four entry points in this process

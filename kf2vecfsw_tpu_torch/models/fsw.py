@@ -17,10 +17,14 @@ card, its plain version on the CPU. ``SortPW`` and ``SortShared`` put it
 under autograd: the gradient reaches the projections (and so the slices and
 the lookup) through the transpose of the permutation, an unsort by the
 kernel's ``perm``; the weights are data and get none. The port's sort is
-stable, so ``perm`` and the sorted weights always come from one sort. The
-cumsum, the cos/sinc coefficients and the row sums stay torch ops: the JAX
-package's ``_cumsum_minor_matmul`` is a workaround for the TPU's matrix unit
-and ``torch.cumsum`` in fp32 computes the same prefix sums.
+stable, so ``perm`` and the sorted weights always come from one sort. After
+the sort, the cumsum, the cos/sinc coefficients and the row sums are one
+``torch.autograd.Function`` on the card (``CoefficientsPW``,
+``CoefficientsShared``: ``kernels.refresh.exact_coefficients`` and its
+shared and backward entry points in ``csrc/lazy_refresh.cu``, a walk a pass
+with no per-position buffer but d_ps); on the CPU they stay torch ops, the
+plain chain (the JAX package's ``_cumsum_minor_matmul`` is a workaround for
+the TPU's matrix unit, and ``torch.cumsum`` computes the same prefix sums).
 
 Three forwards train the model:
 - per genome (``fsw_embed``, ``FSWDistEmbed.forward`` on (B, N, k+1) point
@@ -52,9 +56,11 @@ Three forwards train the model:
 The first two are exact: under autograd they sort at every step, and a
 forward chunked by slices (``auto_slice_chunk``) recomputes each chunk, its
 sort included, in the backward. Under autograd their sorts run under the
-span ``fsw.exact.sort`` and their unsorts under ``fsw.exact.unsort``, and
-``utils.phases.count`` adds every such sort's slots (rows x N, padding and
-recomputes included; a host integer from shapes) to ``fsw.exact.slots``.
+span ``fsw.exact.sort``, their unsorts under ``fsw.exact.unsort`` and the
+card's coefficient launches (recomputes included) under
+``fsw.exact.coefficients``, and ``utils.phases.count`` adds every such
+sort's slots (rows x N, padding and recomputes included; a host integer
+from shapes) to ``fsw.exact.slots``.
 Inference (the export, ``query``, the serve daemon) marks and counts none
 of them.
 
@@ -73,6 +79,7 @@ its replicated copies drift apart.)
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -82,6 +89,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.refresh import (
+    exact_coefficients,
+    exact_coefficients_grad,
+    exact_coefficients_shared,
+    exact_coefficients_shared_grad,
     pergenome_planes,
     quantile_coefficients,
     refresh_groups,
@@ -150,24 +161,74 @@ class SortPW(torch.autograd.Function):
 
 
 class SortShared(torch.autograd.Function):
-    """(ps (C, V), wsb (B, C, V)): the shared projections p (C, V) sorted
-    once, and every genome's weights wn (B, V) gathered by that order,
-    ``wsb[b] = wn[b, perm]`` (the JAX package's ``_sort_shared``). Every
-    genome reads the same ps, so autograd hands the backward one
-    batch-summed cotangent: one unsort. The weights get no gradient."""
+    """(ps (C, V), perm (C, V)): the shared projections p (C, V) sorted once,
+    and the sort's int32 columns, by which every genome's weights wn (B, V)
+    follow (``wsb[b] = wn[b, perm]``, the JAX package's ``_sort_shared``).
+    Every genome reads the same ps, so the backward takes one batch-summed
+    cotangent: one unsort. ``perm`` and the weights get no gradient."""
 
     @staticmethod
     def forward(ctx, p, wn):
         ps, _, perm = _exact_sort(ctx, p, wn[:1])
         ctx.save_for_backward(perm)
-        wsb = wn[:, perm.long()]
-        ctx.mark_non_differentiable(wsb)
-        return ps, wsb
+        ctx.mark_non_differentiable(perm)
+        return ps, perm
 
     @staticmethod
-    def backward(ctx, d_ps, _d_wsb):
+    def backward(ctx, d_ps, _d_perm):
         (perm,) = ctx.saved_tensors
         return _exact_unsort(d_ps, perm), None
+
+
+def _coefficients_phase(ctx):
+    """The span ``fsw.exact.coefficients`` of a launch under autograd (a
+    training step's forward, a checkpointed chunk's recompute), as
+    ``_exact_sort``'s; inference marks none."""
+    return phase("fsw.exact.coefficients") if ctx.needs_input_grad[0] else contextlib.nullcontext()
+
+
+class CoefficientsPW(torch.autograd.Function):
+    """E (B, C) = sum_p ps * delta of the per-genome sort's rows (B*C, N) on
+    the card (``kernels.refresh.exact_coefficients``: one walk forward, one
+    backward, no (B*C, N) buffer but d_ps). Differentiable in ps and xi; the
+    weights ws get no gradient. The backward reuses the forward's tile
+    sums."""
+
+    @staticmethod
+    def forward(ctx, ps, ws, xi):
+        with _coefficients_phase(ctx):
+            e, tile_sums = exact_coefficients(ps, ws, xi)
+        ctx.save_for_backward(ps, ws, xi, tile_sums)
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        ps, ws, xi, tile_sums = ctx.saved_tensors
+        with phase("fsw.exact.coefficients"):
+            d_ps, d_xi = exact_coefficients_grad(ps, ws, xi, tile_sums, g.contiguous())
+        return d_ps, None, d_xi
+
+
+class CoefficientsShared(torch.autograd.Function):
+    """E (B, C) = sum_p ps * delta of the shared sort (ps, perm (C, V)) and
+    the genomes' weights wn (B, V) on the card
+    (``kernels.refresh.exact_coefficients_shared``): the kernels read
+    wn[b, perm] themselves, so no (B, C, V) gather is made, and the backward
+    sums d_ps over the batch. Differentiable in ps and xi."""
+
+    @staticmethod
+    def forward(ctx, ps, perm, wn, xi):
+        with _coefficients_phase(ctx):
+            e = exact_coefficients_shared(ps, perm, wn, xi)
+        ctx.save_for_backward(ps, perm, wn, xi)
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        ps, perm, wn, xi = ctx.saved_tensors
+        with phase("fsw.exact.coefficients"):
+            d_ps, d_xi = exact_coefficients_shared_grad(ps, perm, wn, xi, g.contiguous())
+        return d_ps, None, None, d_xi
 
 
 def _normalized(weights: torch.Tensor) -> torch.Tensor:
@@ -221,6 +282,8 @@ def fsw_embed(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
         p = torch.einsum("cd,bnd->bcn", v, points).reshape(b * c, n).contiguous()
         ps, ws = SortPW.apply(p, wn)  # row b*c + j carries wn[b]
         del p  # the keys die here: the sort holds the chunk's peak (auto_slice_chunk)
+        if ps.is_cuda:
+            return CoefficientsPW.apply(ps, ws, xi)
         ps, ws = ps.view(b, c, n), ws.view(b, c, n)
         return torch.sum(ps * quantile_coefficients(ws, xi[None, :, None]), dim=-1)
 
@@ -239,7 +302,10 @@ def fsw_embed_shared(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Te
 
     def chunk(v, xi):
         p = (v @ points.T).contiguous()  # (C, V), shared across the batch
-        ps, wsb = SortShared.apply(p, wn)
+        ps, perm = SortShared.apply(p, wn)
+        if ps.is_cuda:
+            return CoefficientsShared.apply(ps, perm, wn, xi)
+        wsb = wn[:, perm.long()]  # (B, C, V): every genome's weights in the sorted order
         return torch.sum(ps[None] * quantile_coefficients(wsb, xi[None, :, None]), dim=-1)
 
     return _by_slice_chunks(chunk, slices, freqs, slice_chunk)
@@ -261,7 +327,9 @@ def slice_sort_bytes(b: int, n: int) -> int:
 
 # f32 buffers of a chunk's (B*c, N) that its backward holds at its peak under
 # ``checkpoint``: the recomputed sort's outputs, the cos/sinc chain's saved
-# tensors and their gradients (tests/test_torch_fsw_exact.py counts them)
+# tensors and their gradients (tests/test_torch_fsw_exact.py counts them on
+# the CPU's plain chain; the card's coefficient kernels hold fewer, so there
+# it is an upper bound)
 TRAIN_SLICE_BUFFERS = 17
 
 

@@ -187,11 +187,10 @@ def test_sort_shared_backward_unsorts_the_batch_summed_cotangent():
     c, n, b = 5, 29, 3
     keys = torch.from_numpy(rng.normal(size=(c, n)).astype(np.float32)).requires_grad_()
     wn = torch.from_numpy(rng.random((b, n)).astype(np.float32))
-    ps, wsb = tfsw.SortShared.apply(keys, wn)
-    ref_ps, _, perm = sort_rows_reference(keys.detach(), wn[:1])
-    assert torch.equal(ps, ref_ps) and wsb.shape == (b, c, n)
-    for i in range(b):
-        assert torch.equal(wsb[i], wn[i][perm.long()])
+    ps, perm = tfsw.SortShared.apply(keys, wn)
+    ref_ps, _, ref_perm = sort_rows_reference(keys.detach(), wn[:1])
+    assert torch.equal(ps, ref_ps) and torch.equal(perm, ref_perm)
+    assert not perm.requires_grad
     d = torch.from_numpy(rng.normal(size=(b, c, n)).astype(np.float32))
     (ps[None] * d).sum().backward()
     want = torch.empty_like(keys).scatter_(-1, perm.long(), d.sum(0))

@@ -36,6 +36,16 @@ all-padding item; two launches bit-equal; its device memory its outputs,
 code table and tile partials; one launch a refresh group in ``LazyPlanes``;
 at the training cell's 512 x 646,000 its error against float64 no larger
 than the plain version's.
+The exact forwards' coefficients (the same source's ``exact_coefficients``
+and ``exact_coefficients_shared``, forward and backward): against float64
+and against the plain chain's autograd on the card, per genome at N in {1,
+tile - 1, tile, tile + 1, 100,003} with padding runs and an all-padding
+item, and at ``fsw_k10.train_exact``'s chunk (16 x 32 rows of 646,000);
+shared at ``fsw_k7.train_exact``'s 16 x 512 x 8,192 (staged), k = 3, k = 8
+and V = 8,193, one position past the staging (weights from device memory), absent k-mers
+and an all-zero item every time; two launches bit-equal; their device memory
+their outputs and tile partials; ``exact_coefficients.launches`` one a
+call, and a training step's count by route and chunks.
 Trainers: two epochs of ``train_classifier``, of the dense
 ``train_model_set``, of each FSW training route (shared-vocab and
 per-genome, lazy and exact) and of each chunk trainer on the card against
@@ -80,11 +90,23 @@ from kf2vecfsw_tpu_torch.kernels.sort import (
     tile_elems,
 )
 from kf2vecfsw_tpu_torch.kernels.refresh import (
+    EXACT_SHARED_TILE,
     PERGENOME_TILE,
+    exact_coefficients,
+    exact_coefficients_grad,
+    exact_coefficients_grad_reference,
+    exact_coefficients_reference,
+    exact_coefficients_shared,
+    exact_coefficients_shared_grad,
+    exact_rows_scratch_bytes,
+    exact_shared_scratch_bytes,
+    exact_shared_tile,
     pergenome_planes,
     pergenome_planes_reference,
     pergenome_scratch_bytes,
     pergenome_tile,
+    pergenome_tiles,
+    quantile_coefficients,
     refresh_planes,
     refresh_planes_reference,
     scratch_bytes,
@@ -512,7 +534,8 @@ def test_sort_autograd_on_the_card_equals_cpu(card, shared):
     slices of the 8,192-entry vocab, 16 genomes) forward and backward on the
     card equal the plain version on the CPU. The sorted keys, the sorted
     weights and SortPW's gradient bit for bit: the sort is stable on both,
-    and the unsort is a scatter of the same values. SortShared's gradient
+    and the unsort is a scatter of the same values (SortShared's second
+    output is its perm, equal on both). SortShared's gradient
     unsorts the cotangent that autograd sums over the 16 genomes, in an
     order of additions that differs between the devices: within fp32
     rounding of that sum (``torch.testing.assert_close``'s float32 default,
@@ -1051,3 +1074,232 @@ def test_pergenome_kernel_at_the_cell_is_closer_to_float64_than_plain(card):
         assert rel_err(a[0], w[0]) <= rel_err(b[0], w[0]), (rel_err(a[0], w[0]),
                                                             rel_err(b[0], w[0]))
     assert rel_err(got[0][0], want[0][0]) <= plane_tolerance(512)
+
+
+# -- the exact forwards' coefficients --------------------------------------------
+
+
+def _exact_errors(got: tuple, want64: tuple, plain: tuple, items: int) -> dict:
+    """For each of E (B, C), d_ps and d_xi the largest relative norm error:
+    the kernel's and the plain chain's against float64, and the kernel's
+    against the plain chain; E and a per-genome d_ps item by item, the first
+    ``items`` items (an all-zero item reads 0)."""
+    worst = {}
+    for name, a, w, b in zip(("e", "d_ps", "d_xi"), got, want64, plain):
+        parts = range(items) if name == "e" or a.dim() == 3 else [slice(None)]
+        worst[name] = {
+            "kernel": max(rel_err(a[i], w[i]) for i in parts),
+            "plain": max(rel_err(b[i], w[i]) for i in parts),
+            "kernel_vs_plain": max(rel_err(a[i], b[i]) for i in parts)}
+    return worst
+
+
+def _assert_within(worst: dict, tol: float) -> None:
+    for name, err in worst.items():
+        assert err["kernel"] <= tol and err["kernel_vs_plain"] <= err["plain"] + tol, (
+            name, worst, tol)
+
+
+def _plain_chain(ps, ws, freqs, grad):
+    """(E, d_ps, d_xi) of the CPU's exact chain, run on the card: the float32
+    product of ps and ``quantile_coefficients``, summed, and autograd."""
+    ps = ps.detach().clone().requires_grad_()
+    xi = freqs.detach().clone().requires_grad_()
+    e = torch.sum((ps if ps.dim() == 3 else ps[None])
+                  * quantile_coefficients(ws, xi[None, :, None]), dim=-1)
+    e.backward(grad)
+    return e.detach(), ps.grad, xi.grad
+
+
+def _pergenome_exact(g, c, n, seed, card, real):
+    ps, ws, _, _, freqs = pergenome_inputs(g, c, n, 1, seed, card, real=real)
+    grad = torch.randn(g, c, generator=torch.Generator().manual_seed(seed)).to(card)
+    return ps, ws, freqs, grad
+
+
+def _pergenome_exact_errors(ps, ws, freqs, grad) -> dict:
+    """``_exact_errors`` of both per-genome entry points on (ps, ws, freqs)
+    and the cotangent grad; checks the launch count, the shapes and that an
+    all-padding last item (G > 1) reads zero."""
+    g, c = grad.shape
+    n = ps.shape[1]
+    before = exact_coefficients.launches
+    e, tile_sums = exact_coefficients(ps, ws, freqs)
+    d_ps, d_xi = exact_coefficients_grad(ps, ws, freqs, tile_sums, grad)
+    torch.cuda.synchronize()
+    assert exact_coefficients.launches == before + 2
+    assert e.shape == (g, c) and d_ps.shape == ps.shape and d_xi.shape == (c,)
+    v3 = (g, c, n)
+    want = (exact_coefficients_reference(ps.double().view(v3), ws.double().view(v3),
+                                         freqs.double()),
+            *exact_coefficients_grad_reference(ps.double().view(v3), ws.double().view(v3),
+                                               freqs.double(), grad.double()))
+    plain = _plain_chain(ps.view(v3), ws.view(v3), freqs, grad)
+    if g > 1:  # the all-padding item
+        assert torch.equal(e[-1], torch.zeros_like(e[-1]))
+        assert torch.equal(d_ps[-c:], torch.zeros_like(d_ps[-c:]))
+    return _exact_errors((e, d_ps.view(v3), d_xi), want, plain, g - 1 if g > 1 else g)
+
+
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("n", [1, PERGENOME_TILE - 1, PERGENOME_TILE, PERGENOME_TILE + 1,
+                               100_003])
+def test_exact_rows_kernels_equal_float64_and_the_plain_chain(card, n, g):
+    """E, d_ps and d_xi of the per-genome route within ``plane_tolerance`` of
+    float64 and within the plain chain's own error of it; a fifth of each
+    item's points padding (one run, sorted together), at G = 3 a heavy item
+    and an all-padding item, whose E and d_ps are exactly zero."""
+    _assert_within(_pergenome_exact_errors(*_pergenome_exact(g, 32, n, 3 * n + g, card,
+                                                             n - n // 5)), plane_tolerance(32))
+
+
+def test_exact_rows_kernels_at_the_cell(card):
+    """At ``fsw_k10.train_exact``'s chunk: 16 items x 32 slices of 646,000
+    positions, 503,934 real, the last chunk's frequencies 480..511. The
+    error of E, d_ps and d_xi against float64 is under a tenth of the plain
+    chain's (its float32 scan over 646,000 weights reads 8e-3 in E on an
+    H100, the kernels' compensated prefix 7e-5 to 1e-4: cbar rounded to
+    float32, times pi xi up to 511 pi, and the cancellation in E's sum)."""
+    ps, ws, _, grad = _pergenome_exact(16, 32, 646_000, 3200000004, card, 503_934)
+    freqs = torch.arange(480, 512, dtype=torch.float32, device=card)
+    worst = _pergenome_exact_errors(ps, ws, freqs, grad)
+    for name, err in worst.items():
+        assert err["kernel"] <= err["plain"] / 10, (name, worst)
+
+
+SHARED_EXACT_CASES = [(7, 512, 16, None), (3, 16, 6, None), (8, 64, 5, None),
+                      (7, 32, 3, 16 * EXACT_SHARED_TILE + 1), (5, 32, 2, None)]
+
+
+@pytest.mark.parametrize("k,c,n,vocab", SHARED_EXACT_CASES)
+def test_exact_shared_kernels_equal_float64_and_the_plain_chain(card, k, c, n, vocab):
+    """E, d_ps (summed over the items) and d_xi of the shared route at the
+    training cell (16 items, 512 slices, V = 8,192: weights staged), k = 3, k
+    = 8 and V = 8,193, one position past the staging (weights from device
+    memory), one real item; absent k-mers, and the last item all zero: its E
+    exactly zero. Within ``plane_tolerance`` of float64 and within the plain chain's
+    own error of it."""
+    ps, perm, wn, freqs, _ = refresh_inputs(k, c, n, 500 * k + c, card, vocab)
+    grad = torch.randn(n, c, generator=torch.Generator().manual_seed(c)).to(card)
+    before = exact_coefficients.launches
+    e = exact_coefficients_shared(ps, perm, wn, freqs)
+    d_ps, d_xi = exact_coefficients_shared_grad(ps, perm, wn, freqs, grad)
+    torch.cuda.synchronize()
+    assert exact_coefficients.launches == before + 2
+    assert e.shape == (n, c) and d_ps.shape == ps.shape and d_xi.shape == (c,)
+    wsb64 = wn.double()[:, perm.long()]
+    want = (exact_coefficients_reference(ps.double(), wsb64, freqs.double()),
+            *exact_coefficients_grad_reference(ps.double(), wsb64, freqs.double(),
+                                               grad.double()))
+    del wsb64
+    plain = _plain_chain(ps, wn[:, perm.long()], freqs, grad)
+    worst = _exact_errors((e, d_ps, d_xi), want, plain, n - 1)
+    _assert_within(worst, plane_tolerance(c))
+    assert torch.equal(e[-1], torch.zeros_like(e[-1]))
+
+
+def test_exact_shared_tile_is_the_hosts(card):
+    assert exact_shared_tile() == EXACT_SHARED_TILE
+    assert exact_shared_scratch_bytes(16, 512, 8192) == 0  # staged on an H100
+    assert exact_shared_scratch_bytes(16, 512, 32_896) == 8 * 16 * 512 * 65
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_exact_kernels_are_deterministic(card, shared):
+    """No float atomics: two launches of each entry point give the same bits."""
+    if shared:
+        ps, perm, wn, freqs, _ = refresh_inputs(7, 128, 9, 21, card)
+        grad = torch.randn(9, 128, device=card)
+        runs = [(exact_coefficients_shared(ps, perm, wn, freqs),
+                 *exact_coefficients_shared_grad(ps, perm, wn, freqs, grad)) for _ in range(2)]
+    else:
+        ps, ws, freqs, grad = _pergenome_exact(2, 64, 100_003, 5, card, 90_000)
+        runs = []
+        for _ in range(2):
+            e, tile_sums = exact_coefficients(ps, ws, freqs)
+            runs.append((e, tile_sums, *exact_coefficients_grad(ps, ws, freqs, tile_sums, grad)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _grown(fn) -> int:
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def test_exact_kernels_memory_is_their_outputs_and_tile_partials(card):
+    """Each launch allocates its outputs and its tile partials
+    (``exact_rows_scratch_bytes``, ``exact_shared_scratch_bytes``): nothing
+    of size (B*C, N) but the backward's d_ps, no (B, C, V) gather."""
+    g, c, n = 4, 64, 200_000
+    ps, ws, freqs, grad = _pergenome_exact(g, c, n, 9, card, None)
+    rows = g * c
+    slack = 5 * 512  # the allocator's rounding of each block
+    assert _grown(lambda: exact_coefficients(ps, ws, freqs)) <= (
+        exact_rows_scratch_bytes(rows, n) + 4 * rows + slack)
+    _, tile_sums = exact_coefficients(ps, ws, freqs)
+    grown = _grown(lambda: exact_coefficients_grad(ps, ws, freqs, tile_sums, grad))
+    assert grown <= 4 * rows * n + 4 * rows * pergenome_tiles(n) + 4 * c + slack
+    assert grown < 2 * 4 * rows * n
+    b, c, v = 16, 512, 8192
+    ps, perm, wn, freqs, _ = refresh_inputs(7, c, b, 10, card)
+    grad = torch.randn(b, c, device=card)
+    scratch = exact_shared_scratch_bytes(b, c, v)
+    assert _grown(lambda: exact_coefficients_shared(ps, perm, wn, freqs)) <= (
+        scratch + 4 * b * c + slack)
+    assert _grown(lambda: exact_coefficients_shared_grad(ps, perm, wn, freqs, grad)) <= (
+        scratch + 4 * c * v + 4 * c + slack)
+
+
+@pytest.mark.parametrize("shared,chunk", [(False, 0), (False, 8), (True, 0), (True, 8)])
+def test_exact_training_step_counts_its_launches(card, shared, chunk):
+    """A step of the exact route under autograd launches the coefficients once
+    forward and once backward a chunk, and once more a chunk for the
+    recompute where the slices are chunked (``fsw_k10.train_exact``: 16
+    chunks, 48; ``fsw_k7.train_exact``: 2); each launch under the span
+    ``fsw.exact.coefficients``; inference once a chunk and no span. The
+    card's step equals the CPU's plain chain to the FSW forward's cuda-vs-cpu
+    tolerance."""
+    from kf2vecfsw_tpu_torch.utils import phases
+
+    k, c = (5, 32) if shared else (10, 32)
+    gen = torch.Generator().manual_seed(31)
+    model = init_fsw_dist_embed_(FSWDistEmbed(k, 2, c, 16, 8), gen)
+    if shared:
+        x = torch.rand(6, fsw_model.canonical_vocab_size(k), generator=gen)
+        x[x < 0.2] = 0.0
+    else:
+        x = torch.zeros(6, 3000, k + 1)
+        x[..., :k] = torch.randint(0, 4, (6, 3000, k), generator=gen).float()
+        x[:, :2500, -1] = torch.rand(6, 2500, generator=gen)
+    cot = torch.randn(6, 8, generator=gen)
+    grads = {}
+    for dev in ("cpu", card):
+        m = FSWDistEmbed(k, 2, c, 16, 8)
+        m.load_state_dict(model.state_dict())
+        m = m.to(dev)
+        before = exact_coefficients.launches
+        with phases.collect() as stats:
+            out = m(x.to(dev), chunk)
+            out.backward(cot.to(dev))
+        chunks = c // chunk if chunk else 1
+        if dev == "cpu":
+            assert exact_coefficients.launches == before
+            assert "fsw.exact.coefficients" not in stats
+        else:
+            assert exact_coefficients.launches == before + (3 if chunk else 2) * chunks
+            assert "fsw.exact.coefficients" in stats
+            before = exact_coefficients.launches
+            with phases.collect() as quiet, torch.no_grad():
+                m(x.to(dev), chunk)
+            assert exact_coefficients.launches == before + chunks
+            assert "fsw.exact.coefficients" not in quiet
+        grads[str(dev)] = (out.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    (out_cpu, g_cpu), (out_gpu, g_gpu) = grads["cpu"], grads[str(card)]
+    np.testing.assert_allclose(out_gpu.numpy(), out_cpu.numpy(), rtol=1e-3, atol=1e-4)
+    for name, g in g_cpu.items():
+        assert rel_err(g_gpu[name], g) < 1e-3, name
