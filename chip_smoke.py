@@ -120,6 +120,18 @@ non-zero without one. Phases, each of which fails the run if it fails:
      serving the 32 queries, 4 of them again on the CPU (within
      FSW_RTOL / FSW_ATOL); the cluster path must launch in the lazy and the
      exact training and in the query;
+   - fsw_k9: FSW at k=9 (V = 131,072, upstream's largest canonical
+     vocabulary: every training sort takes ``sort_rows``' cluster path, and
+     the shared kernels read the weights unstaged) at full width
+     on one subtree of 8 random genomes of 300-400 kb: ``get_kmers -k 9`` on
+     cuda and on cpu (`.npy` bytes identical), ``train_model_set`` with
+     default flags (lazy, shared-vocab) and ``-fsw_lazy_refresh 0`` (exact),
+     2 epochs each on the card and on the CPU (checkpoints and exports
+     within the FSW rebuild's tolerances), and ``query`` of 2 genomes on the
+     card and on the CPU (within FSW_RTOL / FSW_ATOL, the export too); then
+     the timings of fsw_k9's shapes: the lazy refresh's planes kernel at 850
+     items, the training chunk's sort (128 x 131,072) and its exact
+     coefficient kernels on 16 items;
    - fsw_k10: FSW at k=10 (V = 524,800) at full width on a backbone of 16
      random genomes of 300-400 kb (1% N, ``-size 8``), whose point sets of
      about 230,000-290,000 k-mers put every sort on the radix path:
@@ -497,6 +509,20 @@ RADIX_KERNELS = ("radix_upsweep_kernel_digits", "radix_scan_kernel", "radix_down
 # C6: one shared-route lazy refresh at k = 9 widths (V = 131,072, 512
 # slices) of C6_ITEMS items in groups of pick_refresh_group's G
 K9, C6_ITEMS = 9, 16
+V9 = canonical_vocab_size(K9)
+# FSW at k=9 (V = 131,072, upstream's largest canonical vocabulary) on one
+# subtree of K9_LEAVES random genomes of 300-400 kb (1% N): each holds about
+# 100,000-120,000 distinct canonical 9-mers, past V / 3, so the clade trains
+# on the shared route, whose every sort of C x V takes sort_rows' cluster path
+# and whose kernels read the weights from device memory (V is past the
+# staging); K9_QUERIES genomes queried on the card and on the CPU
+K9_LEAVES, K9_GENOME, K9_QUERIES, FSW_K9_EPOCHS = 8, (300_000, 400_000), 2, 2
+# the lazy refresh of fsw_k9's subtree (850 items, 512 slices, V = 131,072),
+# timed on random weights
+K9_REFRESH_ITEMS = 850
+# fsw_k9.train_exact's training chunk: a sort of 128 slices of the vocabulary
+# (one weight row), and the coefficient kernels on its 16 items
+K9_TRAIN_CHUNK = 128
 # a measured device peak against a count: the caching allocator hands out a
 # block up to 1 MiB larger than asked, and a stage holds a few dozen blocks
 C5_ALLOC_SLACK = 64 << 20
@@ -1776,30 +1802,87 @@ def phase_train_fsw(work: str, paths: dict, q_dir: str, q_names: list[str]) -> d
 # -- phase 4c': FSW at k=8 --------------------------------------------------------
 
 
-def train_fsw_k8(feats: str, tree_dir: str, out_dir: str, dev: str, route: str,
-                 clades: tuple[int, ...] | None) -> dict[str, int]:
-    """train_model_set at k=8 on `dev` (every subtree, or `clades`) for
-    FSW_K8_EPOCHS epochs with the route's flags; checks its route lines and
-    returns its launches."""
+def train_fsw_shared(k: int, epochs: int, feats: str, tree_dir: str, out_dir: str, dev: str,
+                     route: str, clades: tuple[int, ...] | None = None) -> dict:
+    """train_model_set at k on `dev` (every subtree, or `clades`) for `epochs`
+    epochs on the shared route, lazy (default flags) or exact
+    (-fsw_lazy_refresh 0); checks its route lines and, on the card, that
+    every training sort took the cluster path (an export sorts each
+    genome's own padded point set, on the path its length takes) and each
+    route launched its kernels (on the CPU none); returns its launches,
+    seconds, steps, refresh seconds and peak."""
     os.makedirs(out_dir, exist_ok=True)
     flags = ("-fsw_lazy_refresh", "0") if route == "exact_shared" else ()
     only = ("-clade", *map(str, clades)) if clades is not None else ()
-    _, launches = counted(cli_main, [
-        "train_model_set", "-input_dir", feats, "-subtrees", os.path.join(tree_dir, "tree.subtrees"),
-        "-true_dist", tree_dir, "-o", out_dir, "-e", str(FSW_K8_EPOCHS), *flags, *only,
-        "-device", dev])
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainerClock() as clock:
+        _, launches = counted(cli_main, [
+            "train_model_set", "-input_dir", feats, "-subtrees",
+            os.path.join(tree_dir, "tree.subtrees"), "-true_dist", tree_dir, "-o", out_dir,
+            "-e", str(epochs), *flags, *only, "-device", dev])
     n = len(clades) if clades is not None else len(set(read_subtree_rows(tree_dir).values()))
+    routes = fsw_routes(canonical_vocab_size(k))[route]
     lines = route_lines(out_dir)
-    check(lines == list(fsw_routes(V8)[route]) * n,
-          f"k=8 {route} on {dev}: route lines {lines}, expected {fsw_routes(V8)[route]} x {n}")
+    check(lines == list(routes) * n,
+          f"k={k} {route} on {dev}: route lines {lines}, expected {routes} x {n}")
+    steps = sum(s for s, _ in clock.epochs["distance"])
+    out = {"seconds": time.perf_counter() - t0, "launches": launches, "steps": steps,
+           "refreshes": len(clock.refresh_s), "refresh_s": [t for _, t in clock.refresh_s],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20 if dev == "cuda" else None}
+    check(("lazy" in route) == (out["refreshes"] > 0), f"k={k} {route}: {out['refreshes']} refreshes")
     if dev == "cpu":
-        check(not any(launches.values()), f"k=8 {route} on the CPU launched a kernel: {launches}")
+        check(not any(launches.values()), f"k={k} {route} on the CPU launched a kernel: {launches}")
     else:
-        check(launches["sort_rows_long"] >= 1,
-              f"k=8 {route}: the cluster path of sort_rows did not launch ({launches})")
+        training = launches["sort_rows"] - sum(e["sort_rows"] for e in clock.exports)
+        check(launches["sort_rows_long"] >= training >= 1,
+              f"k={k} {route}: training sorts off the cluster path ({launches}, exports "
+              f"{clock.exports})")
         check((launches["refresh_planes"] >= 1) == (route == "lazy_shared"),
-              f"k=8 {route}: refresh_planes launches ({launches})")
-    return launches
+              f"k={k} {route}: refresh_planes launches ({launches})")
+        check(exact_launches_fit(route, launches, clock.exports, steps),
+              f"k={k} {route}: exact_coefficients launches ({launches}) over {steps} steps and "
+              f"the exports {clock.exports}")
+    log(f"phase fsw_k{k} {route} on {dev}: {json.dumps(out)}")
+    return out
+
+
+def query_on_both(work: str, tag: str, feats: str, lib: str, k: int, clade: int,
+                  members: list[str], cpu_members: list[str]) -> dict:
+    """``query`` of `members`' point sets, all sent to subtree `clade` of the
+    FSW library `lib`, on the card, and of `cpu_members` on the CPU; checks
+    the rows, that the card sorted (one exact coefficient launch a sort) and
+    the CPU launched nothing, and holds the card's embeddings and the
+    library's exported ones to the CPU's within the FSW tolerances; returns
+    each device's launches and seconds and the tolerance used."""
+    query = {}
+    for dev, names in (("cuda", members), ("cpu", cpu_members)):
+        q_dir, q_out = (os.path.join(work, f"{tag}_{d}_{dev}") for d in ("q", "q_out"))
+        os.makedirs(q_dir)
+        os.makedirs(q_out)
+        for g in names:
+            os.symlink(os.path.join(feats, f"{g}_k{k}.npy"), os.path.join(q_dir, f"{g}_k{k}.npy"))
+        with open(os.path.join(q_dir, "classes.out"), "w") as f:
+            f.write("genome\ttop_class\n" + "".join(f"{g}\t{clade}\n" for g in names))
+        t1 = time.perf_counter()
+        _, query[dev] = counted(cli_main, ["query", "-input_dir", q_dir, "-model", lib,
+                                           "-classes", q_dir, "-o", q_out, "-device", dev])
+        query[f"{dev}_s"] = time.perf_counter() - t1
+    check(query["cuda"]["sort_rows"] >= 1
+          and query["cuda"]["exact_coefficients"] == query["cuda"]["sort_rows"]
+          and not any(query["cpu"].values()), f"{tag} query launches {query}")
+    emb = {dev: read_table(os.path.join(work, f"{tag}_q_out_{dev}", f"embedding_subtree_{clade}.emb"),
+                           header=False)[1] for dev in ("cuda", "cpu")}
+    _, exported = read_table(os.path.join(lib, f"embeddings_subtree_{clade}.csv"), header=False)
+    check(sorted(emb["cuda"]) == sorted(members) and sorted(emb["cpu"]) == sorted(cpu_members),
+          f"{tag} query rows")
+    tol = Tolerances()
+    for what, ref in (("query cuda", emb["cuda"]), ("export cuda", exported)):
+        tol.compare(f"{what} vs query cpu", np.array([ref[g] for g in cpu_members]),
+                    np.array([emb["cpu"][g] for g in cpu_members]), FSW_RTOL, FSW_ATOL)
+    tol.check_all(f"FSW {tag} embeddings, cuda vs the CPU's plain path")
+    return {**query, "tolerance_used": tol.used}
 
 
 def phase_fsw_k8(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict:
@@ -1832,8 +1915,9 @@ def phase_fsw_k8(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict
                                    ("exact_shared", (0,), (0,))):
         lib_gpu = lib if route == "lazy_shared" else os.path.join(work, f"lib_k8_{route}_cuda")
         lib_cpu = os.path.join(work, f"lib_k8_{route}_cpu")
-        launches[route] = train_fsw_k8(feats["cuda"], tree_dir, lib_gpu, "cuda", route, on_card)
-        train_fsw_k8(feats["cuda"], tree_dir, lib_cpu, "cpu", route, on_cpu)
+        launches[route] = train_fsw_shared(K8, FSW_K8_EPOCHS, feats["cuda"], tree_dir, lib_gpu,
+                                           "cuda", route, on_card)["launches"]
+        train_fsw_shared(K8, FSW_K8_EPOCHS, feats["cuda"], tree_dir, lib_cpu, "cpu", route, on_cpu)
         tol.subtree_models(lib_gpu, lib_cpu, clade_batches(clades, on_cpu), FSW_K8_EPOCHS, FSW_RTOL)
     check_subtree_models(lib, clades, "NeuralNetFSW", k=K8)
     log(f"phase fsw_k8: {len(points)} genomes, point sets of {min(points)}-{max(points)} k-mers "
@@ -1851,6 +1935,94 @@ def phase_fsw_k8(work: str, paths: dict, q_dir: str, q_names: list[str]) -> dict
            "point_sets": [min(points), max(points)], "tolerance_used": tol.used,
            "query": {key: query[key] for key in ("stage_s", "cuda_vs_cpu", "peak_mib")}}
     log(f"phase fsw_k8: {json.dumps(out)}")
+    return out
+
+
+# -- phase 4c (k=9): FSW at k=9 ----------------------------------------------------
+
+
+def k9_timings(dev) -> dict:
+    """At fsw_k9's shapes on the card: the lazy refresh's planes kernel over
+    K9_REFRESH_ITEMS items (unstaged: V is past the staging) beside its
+    bound; the training chunk's sort (K9_TRAIN_CHUNK rows of V on the
+    cluster path, one weight row) through ``phase_sort_timings``; and the
+    exact shared coefficient kernels on the chunk's 16 items, forward and
+    backward, beside their lane-work bounds (60 and 120 instructions a
+    coefficient)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    n, c = K9_REFRESH_ITEMS, FSW_OUT_DIM
+    digits = fsw_model.vocab_digits(K9, dev)
+    w = torch.rand(n, V9, generator=gen, device=dev)
+    w[w < 0.2] = 0.0  # absent k-mers
+    wn = fsw_model._normalized(w)
+    del w
+    ps, _, perm = sort_rows(torch.randn(c, V9, generator=gen, device=dev), wn[:1])
+    freqs = torch.arange(c, dtype=torch.float32, device=dev)
+    refresh_ms = cuda_ms(lambda: refresh_planes(ps, perm, wn, freqs, digits), reps=3, warmup=1)
+    out = {"refresh": {"shape": [n, c, V9], "ms": refresh_ms, "bound_ms": 1e3 * n * c * V9
+                       * REFRESH_INSTR_PER_COEFF / H100_LANE_INSTR_PER_S, "bound_by": "operations"}}
+    b, chunk = BATCH_SIZE, K9_TRAIN_CHUNK
+    cp, cperm, cwn = ps[:chunk].contiguous(), perm[:chunk].contiguous(), wn[:b].contiguous()
+    cxi = freqs[c - chunk:].contiguous()  # the last chunk's frequencies, the largest phases
+    grad = torch.randn(b, chunk, generator=gen, device=dev)
+    coefficients = b * chunk * V9
+    out["exact_shared"] = {
+        "shape": [b, chunk, V9],
+        "forward_ms": cuda_ms(lambda: exact_coefficients_shared(cp, cperm, cwn, cxi), reps=20),
+        "backward_ms": cuda_ms(lambda: exact_coefficients_shared_grad(cp, cperm, cwn, cxi, grad),
+                               reps=20),
+        "forward_bound_ms": 1e3 * 60 * coefficients / H100_LANE_INSTR_PER_S,
+        "backward_bound_ms": 1e3 * 120 * coefficients / H100_LANE_INSTR_PER_S}
+    del ps, perm, wn, digits
+    torch.cuda.empty_cache()
+    out["train_sort"] = phase_sort_timings(dev, (chunk, V9, 1), reps=20)
+    log(f"phase fsw_k9: timings {json.dumps(out)}")
+    return out
+
+
+def phase_fsw_k9(work: str) -> dict:
+    """FSW at k=9 through the CLI on the card against the CPU (see the module
+    docstring, phase 4)."""
+    t0 = time.perf_counter()
+    fna, tree_dir = divided_backbone(work, "k9", SEED + 90, K9_LEAVES, K9_GENOME, K9_LEAVES)
+    clades = read_subtree_rows(tree_dir)
+    check(set(clades.values()) == {0}, f"k=9: subtrees {sorted(set(clades.values()))}, not one")
+    feats, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        feats[dev] = os.path.join(work, f"k9_npy_{dev}")
+        _, launches[f"get_kmers_{dev}"] = counted(cli_main, [
+            "get_kmers", "-input_dir", fna, "-output_dir", feats[dev], "-k", str(K9),
+            "-device", dev])
+    same_files(feats["cuda"], feats["cpu"], (".npy",))
+    points = [np.load(os.path.join(feats["cuda"], f"{g}_k{K9}.npy"), mmap_mode="r").shape[0]
+              for g in clades]
+    check(V9 <= 3 * bucket_items(max(points), floor=128) and TILE_ELEMS < V9 <= CLUSTER_ELEMS,
+          f"k=9 point sets of {min(points)}-{max(points)} k-mers: not the shared route")
+    out = {"point_sets": [min(points), max(points)], "routes": {}}
+    tol = Tolerances()
+    libs = {}
+    for route in ("lazy_shared", "exact_shared"):
+        for dev in ("cuda", "cpu"):
+            libs[route, dev] = os.path.join(work, f"lib_k9_{route}_{dev}")
+            out["routes"][f"{route}_{dev}"] = train_fsw_shared(
+                K9, FSW_K9_EPOCHS, feats["cuda"], tree_dir, libs[route, dev], dev, route)
+        check_subtree_models(libs[route, "cuda"], clades, "NeuralNetFSW", k=K9)
+        tol.subtree_models(libs[route, "cuda"], libs[route, "cpu"], clade_batches(clades),
+                           FSW_K9_EPOCHS, FSW_RTOL)
+    log(f"phase fsw_k9: {len(points)} genomes, point sets of {min(points)}-{max(points)} k-mers "
+        f"(V = {V9}), .npy identical on cuda and cpu; lazy and exact training cuda vs cpu: "
+        f"tolerance used (max |a-b| / (atol + rtol |b|), at most 1) and largest differences "
+        f"{json.dumps(tol.used)}")
+    tol.check_all("FSW k=9 training cuda vs cpu")
+
+    # the lazy library's query of K9_QUERIES of its genomes, on the card and on the CPU
+    members = sorted(clades)[:K9_QUERIES]
+    out["query"] = query_on_both(work, "k9", feats["cuda"], libs["lazy_shared", "cuda"], K9, 0,
+                                 members, members)
+    out["tolerance_used"] = tol.used
+    out["timings"] = k9_timings(torch.device("cuda"))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase fsw_k9: {json.dumps(out)}")
     return out
 
 
@@ -2051,35 +2223,10 @@ def phase_fsw_k10(work: str) -> dict:
 
     # the query of K10_QUERIES backbone genomes, all sent to one subtree
     members = sorted(g for g, c in clades.items() if c == clade)[:K10_QUERIES]
-    query = {}
-    for dev, names in (("cuda", members), ("cpu", members[:2])):
-        q_dir, q_out = os.path.join(work, f"k10_q_{dev}"), os.path.join(work, f"k10_q_out_{dev}")
-        os.makedirs(q_dir)
-        os.makedirs(q_out)
-        for g in names:
-            os.symlink(os.path.join(feats, f"{g}_k{K10}.npy"), os.path.join(q_dir, f"{g}_k{K10}.npy"))
-        with open(os.path.join(q_dir, "classes.out"), "w") as f:
-            f.write("genome\ttop_class\n" + "".join(f"{g}\t{clade}\n" for g in names))
-        t1 = time.perf_counter()
-        _, query[dev] = counted(cli_main, ["query", "-input_dir", q_dir, "-model", lib,
-                                           "-classes", q_dir, "-o", q_out, "-device", dev])
-        query[f"{dev}_s"] = time.perf_counter() - t1
-    check(query["cuda"]["sort_rows"] >= 1 and query["cuda"]["sort_rows_long"] == 0
-          and query["cuda"]["sort_rows_radix"] == query["cuda"]["sort_rows"]
-          and query["cuda"]["exact_coefficients"] == query["cuda"]["sort_rows"]
-          and not any(query["cpu"].values()), f"k=10 query launches {query}")
-    _, emb_cuda = read_table(os.path.join(work, "k10_q_out_cuda", f"embedding_subtree_{clade}.emb"),
-                             header=False)
-    _, emb_cpu = read_table(os.path.join(work, "k10_q_out_cpu", f"embedding_subtree_{clade}.emb"),
-                            header=False)
-    _, exported = read_table(os.path.join(lib, f"embeddings_subtree_{clade}.csv"), header=False)
-    check(sorted(emb_cuda) == members and sorted(emb_cpu) == members[:2], "k=10 query rows")
-    tol = Tolerances()
-    for what, ref in (("query cuda", emb_cuda), ("export cuda", exported)):
-        tol.compare(f"{what} vs query cpu", np.array([ref[g] for g in members[:2]]),
-                    np.array([emb_cpu[g] for g in members[:2]]), FSW_RTOL, FSW_ATOL)
-    tol.check_all("FSW k=10 embeddings, cuda vs the CPU's plain path")
-    out["query"] = {**query, "tolerance_used": tol.used}
+    out["query"] = query_on_both(work, "k10", feats, lib, K10, clade, members, members[:2])
+    cuda = out["query"]["cuda"]
+    check(cuda["sort_rows_long"] == 0 and cuda["sort_rows_radix"] == cuda["sort_rows"],
+          f"k=10 query launches {out['query']}")
     out["memory"] = c5_readings(lib, feats, sorted(clades), clade)
     out["memory"]["shared_refresh_k9"] = c6_reading()
     out["seconds"] = time.perf_counter() - t0
@@ -3248,6 +3395,7 @@ def main() -> int:
         build, built = phase_build_library(work, q_dir, q_names)
         fsw = phase_train_fsw(work, built, q_dir, q_names)
         fsw_k8 = phase_fsw_k8(work, built, q_dir, q_names)
+        fsw_k9 = phase_fsw_k9(work)
         fsw_k10 = phase_fsw_k10(work)
         zoo_out = phase_zoo(paths["dense"]["out_dir"])
         chunk = phase_train_chunks(work, built, q_dir, q_names)
@@ -3311,6 +3459,11 @@ def main() -> int:
         + f"; the whole phase {model_axis['phase_s']:.1f} s")
     log(f"phase timings: fsw_k8 {fsw_k8['seconds']:.1f} s; the k=8 query's stages (s) "
         f"{json.dumps(fsw_k8['query']['stage_s'])}")
+    log(f"phase timings: fsw_k9 {fsw_k9['seconds']:.1f} s; the refresh at {K9_REFRESH_ITEMS} "
+        f"items {fsw_k9['timings']['refresh']['ms']:.3f} ms, the training chunk's sort "
+        f"{fsw_k9['timings']['train_sort']['ms']:.3f} ms, its coefficients forward "
+        f"{fsw_k9['timings']['exact_shared']['forward_ms']:.3f} and backward "
+        f"{fsw_k9['timings']['exact_shared']['backward_ms']:.3f} ms")
     log(f"phase timings: fsw_k10 {fsw_k10['seconds']:.1f} s (lazy training "
         f"{fsw_k10['lazy']['seconds']:.1f} s, its refreshes {json.dumps(fsw_k10['lazy']['refresh_s'])}, "
         f"exact {fsw_k10['exact']['seconds']:.1f} s, query on the card "
@@ -3342,6 +3495,10 @@ def main() -> int:
     by_path["kmer_hist"]["fsw_k8"] = sum(run["kmer_hist"] for run in fsw_k8["launches"].values())
     for path in ("lazy_shared", "exact_shared", "query"):
         by_path["sort_rows"][f"fsw_k8_{path}"] = fsw_k8["launches"][path]["sort_rows"]
+    for path in ("lazy_shared", "exact_shared"):
+        by_path["sort_rows"][f"fsw_k9_{path}"] = (
+            fsw_k9["routes"][f"{path}_cuda"]["launches"]["sort_rows"])
+    by_path["sort_rows"]["fsw_k9_query"] = fsw_k9["query"]["cuda"]["sort_rows"]
     by_path["kmer_hist"]["fsw_k10"] = fsw_k10["get_kmers_launches"]
     radix_launches = {"fsw_k10_lazy": fsw_k10["lazy"]["launches"]["sort_rows"],
                       "fsw_k10_exact": fsw_k10["exact"]["launches"]["sort_rows"],

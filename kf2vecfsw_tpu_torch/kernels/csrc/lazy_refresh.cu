@@ -160,8 +160,10 @@
 //   group, sums gE delta over the batch in registers, writes d_ps (C, V)
 //   once and d xi[c] from the warps' sums in double: nothing of size (B, C,
 //   V) is gathered or written. Bound: lane work, the B C V coefficients
-//   (6.7e7 at fsw_k7.train_exact): about 0.15 ms forward at 75 lane
-//   instructions a coefficient and 0.25 ms backward at 120.
+//   (6.7e7 at fsw_k7.train_exact): about 0.12 ms forward at 60 lane
+//   instructions a coefficient (delta alone) and 0.24 ms backward at 120
+//   (delta and its xi-derivative), as PERF.md and the benchmark's
+//   exact_coefficients_roofline.train count them.
 // No float atomics anywhere: two launches give the same bits.
 
 #include <cstdint>

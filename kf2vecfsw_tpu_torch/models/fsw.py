@@ -60,7 +60,11 @@ span ``fsw.exact.sort``, their unsorts under ``fsw.exact.unsort`` and the
 card's coefficient launches (recomputes included) under
 ``fsw.exact.coefficients``, and ``utils.phases.count`` adds every such
 sort's slots (rows x N, padding and recomputes included; a host integer
-from shapes) to ``fsw.exact.slots``.
+from shapes) to ``fsw.exact.slots``, and every coefficient call's
+coefficients (rows x N per genome, B x C x V shared; on the card in
+``CoefficientsPW`` and ``CoefficientsShared``, on the CPU around the plain
+chain) to ``fsw.exact.coefficients.forward`` (recomputes included) and
+``fsw.exact.coefficients.backward``.
 Inference (the export, ``query``, the serve daemon) marks and counts none
 of them.
 
@@ -180,11 +184,24 @@ class SortShared(torch.autograd.Function):
         return _exact_unsort(d_ps, perm), None
 
 
-def _coefficients_phase(ctx):
+COEFFICIENTS_FORWARD = "fsw.exact.coefficients.forward"
+COEFFICIENTS_BACKWARD = "fsw.exact.coefficients.backward"
+
+
+def _coefficients_phase(ctx, n: int):
     """The span ``fsw.exact.coefficients`` of a launch under autograd (a
-    training step's forward, a checkpointed chunk's recompute), as
-    ``_exact_sort``'s; inference marks none."""
-    return phase("fsw.exact.coefficients") if ctx.needs_input_grad[0] else contextlib.nullcontext()
+    training step's forward, a checkpointed chunk's recompute), which adds
+    its ``n`` coefficients to COEFFICIENTS_FORWARD, as ``_exact_sort``'s;
+    inference marks and counts none."""
+    if not ctx.needs_input_grad[0]:
+        return contextlib.nullcontext()
+    count(COEFFICIENTS_FORWARD, n)
+    return phase("fsw.exact.coefficients")
+
+
+def _coefficients_grad_phase(n: int):
+    count(COEFFICIENTS_BACKWARD, n)
+    return phase("fsw.exact.coefficients")
 
 
 class CoefficientsPW(torch.autograd.Function):
@@ -196,7 +213,7 @@ class CoefficientsPW(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ps, ws, xi):
-        with _coefficients_phase(ctx):
+        with _coefficients_phase(ctx, ps.numel()):
             e, tile_sums = exact_coefficients(ps, ws, xi)
         ctx.save_for_backward(ps, ws, xi, tile_sums)
         return e
@@ -204,7 +221,7 @@ class CoefficientsPW(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ps, ws, xi, tile_sums = ctx.saved_tensors
-        with phase("fsw.exact.coefficients"):
+        with _coefficients_grad_phase(ps.numel()):
             d_ps, d_xi = exact_coefficients_grad(ps, ws, xi, tile_sums, g.contiguous())
         return d_ps, None, d_xi
 
@@ -218,7 +235,7 @@ class CoefficientsShared(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ps, perm, wn, xi):
-        with _coefficients_phase(ctx):
+        with _coefficients_phase(ctx, wn.shape[0] * ps.numel()):
             e = exact_coefficients_shared(ps, perm, wn, xi)
         ctx.save_for_backward(ps, perm, wn, xi)
         return e
@@ -226,9 +243,28 @@ class CoefficientsShared(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ps, perm, wn, xi = ctx.saved_tensors
-        with phase("fsw.exact.coefficients"):
+        with _coefficients_grad_phase(wn.shape[0] * ps.numel()):
             d_ps, d_xi = exact_coefficients_shared_grad(ps, perm, wn, xi, g.contiguous())
         return d_ps, None, None, d_xi
+
+
+class CountedPlain(torch.autograd.Function):
+    """ps unchanged, counting the CPU's plain chain as ``CoefficientsPW`` and
+    ``CoefficientsShared`` count the card's launches: ``items`` x ps's
+    coefficients forward under autograd (a chunk's recompute included: this
+    runs before the chain saves anything) and as many in the backward."""
+
+    @staticmethod
+    def forward(ctx, ps, items):
+        ctx.n = items * ps.numel()
+        if ctx.needs_input_grad[0]:
+            count(COEFFICIENTS_FORWARD, ctx.n)
+        return ps.view_as(ps)
+
+    @staticmethod
+    def backward(ctx, g):
+        count(COEFFICIENTS_BACKWARD, ctx.n)
+        return g, None
 
 
 def _normalized(weights: torch.Tensor) -> torch.Tensor:
@@ -284,7 +320,7 @@ def fsw_embed(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Tensor,
         del p  # the keys die here: the sort holds the chunk's peak (auto_slice_chunk)
         if ps.is_cuda:
             return CoefficientsPW.apply(ps, ws, xi)
-        ps, ws = ps.view(b, c, n), ws.view(b, c, n)
+        ps, ws = CountedPlain.apply(ps, 1).view(b, c, n), ws.view(b, c, n)
         return torch.sum(ps * quantile_coefficients(ws, xi[None, :, None]), dim=-1)
 
     return _by_slice_chunks(chunk, slices, freqs, slice_chunk)
@@ -306,6 +342,7 @@ def fsw_embed_shared(slices: torch.Tensor, freqs: torch.Tensor, points: torch.Te
         if ps.is_cuda:
             return CoefficientsShared.apply(ps, perm, wn, xi)
         wsb = wn[:, perm.long()]  # (B, C, V): every genome's weights in the sorted order
+        ps = CountedPlain.apply(ps, wn.shape[0])
         return torch.sum(ps[None] * quantile_coefficients(wsb, xi[None, :, None]), dim=-1)
 
     return _by_slice_chunks(chunk, slices, freqs, slice_chunk)

@@ -8,7 +8,8 @@ and its shared and backward entry points) on the CPU, where no kernel runs.
   runs and an all-padding item, and shared with absent k-mers and an
   all-zero item; in float32 within the planes' tolerance of float64.
 - ``models.fsw``'s autograd Functions over those formulas in place of the
-  kernels: gradcheck in float64, the span ``fsw.exact.coefficients`` under
+  kernels: gradcheck in float64, the span ``fsw.exact.coefficients`` and
+  the counters ``fsw.exact.coefficients.forward`` and ``.backward`` under
   autograd only, ps and xi taking gradients and the weights none.
 - The wrappers refusing a CPU tensor, a wrong dtype, a wrong shape, a
   non-contiguous input and mixed devices before they load the library; the
@@ -196,6 +197,9 @@ def test_autograd_functions_mark_the_span_under_autograd_only(monkeypatch, share
         run(p, x).sum().backward()
     assert "fsw.exact.coefficients" in stats and len(calls) == 3
     assert p.grad is not None and x.grad is not None
+    # B x C x N coefficients each way: every item's weights over the shared
+    # order, or the B*C rows of the per-genome sort
+    assert stats[fsw.COEFFICIENTS_FORWARD] == stats[fsw.COEFFICIENTS_BACKWARD] == b * c * n
 
 
 def test_cpu_exact_forwards_launch_nothing():

@@ -1,13 +1,15 @@
 """The exact FSW training routes (``-fsw_lazy_refresh 0``, a sort at every
 step, as kf2vecFSW trains NeuralNetFSW) against the benchmark's plain
 float64 reference (``bench_port/reference/exact.py``), the checkpointed
-slice chunks against the unchunked forward, the exact forwards' counter
-(``utils.phases.count``) and the training chunk's memory count.
+slice chunks against the unchunked forward, the exact forwards' counters
+(``utils.phases.count``: slots and coefficients) and the training chunk's
+memory count.
 
-Small widths on the CPU: the shared-vocab route at k = 3, the per-genome
-route at k = 10 (past the shared gate), base_dim 2, 16 slices, hidden 32,
-embedding 16. The card-only test at the end runs the per-genome step at
-``fsw_k10.train_exact``'s shape (skips without a card)."""
+Small widths on the CPU: the shared-vocab route at k = 3 and at k = 9 (V =
+131,072), the per-genome route at k = 10 (past the shared gate), base_dim
+2, 16 slices, hidden 32, embedding 16. The card-only tests at the end run
+the per-genome layer at ``fsw_k10.train_exact``'s shape and the shared one
+at ``fsw_k9.train_exact``'s (skip without a card)."""
 
 import numpy as np
 import pytest
@@ -109,6 +111,38 @@ def test_exact_pergenome_steps_match_the_reference():
     assert_steps_match(prog, items, dist, BATCHES, LR)
 
 
+def test_exact_shared_steps_match_the_reference_at_k9():
+    """The shared-vocab route at k = 9, upstream's largest canonical
+    vocabulary (V = 131,072, ``fsw_k9.train_exact``'s), at small widths:
+    the steps on (n, V) weights against the reference on each genome's own
+    present k-mers. The genomes are the benchmark's kind (``bench_port``'s
+    ``genome_counts``: 200-400 kb, GC content 0.3-0.7, 66k-120k k-mers
+    present), whose embeddings differ as real genomes' do: with the same
+    uniform weights over 131,072 k-mers (``vocab_weights``) every genome's E
+    is nearly the mean one, and the loss's differences of embeddings
+    magnify E's float32 rounding into the gradients (4e-4 of their norm,
+    against 5e-6 at k = 3). The tolerances are ``assert_steps_match``'s:
+    the frequencies stay under 16 (C = 16), so the phase multiplies the
+    prefix sums' rounding no more than at k = 3, and the CPU's scan and E's
+    sums over V positions add little (here the losses read 2.4e-7 of the
+    reference's, the gradients 3.3e-6 of the largest entry, the changes
+    1.1e-4 of their norms)."""
+    from bench_port import inputs
+
+    k, n = 9, 12
+    gen = torch.Generator().manual_seed(12)
+    gc = np.random.default_rng(3).permutation(np.linspace(0.3, 0.7, n))
+    lengths = np.linspace(200_000, 400_000, n).round().astype(np.int64)
+    counts = inputs.genome_counts(gen, k, gc, lengths, torch.device("cpu"))
+    w = (counts / counts.sum(dim=1, keepdim=True)).float()
+    dist = true_dist(13, n)
+    assert fsw_model.shared_vocab_applicable(k, int((w > 0).sum(dim=1).max()), len(BATCHES[0]))
+    prog = program_steps(k, w, dist, BATCHES, LR)
+    digits = torch.from_numpy(ref_kmers.vocab_digits(k))
+    items = [(digits[row > 0], row[row > 0]) for row in w]
+    assert_steps_match(prog, items, dist, BATCHES, LR)
+
+
 def _forward_and_grads(model, x, slice_chunk):
     model.zero_grad(set_to_none=True)
     out = model(x, slice_chunk)
@@ -137,18 +171,24 @@ def test_exact_counters_by_hand(shared, chunk, resorted):
     """``fsw.exact.slots`` adds every exact sort's R x N under autograd: a
     forward's B x C x N per genome (padding included) or C x V shared, and as
     much again (``resorted`` %) where the chunks are recomputed in the
-    backward. Inference counts nothing."""
+    backward. ``fsw.exact.coefficients.forward`` adds every coefficient
+    call's B x C x N (per genome, the rows the sort gave) or B x C x V
+    (shared: every item's weights over the one order), the recompute's
+    included, and ``.backward`` as much once. Inference counts nothing."""
     if shared:
         x = vocab_weights(8, 3)
         once = C * x.shape[1]
+        coefficients = 3 * once
     else:
         x = torch.from_numpy(pad_point_sets(point_sets(8, [120, 33, 77])))
-        once = 3 * C * x.shape[1]
+        once = coefficients = 3 * C * x.shape[1]
     model = init_fsw_dist_embed_(FSWDistEmbed(K_SHARED if shared else K, BASE_DIM, C, HIDDEN,
                                               EMBED), torch.Generator().manual_seed(9))
     with phases.collect() as stats:
         model(x, chunk).sum().backward()
     assert stats["fsw.exact.slots"] == once * (100 + resorted) // 100
+    assert stats[fsw_model.COEFFICIENTS_FORWARD] == coefficients * (100 + resorted) // 100
+    assert stats[fsw_model.COEFFICIENTS_BACKWARD] == coefficients
     with phases.collect() as stats, torch.no_grad():
         model(x, chunk)  # inference (an export, a query): nothing marked or counted
     assert stats == {}
@@ -268,4 +308,48 @@ def test_training_chunk_fits_its_count_on_the_card():
     peak = torch.cuda.max_memory_allocated() - base
     counted = (chunk * fsw_model.slice_train_bytes(CARD_B, CARD_N) + 4 * CARD_B * CARD_N
                + 4 * CARD_B * CARD_N * d_in)
+    assert peak <= counted + ALLOC_SLACK, (chunk, peak, counted)
+
+
+K9_V = 131_072  # fsw_k9.train_exact: 16 items over k = 9's vocabulary, 512 slices
+
+
+@pytest.mark.cuda
+def test_shared_training_chunk_at_k9_fits_its_count_on_the_card():
+    """At ``fsw_k9.train_exact``'s shape (16 weight rows over V = 131,072,
+    512 slices, k = 9) the shared FSW layer's forward and backward, in the
+    training chunks ``auto_slice_chunk`` picks (128 on an 80 GB card),
+    allocate no more than the chunk's ``slice_train_bytes`` beside the
+    weights and the points' gradient. The count is the CPU chain's (17 f32
+    buffers of (B*c, V)); the card's kernels hold no (B, c, V) buffer, so
+    the peak sits far below it (PERF.md, Open questions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sort kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    assert canonical_vocab_size(9) == K9_V
+    d_in = 9 * 4
+    chunk = fsw_model.auto_slice_chunk(CARD_B, K9_V, CARD_C, dev, training=True)
+    assert 8 <= chunk < CARD_C
+
+    def layer():
+        points = torch.randn(K9_V, d_in, generator=gen, device=dev).requires_grad_(True)
+        w = torch.rand(CARD_B, K9_V, generator=gen, device=dev)
+        slices = torch.randn(CARD_C, d_in, generator=gen, device=dev).requires_grad_(True)
+        freqs = torch.arange(CARD_C, device=dev, dtype=torch.float32).requires_grad_(True)
+        g = torch.randn(CARD_B, CARD_C, generator=gen, device=dev)
+        return points, w, slices, freqs, g
+
+    # a first step: cuBLAS's workspace and the kernels' first launch
+    points, w, slices, freqs, g = layer()
+    fsw_model.fsw_embed_shared(slices, freqs, points, w, chunk).backward(g)
+    points, w, slices, freqs, g = layer()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fsw_model.fsw_embed_shared(slices, freqs, points, w, chunk).backward(g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counted = (chunk * fsw_model.slice_train_bytes(CARD_B, K9_V) + 4 * CARD_B * K9_V
+               + 4 * K9_V * d_in)
     assert peak <= counted + ALLOC_SLACK, (chunk, peak, counted)

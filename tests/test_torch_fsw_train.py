@@ -1,9 +1,9 @@
 """The port's FSW training forwards against the JAX package's, on the same numpy
 parameters and inputs (k=4 so V=136, base_dim 2, 16 slices, H 32, E 16, B 3):
-value and gradient of the exact per-genome and shared-vocab forwards, the
-sort's backward, the lazy route's refreshes and its forward at a fresh
-permutation, the lazy gate, the vocab weights and the Adam state of an FSW
-model.
+value and gradient of the exact per-genome and shared-vocab forwards (the
+shared one also at k=9, V=131,072), the sort's backward, the lazy route's
+refreshes and its forward at a fresh permutation, the lazy gate, the vocab
+weights and the Adam state of an FSW model.
 
 Every point set holds distinct k-mers and the projections are drawn from a
 normal law, so no two projections of a row tie and both packages sort them
@@ -46,7 +46,7 @@ V = canonical_vocab_size(K)
 N_PTS = 48
 
 
-def _params(seed):
+def _params(seed, k=K):
     rng = np.random.default_rng(seed)
 
     def linear(n_in, n_out):
@@ -56,7 +56,7 @@ def _params(seed):
 
     return {
         "lookup": rng.normal(size=(4, BASE_DIM)).astype(np.float32),
-        "fsw": {"slices": rng.normal(size=(D_OUT, K * BASE_DIM)).astype(np.float32),
+        "fsw": {"slices": rng.normal(size=(D_OUT, k * BASE_DIM)).astype(np.float32),
                 "freqs": np.arange(D_OUT, dtype=np.float32)},
         "fc1": linear(D_OUT, H),
         "fc2": linear(H, E),
@@ -77,9 +77,9 @@ def _point_sets(seed, lengths=(40, 17, 48), n=N_PTS, k=K):
     return x
 
 
-def _vocab_weights(seed, n=B):
+def _vocab_weights(seed, n=B, v=V):
     rng = np.random.default_rng(seed)
-    w = rng.random((n, V)).astype(np.float32)
+    w = rng.random((n, v)).astype(np.float32)
     w[w < 0.3] = 0.0  # absent k-mers
     return w
 
@@ -126,16 +126,21 @@ def _port_value_and_grad(fwd, model, cot):
 
 
 @pytest.mark.parametrize("slice_chunk", [0, 8])
-@pytest.mark.parametrize("route", ["pergenome", "shared"])
+@pytest.mark.parametrize("route", ["pergenome", "shared", "shared_k9"])
 def test_exact_forward_value_and_grads_match_jax(route, slice_chunk):
-    params = _params(0)
+    """``shared_k9``: the shared route at k = 9, upstream's largest vocabulary
+    (V = 131,072, the largest the shared route takes; on the card its sorts
+    take ``sort_rows``' cluster path and its coefficient kernels the
+    unstaged variant), at the same tolerances."""
+    k = 9 if route == "shared_k9" else K
+    params = _params(0, k)
     cot = np.random.default_rng(1).normal(size=(B, E)).astype(np.float32)
     if route == "pergenome":
         x = _point_sets(2)
         apply = lambda p, a: jfsw.fsw_dist_embed_apply(p, a, slice_chunk=slice_chunk)
     else:
-        x = _vocab_weights(2)
-        digits = jfsw._vocab_digits_dev(K)
+        x = _vocab_weights(2, v=canonical_vocab_size(k))
+        digits = jfsw._vocab_digits_dev(k)
         apply = lambda p, a: jfsw.fsw_dist_embed_apply_shared(p, a, digits,
                                                                slice_chunk=slice_chunk)
     ref, ref_grads = _jax_value_and_grad(apply, params, jnp.asarray(x), cot)

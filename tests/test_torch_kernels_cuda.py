@@ -41,8 +41,9 @@ and ``exact_coefficients_shared``, forward and backward): against float64
 and against the plain chain's autograd on the card, per genome at N in {1,
 tile - 1, tile, tile + 1, 100,003} with padding runs and an all-padding
 item, and at ``fsw_k10.train_exact``'s chunk (16 x 32 rows of 646,000);
-shared at ``fsw_k7.train_exact``'s 16 x 512 x 8,192 (staged), k = 3, k = 8
-and V = 8,193, one position past the staging (weights from device memory), absent k-mers
+shared at ``fsw_k7.train_exact``'s 16 x 512 x 8,192 (staged), k = 3, k = 8,
+V = 8,193, one position past the staging (weights from device memory), and
+16 x 64 x 131,072 (k = 9, unstaged), absent k-mers
 and an all-zero item every time; two launches bit-equal; their device memory
 their outputs and tile partials; ``exact_coefficients.launches`` one a
 call, and a training step's count by route and chunks.
@@ -1168,7 +1169,8 @@ def test_exact_rows_kernels_at_the_cell(card):
 
 
 SHARED_EXACT_CASES = [(7, 512, 16, None), (3, 16, 6, None), (8, 64, 5, None),
-                      (7, 32, 3, 16 * EXACT_SHARED_TILE + 1), (5, 32, 2, None)]
+                      (7, 32, 3, 16 * EXACT_SHARED_TILE + 1), (5, 32, 2, None),
+                      (9, 64, 16, None)]
 
 
 @pytest.mark.parametrize("k,c,n,vocab", SHARED_EXACT_CASES)
@@ -1176,7 +1178,9 @@ def test_exact_shared_kernels_equal_float64_and_the_plain_chain(card, k, c, n, v
     """E, d_ps (summed over the items) and d_xi of the shared route at the
     training cell (16 items, 512 slices, V = 8,192: weights staged), k = 3, k
     = 8 and V = 8,193, one position past the staging (weights from device
-    memory), one real item; absent k-mers, and the last item all zero: its E
+    memory), one real item, and k = 9's vocabulary (V = 131,072, 16 items:
+    ``fsw_k9.train_exact``'s unstaged path, 64 slices so that the plain
+    chain's buffers fit); absent k-mers, and the last item all zero: its E
     exactly zero. Within ``plane_tolerance`` of float64 and within the plain chain's
     own error of it."""
     ps, perm, wn, freqs, _ = refresh_inputs(k, c, n, 500 * k + c, card, vocab)
@@ -1261,7 +1265,9 @@ def test_exact_training_step_counts_its_launches(card, shared, chunk):
     forward and once backward a chunk, and once more a chunk for the
     recompute where the slices are chunked (``fsw_k10.train_exact``: 16
     chunks, 48; ``fsw_k7.train_exact``: 2); each launch under the span
-    ``fsw.exact.coefficients``; inference once a chunk and no span. The
+    ``fsw.exact.coefficients``; inference once a chunk and no span. Both
+    devices count the step's coefficients alike: B x C x N forward, twice
+    where chunked, and once backward. The
     card's step equals the CPU's plain chain to the FSW forward's cuda-vs-cpu
     tolerance."""
     from kf2vecfsw_tpu_torch.utils import phases
@@ -1287,6 +1293,9 @@ def test_exact_training_step_counts_its_launches(card, shared, chunk):
             out = m(x.to(dev), chunk)
             out.backward(cot.to(dev))
         chunks = c // chunk if chunk else 1
+        n = x.shape[0] * c * x.shape[1]  # B x C x V shared, B x C x N per genome
+        assert stats[fsw_model.COEFFICIENTS_FORWARD] == (2 if chunk else 1) * n
+        assert stats[fsw_model.COEFFICIENTS_BACKWARD] == n
         if dev == "cpu":
             assert exact_coefficients.launches == before
             assert "fsw.exact.coefficients" not in stats
